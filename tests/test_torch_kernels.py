@@ -1,0 +1,76 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+The kernels have no CPU mode, so every test here is marked ``cuda`` and
+skips without a card.  The module imports no jax, so it also runs where
+jax is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+Tolerances: f32 1e-4 (summation order); bf16 2e-2 (one bf16 ulp of an
+output of magnitude up to ~4, both sides rounding the same f32 result).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dmlc_tpu_torch.ops import flash_attention as tflash
+from dmlc_tpu_torch.ops import paged_attention as tpaged
+
+CASES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _randn(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CASES)
+@pytest.mark.parametrize("t", [64, 200, 77])
+def test_flash_kernel_matches_plain(card, dtype, tol, t):
+    rng = np.random.default_rng(t)
+    q, k, v = (_randn(rng, 2, t, 4, 128).to(card, dtype) for _ in range(3))
+    for causal in (True, False):
+        got = tflash.flash_attention(q, k, v, causal=causal)
+        want = tflash.flash_attention(q, k, v, causal=causal, impl="torch")
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_off,kv_off,tk", [(32, 32, 32), (0, 0, 40),
+                                             (8, 40, 24)])
+def test_flash_kernel_block_attend_offsets(card, q_off, kv_off, tk):
+    rng = np.random.default_rng(1)
+    q = _randn(rng, 1, 32, 2, 64).to(card)
+    k, v = (_randn(rng, 1, tk, 2, 64).to(card) for _ in range(2))
+    kw = dict(scale=64 ** -0.5, causal=True, q_offset=q_off,
+              kv_offset=kv_off)
+    for g, w in zip(tflash.block_attend(q, k, v, **kw),
+                    tflash.block_attend(q, k, v, impl="torch", **kw)):
+        assert torch.isfinite(g).all()
+        assert ((g - w).abs() / w.abs().clamp_min(1.0)).max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", CASES)
+@pytest.mark.parametrize("s_w", [1, 4])
+def test_paged_kernel_matches_plain(card, dtype, tol, s_w):
+    rng = np.random.default_rng(3)
+    bs, w, n_blocks, lengths = 16, 8, 40, [1, 15, 16, 17, 8 * 16 - s_w]
+    b = len(lengths)
+    tables = torch.from_numpy(rng.permutation(n_blocks)[:b * w].reshape(
+        b, w).astype(np.int32)).to(card)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=card)
+    q = _randn(rng, b, s_w, 4, 128).to(card, dtype)
+    kp, vp = (_randn(rng, n_blocks, bs, 4, 128).to(card, dtype)
+              for _ in range(2))
+    got = tpaged.paged_attention(q, kp, vp, tables, lens)
+    want = tpaged.paged_attention(q, kp, vp, tables, lens, impl="torch")
+    assert (got.float() - want.float()).abs().max().item() <= tol
