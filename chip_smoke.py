@@ -10,11 +10,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. device   the card's name; its name and power limit as nvidia-smi
             gives them, on a line of their own
 2. build    nvcc builds every kernel in ``dmlc_tpu_torch/ops/csrc``
+            (one process per source, all at once)
 3. flash    kernel K1 (flash-attention forward) against its plain
             PyTorch version on the card: B=1, H=16, D=128, T in
             {512, 1000}, causal and not, bf16 and f32, plus (pv, m, l)
             calls at non-zero offsets; kernel, plain and
             ``F.scaled_dot_product_attention`` (yardstick only) times
+   flash_bwd  kernels K2 (dK/dV) and K3 (dQ) against the plain backward
+            at the same shapes, then at the two train shapes (B=8 x
+            T=1024 and B=1 x T=8192, H=16, D=128, bf16, causal), where
+            K1's output is held against the plain forward too; at B=8 x
+            T=1024 each kernel alone, the plain backward and SDPA's
+            backward (yardstick only) timed
 4. paged    kernel K4 (paged decode attention) likewise: B=8, H=16,
             D=128, bf16 pools, block 16, windows S in {1, 4}
 5. slice    the flagship model (full width and depth, random weights
@@ -26,10 +33,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
             decode step are then held against the plain versions (gated
             on a float32 copy of the weights; bf16 reported beside its
             own rounding noise floor)
-   profile  device time by kernel category for one flagship prefill and
-            one decode step (torch.profiler), beside their wall times
-6. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
-            the main path, max error, times and roofline bound
+6. train    the flagship train step (remat save_flash, AdamW lr 1e-4)
+            at B=8 x T=1024: 2 warm-up and 8 timed steps on one batch,
+            losses finite and falling, exactly 16 launches of each of
+            K1, K2 and K3 per step (counts zeroed just before the timed
+            steps); step ms, tokens/s, MFU, peak memory
+   train_long  2 steps at B=1 x T=8192: finite losses, step ms, memory
+   train_grads  gradients of the loss through the kernels against the
+            plain versions on a float32 copy of the flagship at depth 2,
+            B=2, T=1024 (bf16 reported beside its own noise floor)
+   profile  device time by kernel category for one flagship prefill, one
+            decode step and one train step at each shape
+            (torch.profiler), beside their wall times
+7. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
+            its path, max error, times and roofline bound
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits with code 2 and prints no result.  Details go to
@@ -56,6 +73,12 @@ PEAK_BYTES = 3.35e12
 BF16_TOL = (2e-2, 2e-3)   # max, mean abs error: ~1 bf16 ulp of the output
 F32_TOL = 1e-4            # f32, summation order only
 LOGIT_TOL = 2e-2          # max |kernel - plain| / std(logits), f32 model
+# backward kernels, |g - g_plain| / |g_plain| per gradient: f32 summation
+# order only; bf16 one rounding of each gradient (an ulp is 2^-8 ~ 3.9e-3)
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+TRAIN_GRAD_TOL = 1e-4     # max over params of |dg| / |g_plain|, f32 model
+TRAIN_B, TRAIN_T = 8, 1024   # bench.py's train shapes
+LONG_T = 8192
 
 RESULTS = {}
 
@@ -71,9 +94,13 @@ def check(cond, msg):
 
 
 def time_ms(fn, iters=20, warmup=3):
+    """Device ms per call.  A ~20 ms spin kernel goes first, so the host
+    has enqueued the timed calls before the first one starts and a slow
+    host cannot stretch the events' interval."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(35_000_000)      # cycles: ~20 ms at 1.7-2 GHz
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -164,6 +191,119 @@ def flash_phase(fa):
               "kv_offset": kv_off, "Tq": tq, "Tk": tk, "o_err": e_o,
               "m_err": e_m, "l_rel_err": e_l})
     return main, worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3: K2 and K3
+# ---------------------------------------------------------------------------
+
+def rel_norm(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def bwd_inputs(gen, b, t, h, d, dtype, causal):
+    """q, k, v, dO from ``gen`` and the forward's (o, lse) from K1."""
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen,
+                               device="cuda").to(dtype) for _ in range(4))
+    o, lse = torch.ops.dmlc_tpu_torch.flash_attn_fwd(q, k, v, d ** -0.5,
+                                                     causal, None)
+    return q, k, v, o, lse, do
+
+
+def bwd_check(fa, args, row):
+    """K2 and K3 on ``args`` against the plain backward: each gradient's
+    relative-norm error within ``GRAD_TOL`` (and in f32 each element
+    within 3e-4 + 1e-3 |ref|); adds the errors to ``row`` and emits it."""
+    dtype = args[0].dtype
+    kw = dict(scale=row["D"] ** -0.5, causal=row["causal"])
+    got = fa.flash_backward(*args, **kw)
+    want = fa.flash_backward_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(g).all()), f"non-finite {name} {row}")
+        err = rel_norm(g, w)
+        mx = (g.float() - w.float()).abs().max().item()
+        check(err <= GRAD_TOL[dtype], f"{name} {row}: rel err {err}")
+        if dtype == torch.float32:
+            excess = ((g - w).abs() - 3e-4 - 1e-3 * w.abs()).max().item()
+            check(excess <= 0, f"{name} {row}: max abs {mx}")
+        row[f"{name}_rel_err"] = err
+        row[f"{name}_max_abs_err"] = mx
+    emit(row)
+    return row
+
+
+def fwd_check(fa, q, k, v, o):
+    """K1's ``o`` (from the op the train step calls) against the plain
+    forward, bf16 tolerances; returns the max abs error."""
+    want = fa.attention_reference(q, k, v, causal=True)
+    mx, mean = errors(o, want)
+    check(mx <= BF16_TOL[0] and mean <= BF16_TOL[1],
+          f"flash fwd B={q.shape[0]} T={q.shape[1]}: {mx} {mean}")
+    return mx, mean
+
+
+def flash_bwd_phase(fa):
+    """K2/K3 against the plain backward at B=1 (T 512, 1000, causal or
+    not, bf16 and f32), then at the two train shapes (bf16, causal), where
+    K1's forward is held against the plain one too; each kernel timed at
+    B=8 x T=1024.  Returns the timing rows and each kernel's max abs
+    error at that shape."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    h, d = 16, 128
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (512, 1000):
+            for causal in (True, False):
+                bwd_check(fa, bwd_inputs(gen, 1, t, h, d, dtype, causal),
+                          {"phase": "flash_bwd",
+                           "dtype": str(dtype).split(".")[1], "B": 1, "T": t,
+                           "H": h, "D": d, "causal": causal})
+    # the train step's shapes: B=8 x T=1024, and B=1 x T=8192 (the plain
+    # versions' T x T f32 tensors, ~4.3 GB each there, fit on the card)
+    for b, t in ((1, LONG_T), (TRAIN_B, TRAIN_T)):
+        q, k, v, o, lse, do = bwd_inputs(gen, b, t, h, d, torch.bfloat16, True)
+        fwd_mx, fwd_mean = fwd_check(fa, q, k, v, o)
+        main = bwd_check(fa, (q, k, v, o, lse, do),
+                         {"phase": "flash_bwd", "dtype": "bfloat16", "B": b,
+                          "T": t, "H": h, "D": d, "causal": True,
+                          "fwd_max_abs_err": fwd_mx,
+                          "fwd_mean_abs_err": fwd_mean})
+    torch.cuda.empty_cache()
+    # B=8 x T=1024: each kernel timed alone
+    kw = dict(scale=d ** -0.5, causal=True)
+    bwd = fa._Backward(q, k, v, o, lse, do, **kw)
+    ms = {"flash_bwd_dkv": time_ms(bwd.launch_dkv),
+          "flash_bwd_dq": time_ms(bwd.launch_dq)}
+    del bwd
+    plain_ms = time_ms(lambda: fa.flash_backward_reference(
+        q, k, v, o, lse, do, **kw), iters=5)
+    # yardstick: SDPA's backward alone, on a graph built once; one call
+    # computes K2's and K3's outputs together
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True))
+    del ot
+    pairs = b * h * t * (t + 1) // 2
+    el = q.element_size()
+    inputs = 4 * q.numel() * el + 2 * b * h * t * 4      # q dO k v, lse delta
+    rows = {}
+    for name, flops, out in (("flash_bwd_dkv", 8.0 * d * pairs, 2),
+                             ("flash_bwd_dq", 6.0 * d * pairs, 1)):
+        bnd, by = bound_ms(flops, inputs + out * q.numel() * el,
+                           torch.bfloat16)
+        rows[name] = {"ms": ms[name], "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bnd,
+                      "bound_by": by, "gflop": flops / 1e9}
+    emit({"phase": "flash_bwd_train_shape", "B": b, "T": t, "H": h, "D": d,
+          "dtype": "bfloat16", "causal": True,
+          "library": "SDPA backward, dq+dk+dv in one call", **rows})
+    errs = {"flash_bwd_dkv": max(main["dk_max_abs_err"],
+                                 main["dv_max_abs_err"]),
+            "flash_bwd_dq": main["dq_max_abs_err"]}
+    return rows, errs
 
 
 # ---------------------------------------------------------------------------
@@ -351,10 +491,12 @@ def slice_logits(tfm, model, cfg):
 
 def _category(name):
     low = name.lower()
-    if "flash_fwd_kernel" in low:
-        return "flash_fwd"
-    if "paged_attention_kernel" in low:
-        return "paged_attention"
+    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                   "paged_attention"):
+        if kernel + "_kernel" in low:
+            return kernel
+    if "multi_tensor_apply" in low or "adam" in low:
+        return "optimizer"
     if any(s in low for s in ("gemm", "cutlass", "nvjet", "xmma", "cublas")):
         return "gemm"
     if "memcpy" in low or "memset" in low:
@@ -362,10 +504,11 @@ def _category(name):
     return "other"
 
 
-def profile_phase(tfm, model, cfg):
-    """Device time by kernel category for one flagship prefill (T=512)
-    and one decode step (B=8), beside the step's wall time (host clock
-    around a synchronised call, profiler off); idle = 1 - busy / wall."""
+def profile_phase(tfm, model, cfg, train_steps):
+    """Device time by kernel category for one flagship prefill (T=512),
+    one decode step (B=8) and the train steps in ``train_steps`` (name
+    -> step), beside the step's wall time (host clock around a
+    synchronised call, profiler off); idle = 1 - busy / wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -373,7 +516,8 @@ def profile_phase(tfm, model, cfg):
     _, k, v = prefill(tfm, model, inp)
     kp, vp = decode_pools(cfg, k, v, inp)
     steps = {"prefill": lambda: prefill(tfm, model, inp),
-             "decode": lambda: decode(tfm, model, inp, kp, vp)}
+             "decode": lambda: decode(tfm, model, inp, kp, vp),
+             **train_steps}
     doc = {"phase": "profile"}
     for name, fn in steps.items():
         for _ in range(3):
@@ -389,11 +533,16 @@ def profile_phase(tfm, model, cfg):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        cats = {}
+        cats, kernels = {}, []
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            # a user annotation (the optimizer's record_function range)
+            # spans kernels already counted; its time is not added again
+            if (e.device_type == DeviceType.CUDA and e.self_device_time_total
+                    and not getattr(e, "is_user_annotation", False)):
                 c = _category(e.key)
                 cats[c] = cats.get(c, 0.0) + e.self_device_time_total / 1e3
+                kernels.append((e.self_device_time_total / 1e3, e.count,
+                                e.key[:100]))
         wall_ms = sorted(walls)[len(walls) // 2] * 1e3
         busy = sum(cats.values())
         host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
@@ -402,6 +551,8 @@ def profile_phase(tfm, model, cfg):
         doc[name] = {"wall_ms": wall_ms, "device_ms": cats,
                      "device_busy_ms": busy,
                      "idle_share": (1 - busy / wall_ms) if busy else None,
+                     "device_top_ms_calls": [[k, ms, n] for ms, n, k in
+                                             sorted(kernels)[::-1][:12]],
                      "host_top_ms_calls": [[k, ms, n] for ms, n, k in host]}
     return doc
 
@@ -432,6 +583,126 @@ def logit_checks(tfm, model, cfg):
                                                   r32["torch"][i])
         check(doc[f"{name}_rel_err_f32"] <= LOGIT_TOL,
               f"{name} logits rel err {doc[f'{name}_rel_err_f32']}")
+    return doc
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, b, t, seed):
+    """Random ids from a seeded generator, labels the ids shifted by one
+    (as bench.py's train benchmark)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab, (b, t), generator=gen, device="cuda")
+    return ids, ids.roll(-1, 1)
+
+
+def train_stats(tfm, cfg, b, t, walls):
+    wall = sorted(walls)[len(walls) // 2]
+    tok_s = b * t / wall
+    return {"step_ms_p50": wall * 1e3, "step_ms": [w * 1e3 for w in walls],
+            "tokens_per_s": tok_s,
+            # against the H100 SXM's dense bf16 peak (989 TFLOP/s)
+            "mfu": (tfm.train_flops_per_token(cfg, t) * tok_s
+                    / PEAK_FLOPS[torch.bfloat16]),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def timed_steps(step, ids, labels, n, kernels=()):
+    """``n`` synchronised steps: (wall seconds, losses, launches of each
+    kernel in each step)."""
+    walls, losses, launches = [], [], []
+    for _ in range(n):
+        before = [kern.launches for kern in kernels]
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        launches.append([kern.launches - n0
+                         for kern, n0 in zip(kernels, before)])
+    return walls, losses, launches
+
+
+def train_phase(tfm, fa, cfg):
+    """The flagship train step at B=8 x T=1024: 2 warm-up steps, then the
+    counters are zeroed and 8 steps timed on the same batch."""
+    model = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            "cuda")
+    step = tfm.make_train_step(model, tfm.adamw(model.parameters(), 1e-4))
+    ids, labels = train_batch(cfg, TRAIN_B, TRAIN_T, 1)
+    torch.cuda.reset_peak_memory_stats()
+    _, warm, _ = timed_steps(step, ids, labels, 2)
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
+               "flash_bwd_dq": fa.FLASH_BWD_DQ}
+    for kern in kernels.values():
+        kern.launches = 0
+    walls, losses, per_step = timed_steps(step, ids, labels, 8,
+                                          tuple(kernels.values()))
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    losses = warm + losses
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(all(n == [cfg.n_layers] * 3 for n in per_step),
+          f"launches per step {per_step}, want {cfg.n_layers} of each")
+    emit({"phase": "train", "model": "flagship", "B": TRAIN_B,
+          "T": TRAIN_T, "remat_policy": cfg.remat_policy, "lr": 1e-4,
+          "losses": losses, "launches_per_step": dict(zip(kernels,
+                                                          per_step[0])),
+          **train_stats(tfm, cfg, TRAIN_B, TRAIN_T, walls)})
+    emit({"phase": "launches_train", **launches})
+    return model, (lambda: step(ids, labels)), launches, step
+
+
+def train_long_phase(tfm, cfg, step):
+    """Two steps at the reference's long-context shape, B=1 x T=8192."""
+    ids, labels = train_batch(cfg, 1, LONG_T, 2)
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, _ = timed_steps(step, ids, labels, 2)
+    check(all(math.isfinite(x) for x in losses), f"long losses {losses}")
+    emit({"phase": "train_long", "B": 1, "T": LONG_T, "losses": losses,
+          **train_stats(tfm, cfg, 1, LONG_T, walls)})
+    return lambda: step(ids, labels)
+
+
+def grad_checks(tfm, cfg):
+    """Gradients of the loss through the kernels against the plain
+    versions, on a float32 copy of the flagship at full width and depth
+    2 (the plain attention's T x T tensors stay small), B=2, T=1024.  The
+    bf16 copy is reported beside its own noise floor (plain bf16 against
+    plain f32)."""
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    m32 = tfm.init_params(cfg32, torch.Generator("cuda").manual_seed(4),
+                          "cuda")
+    m16 = tfm.Transformer(dataclasses.replace(cfg32, dtype="bfloat16"),
+                          device="cuda")
+    with torch.no_grad():
+        for p16, p32 in zip(m16.parameters(), m32.parameters()):
+            p16.copy_(p32)
+    ids, labels = train_batch(cfg, 2, TRAIN_T, 3)
+
+    def grads(model, impl):
+        model.zero_grad(set_to_none=True)
+        tfm.unsharded_loss(model, ids, labels, impl=impl).backward()
+        out = [p.grad.float() for p in model.parameters()]
+        model.zero_grad(set_to_none=True)
+        return out
+
+    def worst(got, want):
+        # a gradient that is exactly 0 on the plain path (the one-expert
+        # gate) is held to 0 in absolute terms
+        return max(rel_norm(g, w) if w.norm() > 0 else g.norm().item()
+                   for g, w in zip(got, want))
+
+    g32 = {impl: grads(m32, impl) for impl in (None, "torch")}
+    g16 = {impl: grads(m16, impl) for impl in (None, "torch")}
+    doc = {"phase": "train_grads", "n_layers": 2, "B": 2, "T": TRAIN_T,
+           "rel_err_f32": worst(g32[None], g32["torch"]),
+           "rel_err_bf16": worst(g16[None], g16["torch"]),
+           "bf16_noise_floor": worst(g16["torch"], g32["torch"])}
+    check(doc["rel_err_f32"] <= TRAIN_GRAD_TOL,
+          f"train grads rel err {doc['rel_err_f32']}")
     return doc
 
 
@@ -475,6 +746,7 @@ def main() -> int:
     # 3. / 4. kernels against their plain versions
     prompt_lens = [int(x) for x in np.linspace(17, 511, 8)]
     k1, k1_err = flash_phase(fa)
+    k23, k23_err = flash_bwd_phase(fa)
     k4, k4_err = paged_phase(pa, prompt_lens)
 
     # 5. the slice
@@ -504,17 +776,36 @@ def main() -> int:
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     emit(logit_checks(tfm, model, cfg))
-    emit(profile_phase(tfm, model, cfg))
 
-    # 6. the kernels line
+    # 6. training
+    train_model, one_step, train_launches, step = train_phase(tfm, fa, cfg)
+    long_step = train_long_phase(tfm, cfg, step)
+    emit(grad_checks(tfm, cfg))
+    emit(profile_phase(tfm, model, cfg, {"train": one_step,
+                                         "train_long": long_step}))
+    del train_model, one_step, long_step, step
+
+    # 7. the kernels line: each kernel's launches on its own path (K1 and
+    # K4 serving, K2 and K3 training; K1 also runs 16 times per train step)
     kernels = []
-    for kname, src, replaces, row, err in (
+    for kname, src, replaces, row, err, path, counts in (
             ("flash_fwd", "dmlc_tpu_torch/ops/csrc/flash_fwd.cu",
-             "dmlc_tpu/ops/flash_attention.py:212", k1, k1_err),
+             "dmlc_tpu/ops/flash_attention.py:212", k1, k1_err, "serve",
+             launches),
+            ("flash_bwd_dkv", "dmlc_tpu_torch/ops/csrc/flash_bwd.cu",
+             "dmlc_tpu/ops/flash_attention.py:475",
+             k23["flash_bwd_dkv"], k23_err["flash_bwd_dkv"], "train",
+             train_launches),
+            ("flash_bwd_dq", "dmlc_tpu_torch/ops/csrc/flash_bwd.cu",
+             "dmlc_tpu/ops/flash_attention.py:501",
+             k23["flash_bwd_dq"], k23_err["flash_bwd_dq"], "train",
+             train_launches),
             ("paged_attention", "dmlc_tpu_torch/ops/csrc/paged_attention.cu",
-             "dmlc_tpu/ops/paged_attention.py:126", k4, k4_err)):
+             "dmlc_tpu/ops/paged_attention.py:126", k4, k4_err, "serve",
+             launches)):
         kernels.append({"name": kname, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[kname],
+                        "replaces": replaces, "path": path,
+                        "launches": counts[kname],
                         "max_abs_err": err, "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

@@ -8,8 +8,10 @@ TPU is a hand-written CUDA kernel here (``ops/csrc/``), built with
 ``nvcc`` at first use; each sits beside a plain PyTorch version that a
 CPU tensor is routed to.
 
-This first slice is the serving path: flagship-model prefill through the
-flash-attention forward kernel and paged decode through the paged
-attention kernel, behind a continuous-batching engine and an HTTP
-server (``python -m dmlc_tpu_torch.serving.serve``).
+Ported so far, on one card: the serving path (flagship-model prefill
+through the flash-attention forward kernel and paged decode through the
+paged-attention kernel, behind a continuous-batching engine and an HTTP
+server, ``python -m dmlc_tpu_torch.serving.serve``) and the training
+path (``models.transformer.make_train_step``: the flagship loss with
+per-block remat, flash attention's backward kernels, AdamW).
 """

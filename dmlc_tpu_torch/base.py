@@ -1,12 +1,14 @@
 """Error type and typed environment access (the port's own copy of the two
-names it needs from ``dmlc_tpu/base.py``)."""
+names it needs from ``dmlc_tpu/base.py``), and the port's device rule."""
 
 from __future__ import annotations
 
 import os
 from typing import Optional, Type, TypeVar
 
-__all__ = ["DMLCError", "get_env"]
+import torch
+
+__all__ = ["DMLCError", "get_env", "resolve_device"]
 
 
 class DMLCError(RuntimeError):
@@ -41,3 +43,18 @@ def get_env(key: str, default: _T, ty: Optional[Type[_T]] = None) -> _T:
     except (TypeError, ValueError) as exc:
         raise DMLCError(
             f"cannot parse env {key}={val!r} as {ty.__name__}") from exc
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else the current CUDA card; raises when no
+    card is present rather than carrying on on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise DMLCError("no CUDA device: the port runs on the GPU; pass "
+                            "device='cpu' to run the plain versions on the "
+                            "CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

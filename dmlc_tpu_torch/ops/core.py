@@ -58,9 +58,12 @@ def embed_lookup(embed: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-token cross entropy in float32.  logits: [..., V]; labels: [...]."""
+    """Per-token cross entropy in float32.  logits: [..., V]; labels: [...].
+    The max only stabilises the exp and is detached, as the reference's
+    ``lax.stop_gradient`` does: the gradient is the softmax either way,
+    and no ``amax`` backward (which splits ties) runs."""
     logits = logits.float()
-    m = logits.amax(dim=-1)
+    m = logits.amax(dim=-1).detach()
     lse = torch.log(torch.exp(logits - m[..., None]).sum(dim=-1)) + m
     correct = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse - correct

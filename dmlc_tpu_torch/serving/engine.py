@@ -30,7 +30,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from ..base import DMLCError, get_env
+from ..base import DMLCError, get_env, resolve_device
 from ..models.transformer import (Transformer, forward_decode_paged,
                                   forward_prefill_last)
 from ..ops.flash_attention import FLASH_FWD
@@ -51,21 +51,6 @@ class AdmissionFull(DMLCError):
 
 class RequestTooLarge(DMLCError):
     """The request could never fit the KV pool, even alone (HTTP 413)."""
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else the current CUDA card; raises when no
-    card is present rather than carrying on on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise DMLCError("no CUDA device: the port runs on the GPU; pass "
-                            "device='cpu' to run the plain versions on the "
-                            "CPU")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def kernel_launches() -> Dict[str, int]:

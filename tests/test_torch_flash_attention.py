@@ -1,17 +1,22 @@
-"""Port parity: the flash-attention forward (K1's plain version) against
-dmlc_tpu's Pallas kernel in interpret mode and its oracles.
+"""Port parity: flash attention's plain versions (K1's forward, K2/K3's
+backward) against dmlc_tpu's Pallas kernels in interpret mode and its
+oracles.
 
 The shapes are those of tests/test_flash_attention.py: aligned (T=64,
 blocks 32) and unaligned tails (T=200, 77 with blocks 64).  Float32 on
-the CPU; 2e-5 is the JAX suite's own kernel-vs-oracle bound.  The
-CUDA kernel itself is checked in tests/test_torch_kernels.py."""
+the CPU.  Forward: 2e-5, the JAX suite's own kernel-vs-oracle bound.
+Backward: 1e-4 (abs and rel): the gradients sum T products of O(1)
+terms in another order than the reference.  The CUDA kernels
+themselves are checked in tests/test_torch_kernels.py."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from dmlc_tpu.ops.flash_attention import _flash_attn_impl, _flash_backward
 from dmlc_tpu.ops.flash_attention import flash_attention as jflash
 from dmlc_tpu.ops.flash_attention import lax_block_attend
 from dmlc_tpu.parallel.ring_attention import ring_attention_reference
@@ -19,6 +24,7 @@ from dmlc_tpu_torch.base import DMLCError
 from dmlc_tpu_torch.ops import flash_attention as tflash
 
 TOL = 2e-5
+GRAD_TOL = 1e-4
 
 
 def _qkv(seed, b, tq, tk, h, d):
@@ -70,11 +76,98 @@ def test_block_attend_reference_matches_lax_with_offsets(q_off, kv_off, tk):
     assert all(torch.isfinite(g).all() for g in got)
 
 
-def test_flash_attention_is_forward_only():
+def _torch_grads(q, k, v, w, causal):
+    """d/dq,k,v of sum(flash_attention(q, k, v) * w) through the op."""
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    o = tflash.flash_attention(*ts, causal=causal)
+    (o * torch.from_numpy(w)).sum().backward()
+    return [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t,block", [(64, 32), (200, 64), (77, 64)])
+def test_flash_gradients_match_jax_grad(causal, t, block):
+    """The port's backward (custom op, plain versions on the CPU) against
+    jax.grad through the reference's custom VJP, whose backward runs the
+    dK/dV and dQ Pallas kernels in interpret mode, and against jax.grad
+    of the dense oracle."""
+    q, k, v = _qkv(5, 1, t, t, 2, 128)
+    w = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
+    got = _torch_grads(q, k, v, w, causal)
+
+    def f_flash(q, k, v):
+        o = jflash(q, k, v, causal=causal, block_q=block, block_k=block,
+                   interpret=True)
+        return jnp.sum(o * w)
+
+    def f_ref(q, k, v):
+        return jnp.sum(ring_attention_reference(q, k, v, causal=causal) * w)
+
+    args = tuple(jnp.asarray(a) for a in (q, k, v))
+    for f in (f_flash, f_ref):
+        want = jax.grad(f, argnums=(0, 1, 2))(*args)
+        for g, w_ in zip(got, want):
+            np.testing.assert_allclose(g, np.asarray(w_), rtol=GRAD_TOL,
+                                       atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [64, 77])
+def test_flash_backward_reference_matches_pallas_backward(causal, t):
+    """``flash_backward_reference`` on the reference forward's own
+    ``(o, lse)`` against ``_flash_backward`` (both Pallas passes,
+    interpret mode, blocks of 32; T=77 pads Q rows and masks KV rows)."""
+    q, k, v = _qkv(7, 2, t, t, 2, 128)
+    do = np.random.default_rng(8).standard_normal(q.shape).astype(np.float32)
+    scale = 128 ** -0.5
+    static = (scale, causal, 32, 32, True)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    o, lse = _flash_attn_impl(static, jq, jk, jv)
+    want = _flash_backward(static, jq, jk, jv, o, lse, jdo)
+    got = tflash.flash_backward_reference(
+        *(torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, do)),
+        scale=scale, causal=causal)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_op_gradients_equal_autograd_of_reference(causal):
+    """Through the custom op against torch autograd through the dense
+    ``attention_reference``; q and k/v of different lengths."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((2, 40, 3, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 40, 3, 64)).astype(np.float32)
+            for _ in range(2))
+    w = rng.standard_normal(q.shape).astype(np.float32)
+    got = _torch_grads(q, k, v, w, causal)
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    (tflash.attention_reference(*ts, causal=causal)
+     * torch.from_numpy(w)).sum().backward()
+    for g, t_ in zip(got, ts):
+        np.testing.assert_allclose(g, t_.grad.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_is_differentiable():
+    """Inputs that require grad go through; lse's cotangent is unused."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _qkv(3, 1, 8, 8, 1, 64))
+    tflash.flash_attention(q, k, v).sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in (q, k, v))
+
+
+def test_block_attend_is_forward_only():
+    """The ring-step contract has no backward in this port yet; under
+    no_grad it runs."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 1, 64))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tflash.flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="sharded slice"):
+        tflash.block_attend(q, k, v, scale=0.125, causal=True)
+    with torch.no_grad():
+        assert tflash.block_attend(q, k, v, scale=0.125, causal=True)[0] \
+            .shape == (1, 8, 1, 64)
 
 
 def test_flash_kernel_refuses_cpu_tensors():

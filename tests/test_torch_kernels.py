@@ -8,6 +8,10 @@ jax is not installed:
 
 Tolerances: f32 1e-4 (summation order); bf16 2e-2 (one bf16 ulp of an
 output of magnitude up to ~4, both sides rounding the same f32 result).
+The backward kernels (K2 dK/dV, K3 dQ) are held to the plain backward by
+the relative norm ``|g - g_ref| / |g_ref|``: 1e-4 in f32 (summation
+order), 1e-2 in bf16 (a bf16 ulp is 2^-8 ~ 3.9e-3 relative and each
+gradient is rounded once).
 """
 
 import numpy as np
@@ -56,6 +60,51 @@ def test_flash_kernel_block_attend_offsets(card, q_off, kv_off, tk):
                     tflash.block_attend(q, k, v, impl="torch", **kw)):
         assert torch.isfinite(g).all()
         assert ((g - w).abs() / w.abs().clamp_min(1.0)).max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("t", [64, 77, 200])
+def test_flash_backward_kernels_match_plain(card, dtype, tol, t):
+    rng = np.random.default_rng(t + 1)
+    q, k, v, do = (_randn(rng, 2, t, 4, 128).to(card, dtype)
+                   for _ in range(4))
+    launches = (tflash.FLASH_BWD_DKV.launches, tflash.FLASH_BWD_DQ.launches)
+    for causal in (True, False):
+        kw = dict(scale=128 ** -0.5, causal=causal)
+        o, lse = torch.ops.dmlc_tpu_torch.flash_attn_fwd(
+            q, k, v, kw["scale"], causal, "torch")
+        got = tflash.flash_backward(q, k, v, o, lse, do, **kw)
+        want = tflash.flash_backward_reference(q, k, v, o, lse, do, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and torch.isfinite(g).all()
+            err = ((g.float() - w.float()).norm() / w.float().norm()).item()
+            assert err <= tol, (causal, err)
+    assert (tflash.FLASH_BWD_DKV.launches, tflash.FLASH_BWD_DQ.launches) == \
+        (launches[0] + 2, launches[1] + 2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_launches_kernels(card):
+    """Autograd through flash_attention on the card runs K1 forward and
+    K2 + K3 backward, and agrees with autograd of the dense reference."""
+    rng = np.random.default_rng(5)
+    ts = [_randn(rng, 1, 77, 2, 64).to(card).requires_grad_(True)
+          for _ in range(3)]
+    refs = [t.detach().clone().requires_grad_(True) for t in ts]
+    w = _randn(rng, 1, 77, 2, 64).to(card)
+    before = [kern.launches for kern in (tflash.FLASH_FWD,
+                                         tflash.FLASH_BWD_DKV,
+                                         tflash.FLASH_BWD_DQ)]
+    (tflash.flash_attention(*ts) * w).sum().backward()
+    (tflash.attention_reference(*refs) * w).sum().backward()
+    after = [kern.launches for kern in (tflash.FLASH_FWD,
+                                        tflash.FLASH_BWD_DKV,
+                                        tflash.FLASH_BWD_DQ)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    for t, r in zip(ts, refs):
+        assert ((t.grad - r.grad).norm() / r.grad.norm()).item() <= 1e-4
 
 
 @pytest.mark.cuda

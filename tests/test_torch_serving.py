@@ -220,6 +220,13 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'dmlc_tpu'))\n"
+        # every kernel source is bound by a wrapper in a walked module
+        f"from {pkg}.ops._build import CSRC, Kernel\n"
+        "bound = {v.source.name for m in list(sys.modules.values())"
+        f" if m and m.__name__.startswith('{pkg}')"
+        " for v in vars(m).values() if isinstance(v, Kernel)}\n"
+        "bad += sorted(p.name for p in CSRC.glob('*.cu')"
+        " if p.name not in bound)\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

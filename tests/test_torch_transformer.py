@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 
 from dmlc_tpu.models import transformer as jtfm
+from dmlc_tpu_torch.base import DMLCError
 from dmlc_tpu_torch.models import transformer as ttfm
 from dmlc_tpu_torch.models.convert import params_from_jax, tensor_from_numpy
 
@@ -33,7 +34,8 @@ def models():
         lambda a: (a + rng.standard_normal(a.shape).astype(a.dtype) * 0.2
                    if a.ndim > 2 else a), tree)
     params = jax.tree.map(jnp.asarray, tree)
-    model = params_from_jax(tree, ttfm.TransformerConfig(**DIMS))
+    model = params_from_jax(tree, ttfm.TransformerConfig(**DIMS),
+                            device="cpu")
     return params, jcfg, model
 
 
@@ -49,7 +51,8 @@ def test_params_from_jax_layout(models):
             jtfm.decode_flops_per_token(jcfg, t)
     # stage 1, layer 0 of the stacked tree is the port's layer 2
     np.testing.assert_array_equal(
-        model.layers[2].wq.numpy(), np.asarray(params["blocks"]["wq"][1, 0]))
+        model.layers[2].wq.detach().numpy(),
+        np.asarray(params["blocks"]["wq"][1, 0]))
 
 
 def test_bf16_leaves_convert_bit_exact():
@@ -108,3 +111,31 @@ def test_forward_decode_paged_matches_jax(models, s_w):
                                atol=TOL)
     # block 0 (row 0's first block) kept row 0's real tokens
     np.testing.assert_array_equal(tkp[:, 0, :4].numpy(), k_pool[:, 0, :4])
+
+
+def test_parameters_train_and_serving_builds_no_graph(models):
+    """Parameters are trainable; the serving forwards, run under
+    inference_mode as the engine runs them, record no autograd graph."""
+    _, _, model = models
+    assert all(p.requires_grad for p in model.parameters())
+    with torch.inference_mode():
+        logits, k, v = ttfm.forward_prefill(model, torch.zeros(1, 5).long())
+    assert all(t.grad_fn is None and not t.requires_grad
+               for t in (logits, k, v))
+
+
+def test_builders_without_device_raise_without_card(models):
+    """init_params and params_from_jax default to the card, as the
+    engine does; with none they raise instead of building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device resolves")
+    cfg = ttfm.TransformerConfig(**DIMS)
+    tree = jax.tree.map(np.asarray, jtfm.init_params(
+        jax.random.PRNGKey(0), jtfm.TransformerConfig(**DIMS), n_stages=2))
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        ttfm.init_params(cfg, torch.Generator())
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        params_from_jax(tree, cfg)
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        ttfm.Transformer(cfg)
+    assert ttfm.init_params(cfg, torch.Generator(), "cpu").device.type == "cpu"
