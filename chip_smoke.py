@@ -10,7 +10,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
 1. device   the card's name; its name and power limit as nvidia-smi
             gives them, on a line of their own
 2. build    nvcc builds every kernel in ``dmlc_tpu_torch/ops/csrc``
-            (one process per source, all at once)
+            (one process per source, all at once); ptxas's register and
+            spill lines, and from ``cuobjdump -sass`` (where the toolkit
+            has it) the tensor-core instructions (HGMMA, HMMA) of each
+            bf16 backward kernel, which must use wgmma
 3. flash    kernel K1 (flash-attention forward) against its plain
             PyTorch version on the card: B=1, H=16, D=128, T in
             {512, 1000}, causal and not, bf16 and f32, plus (pv, m, l)
@@ -19,9 +22,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    flash_bwd  kernels K2 (dK/dV) and K3 (dQ) against the plain backward
             at the same shapes, then at the two train shapes (B=8 x
             T=1024 and B=1 x T=8192, H=16, D=128, bf16, causal), where
-            K1's output is held against the plain forward too; at B=8 x
-            T=1024 each kernel alone, the plain backward and SDPA's
-            backward (yardstick only) timed
+            K1's output is held against the plain forward too; at both
+            train shapes each kernel timed alone (with its TFLOP/s and
+            share of its bound) and two launches of each held
+            bit-identical, beside the plain backward and SDPA's backward
+            (yardstick only)
 4. paged    kernel K4 (paged decode attention) likewise: B=8, H=16,
             D=128, bf16 pools, block 16, windows S in {1, 4}
 5. slice    the flagship model (full width and depth, random weights
@@ -57,6 +62,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -121,6 +128,29 @@ def bound_ms(flops, nbytes, dtype):
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def sass_mma_counts(lib):
+    """Tensor-core instructions in each bf16 backward kernel of the built
+    library, from ``cuobjdump -sass``: ``{kernel<D>: {"HGMMA": n,
+    "HMMA": m}}`` (wgmma and mma.sync); None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_bwd_(?:dkv|dq)_kernel_bf16)ILi(\d+)E", line)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if name:
+                counts[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name:
+            for op in ("HGMMA", "HMMA"):
+                counts[name][op] += bool(re.search(rf"\b{op}\.", line))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -243,49 +273,36 @@ def fwd_check(fa, q, k, v, o):
     return mx, mean
 
 
-def flash_bwd_phase(fa):
-    """K2/K3 against the plain backward at B=1 (T 512, 1000, causal or
-    not, bf16 and f32), then at the two train shapes (bf16, causal), where
-    K1's forward is held against the plain one too; each kernel timed at
-    B=8 x T=1024.  Returns the timing rows and each kernel's max abs
-    error at that shape."""
-    gen = torch.Generator("cuda").manual_seed(5)
-    h, d = 16, 128
-    for dtype in (torch.bfloat16, torch.float32):
-        for t in (512, 1000):
-            for causal in (True, False):
-                bwd_check(fa, bwd_inputs(gen, 1, t, h, d, dtype, causal),
-                          {"phase": "flash_bwd",
-                           "dtype": str(dtype).split(".")[1], "B": 1, "T": t,
-                           "H": h, "D": d, "causal": causal})
-    # the train step's shapes: B=8 x T=1024, and B=1 x T=8192 (the plain
-    # versions' T x T f32 tensors, ~4.3 GB each there, fit on the card)
-    for b, t in ((1, LONG_T), (TRAIN_B, TRAIN_T)):
-        q, k, v, o, lse, do = bwd_inputs(gen, b, t, h, d, torch.bfloat16, True)
-        fwd_mx, fwd_mean = fwd_check(fa, q, k, v, o)
-        main = bwd_check(fa, (q, k, v, o, lse, do),
-                         {"phase": "flash_bwd", "dtype": "bfloat16", "B": b,
-                          "T": t, "H": h, "D": d, "causal": True,
-                          "fwd_max_abs_err": fwd_mx,
-                          "fwd_mean_abs_err": fwd_mean})
-    torch.cuda.empty_cache()
-    # B=8 x T=1024: each kernel timed alone
+def bwd_timing(fa, args, b, t, h, d):
+    """K2 and K3 each timed alone on ``args`` (bf16, causal), two
+    launches of each held bit-identical, beside the plain backward and
+    SDPA's backward (yardstick only: one call computes K2's and K3's
+    outputs together); emits and returns one row per kernel."""
+    q, k, v, o, lse, do = args
     kw = dict(scale=d ** -0.5, causal=True)
-    bwd = fa._Backward(q, k, v, o, lse, do, **kw)
-    ms = {"flash_bwd_dkv": time_ms(bwd.launch_dkv),
-          "flash_bwd_dq": time_ms(bwd.launch_dq)}
-    del bwd
-    plain_ms = time_ms(lambda: fa.flash_backward_reference(
-        q, k, v, o, lse, do, **kw), iters=5)
-    # yardstick: SDPA's backward alone, on a graph built once; one call
-    # computes K2's and K3's outputs together
+    bwd = fa._Backward(*args, **kw)
+    ms, same = {}, {}
+    for name, launch, outs in (
+            ("flash_bwd_dkv", bwd.launch_dkv, lambda: (bwd.dk, bwd.dv)),
+            ("flash_bwd_dq", bwd.launch_dq, lambda: (bwd.dq,))):
+        launch()
+        first = [x.clone() for x in outs()]
+        launch()
+        torch.cuda.synchronize()
+        same[name] = all(torch.equal(x, y) for x, y in zip(first, outs()))
+        check(same[name], f"{name} B={b} T={t}: two launches differ")
+        ms[name] = time_ms(launch)
+    del bwd, first
+    plain_ms = time_ms(lambda: fa.flash_backward_reference(*args, **kw),
+                       iters=5)
+    torch.cuda.empty_cache()
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2).contiguous()
     library_ms = time_ms(lambda: torch.autograd.grad(
         ot, (qt, kt, vt), dot, retain_graph=True))
-    del ot
+    del ot, qt, kt, vt, dot
     pairs = b * h * t * (t + 1) // 2
     el = q.element_size()
     inputs = 4 * q.numel() * el + 2 * b * h * t * 4      # q dO k v, lse delta
@@ -296,10 +313,47 @@ def flash_bwd_phase(fa):
                            torch.bfloat16)
         rows[name] = {"ms": ms[name], "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": bnd,
-                      "bound_by": by, "gflop": flops / 1e9}
+                      "bound_by": by, "gflop": flops / 1e9,
+                      "tflops": flops / ms[name] / 1e9,
+                      "bound_share": bnd / ms[name],
+                      "bit_identical": same[name]}
     emit({"phase": "flash_bwd_train_shape", "B": b, "T": t, "H": h, "D": d,
           "dtype": "bfloat16", "causal": True,
-          "library": "SDPA backward, dq+dk+dv in one call", **rows})
+          "library": "SDPA backward, dq+dk+dv in one call",
+          "k2_plus_k3_over_library": (ms["flash_bwd_dkv"] + ms["flash_bwd_dq"])
+          / library_ms, **rows})
+    return rows
+
+
+def flash_bwd_phase(fa):
+    """K2/K3 against the plain backward at B=1 (T 512, 1000, causal or
+    not, bf16 and f32), then at the two train shapes (bf16, causal), where
+    K1's forward is held against the plain one too and each kernel is
+    timed alone (:func:`bwd_timing`).  Returns the timing rows and each
+    kernel's max abs error at B=8 x T=1024."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    h, d = 16, 128
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (512, 1000):
+            for causal in (True, False):
+                bwd_check(fa, bwd_inputs(gen, 1, t, h, d, dtype, causal),
+                          {"phase": "flash_bwd",
+                           "dtype": str(dtype).split(".")[1], "B": 1, "T": t,
+                           "H": h, "D": d, "causal": causal})
+    # the train step's shapes: B=1 x T=8192 and B=8 x T=1024 (the plain
+    # versions' T x T f32 tensors, ~4.3 GB each at T=8192, fit on the card)
+    for b, t in ((1, LONG_T), (TRAIN_B, TRAIN_T)):
+        args = bwd_inputs(gen, b, t, h, d, torch.bfloat16, True)
+        fwd_mx, fwd_mean = fwd_check(fa, *args[:4])
+        main = bwd_check(fa, args,
+                         {"phase": "flash_bwd", "dtype": "bfloat16", "B": b,
+                          "T": t, "H": h, "D": d, "causal": True,
+                          "fwd_max_abs_err": fwd_mx,
+                          "fwd_mean_abs_err": fwd_mean})
+        torch.cuda.empty_cache()
+        rows = bwd_timing(fa, args, b, t, h, d)
+        del args
+        torch.cuda.empty_cache()
     errs = {"flash_bwd_dkv": max(main["dk_max_abs_err"],
                                  main["dv_max_abs_err"]),
             "flash_bwd_dq": main["dq_max_abs_err"]}
@@ -741,7 +795,12 @@ def main() -> int:
         if log.exists():
             ptxas += [ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": secs, "ptxas": ptxas})
+    sass = sass_mma_counts(_build.library_path(_build.CSRC / "flash_bwd.cu"))
+    if sass is not None:
+        check(len(sass) == 4 and all(c["HGMMA"] > 0 for c in sass.values()),
+              f"bf16 backward kernels without wgmma: {sass}")
+    emit({"phase": "build", "seconds": secs, "ptxas": ptxas,
+          "sass_tensor_core_ops": sass})
 
     # 3. / 4. kernels against their plain versions
     prompt_lens = [int(x) for x in np.linspace(17, 511, 8)]

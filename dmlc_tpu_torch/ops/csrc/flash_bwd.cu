@@ -16,14 +16,11 @@
 // 64x64 tile against D per visible (q, k) pair, 8*D and 6*D FLOPs.  At
 // the flagship train shape (B=8, H=16, T=1024, D=128, bf16, causal,
 // 524,800 visible pairs per (b, h)) that is 68.8 and 51.6 GFLOP, 0.070
-// and 0.052 ms on the tensor cores, against ~0.06 and ~0.05 ms to move
-// q, dO, k, v, lse, delta and the gradients once at 3.35 TB/s.  This
-// first version does the products with f32 FMAs out of shared memory
-// (like the forward kernel), so it is bound by FMA throughput and
-// shared-memory reads, far from either roofline; mma/wgmma tiles are the
-// next step.
+// and 0.052 ms on the bf16 tensor cores, against ~0.06 and ~0.05 ms to
+// move q, dO, k, v, lse, delta and the gradients once at 3.35 TB/s: both
+// are bound by operations, so the products belong on the tensor cores.
 //
-// Design:
+// Shared by both dtypes:
 //   * two kernels and no atomics, as the reference's two passes: the dkv
 //     kernel owns one 64-row KV tile of one (b, h) and loops over Q tiles,
 //     the dq kernel owns one 64-row Q tile and loops over KV tiles; each
@@ -43,36 +40,48 @@
 //   * the mask is a select, p = keep ? exp(s - lse) : 0, never a multiply
 //     by 0 (a masked s is unbounded, exp may overflow, and inf * 0 is
 //     NaN), and it runs only on tiles the diagonal or a tail crosses;
-//   * S, P, dP, dS and every accumulator are f32; the inputs are upcast
-//     on their way into shared memory (the reference's f32 dots at
-//     :366-375 and :422-424) and the gradients are rounded once, to the
-//     inputs' dtype, at the store;
-//   * 256 threads; each owns a 4x4 block of the 64x64 score tile (rows
-//     4*ty..4*ty+3, columns tx + 16*j) and the same 4 rows of its 64xD
-//     accumulators (columns tx + 16*j).  Shared rows are padded (D + 1,
-//     64 + 4) so column reads and transposed writes do not conflict.
+//   * every accumulator is f32 and the gradients are rounded once, to the
+//     inputs' dtype, at the store.
+//
+// The dtype picks the tile code at build time, never at run time:
+//
+// float32 (the card's precision reference; f32 on the tensor cores would
+// be TF32): f32 FMA tiles out of shared memory, 256 threads, each owning
+// a 4x4 block of the 64x64 score tile (rows 4*ty..4*ty+3, columns
+// tx + 16*j) and the same 4 rows of its 64xD accumulators.  Shared rows
+// are padded (D + 1, 64 + 4) so column reads and transposed writes do
+// not conflict.
+//
+// bfloat16: wgmma on the tensor cores, one warpgroup (128 threads) per
+// block owning the block's 64 rows:
+//   * tiles stay bf16 in shared memory, [64][D] as D/64 column blocks of
+//     64 rows x 128 bytes with each row's 16-byte chunks XOR-swizzled by
+//     row % 8 (the 128-byte swizzle wgmma's descriptors read); one tile
+//     serves as a K-major operand (S = Q K^T, both rows along K) and as
+//     an MN-major one (dQ += dS K, B read transposed);
+//   * loads are 16-byte cp.async copies, zero-filled past the tail; the
+//     streamed tiles (Q, dO, lse, delta in dkv; K, V in dq) are double
+//     buffered, so the next tile's copy overlaps this tile's products;
+//   * dkv computes the transposed tiles S^T = K Q^T and dP^T = V dO^T,
+//     so P^T = exp(S^T * scale - lse) and dS^T = P^T o (dP^T - delta)
+//     come out of the accumulator already laid out as the register A
+//     operand of dV += P^T dO and dK += dS^T Q (dO and Q as B, read
+//     MN-major from their row-major tiles); dq computes S = Q K^T and
+//     dP = dO V^T and dS in registers as the A operand of dQ += dS K.
+//     P and dS never touch shared memory;
+//   * P and dS are rounded to bf16 as operands of those products: the
+//     one rounding this path adds over the f32 one (dS from the f32 P);
+//   * the epilogue rounds the accumulator once to bf16, stages it in a
+//     free swizzled tile and writes whole 16-byte chunks;
+//   * the dq kernel maps blockIdx.x to Q tiles in reverse, so the
+//     heaviest causal tiles (the most KV tiles) start first, as the dkv
+//     kernel's low KV tiles (the most Q tiles) already do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-constexpr int PP = 64 + 4;  // score rows 4 apart sit 16 banks apart
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {
   long long b, t, h;
@@ -87,16 +96,25 @@ struct Args {
   float scale;
 };
 
+// ---------------------------------------------------------------------------
+// float32: FMA tiles
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;
+constexpr int BK = 64;
+constexpr int NT = 256;
+constexpr int PP = 64 + 4;  // score rows 4 apart sit 16 banks apart
+
 // rows [t0, t0 + 64) of one (b, h) of a strided [B, T, H, D] tensor into
 // a [64][D + 1] f32 tile; rows >= t_end are zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long stride_t, int t0,
                                           int t_end) {
   for (int i = threadIdx.x; i < 64 * D; i += NT) {
     const int r = i / D, d = i % D;
     const int t = t0 + r;
-    dst[r * (D + 1) + d] = t < t_end ? to_f32(src[t * stride_t + d]) : 0.f;
+    dst[r * (D + 1) + d] = t < t_end ? src[t * stride_t + d] : 0.f;
   }
 }
 
@@ -110,8 +128,8 @@ constexpr size_t dq_smem_bytes() {
   return sizeof(float) * (size_t)(4 * 64 * (D + 1) + BQ * PP + 2 * BQ);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Args a) {
+template <int D>
+__global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel_f32(Args a) {
   constexpr int DP = D + 1;
   constexpr int CPT = D / 16;
   extern __shared__ float smem[];
@@ -132,14 +150,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Args a) {
   const int k0 = blockIdx.x * BK;
   const int Tq = a.Tq, Tk = a.Tk;
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
-  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
-  const T* dob = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const float* qb = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const float* kb = static_cast<const float*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const float* dob =
+      static_cast<const float*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
   const size_t row0 = ((size_t)b * a.H + h) * Tq;
 
-  load_tile<T, D>(sK, kb, a.sk.t, k0, Tk);
-  load_tile<T, D>(sV, vb, a.sv.t, k0, Tk);
+  load_tile<D>(sK, kb, a.sk.t, k0, Tk);
+  load_tile<D>(sV, vb, a.sv.t, k0, Tk);
 
   float dk[4][CPT], dv[4][CPT];
 #pragma unroll
@@ -154,8 +173,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Args a) {
   for (int qt = qt_first; qt < n_qt; ++qt) {
     const int q0 = qt * BQ;
     __syncthreads();  // the previous tile's readers of sQ/sdO/sPt/sdSt are done
-    load_tile<T, D>(sQ, qb, a.sq.t, q0, Tq);
-    load_tile<T, D>(sdO, dob, a.sdo.t, q0, Tq);
+    load_tile<D>(sQ, qb, a.sq.t, q0, Tq);
+    load_tile<D>(sdO, dob, a.sdo.t, q0, Tq);
     if (tid < BQ) {
       const bool ok = q0 + tid < Tq;
       sLse[tid] = ok ? a.lse[row0 + q0 + tid] : 0.f;
@@ -231,8 +250,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Args a) {
     }
   }
 
-  T* dkb = static_cast<T*>(a.dk);
-  T* dvb = static_cast<T*>(a.dv);
+  float* dkb = static_cast<float*>(a.dk);
+  float* dvb = static_cast<float*>(a.dv);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty * 4 + i;
@@ -240,14 +259,14 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Args a) {
     const size_t o = (((size_t)b * Tk + row) * a.H + h) * D;
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc) {
-      dkb[o + tx + 16 * cc] = from_f32<T>(dk[i][cc] * a.scale);
-      dvb[o + tx + 16 * cc] = from_f32<T>(dv[i][cc]);
+      dkb[o + tx + 16 * cc] = dk[i][cc] * a.scale;
+      dvb[o + tx + 16 * cc] = dv[i][cc];
     }
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Args a) {
+template <int D>
+__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel_f32(Args a) {
   constexpr int DP = D + 1;
   constexpr int CPT = D / 16;
   extern __shared__ float smem[];
@@ -267,14 +286,15 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Args a) {
   const int q0 = blockIdx.x * BQ;
   const int Tq = a.Tq, Tk = a.Tk;
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.sq.b + h * a.sq.h;
-  const T* kb = static_cast<const T*>(a.k) + b * a.sk.b + h * a.sk.h;
-  const T* vb = static_cast<const T*>(a.v) + b * a.sv.b + h * a.sv.h;
-  const T* dob = static_cast<const T*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const float* qb = static_cast<const float*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const float* kb = static_cast<const float*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const float* dob =
+      static_cast<const float*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
   const size_t row0 = ((size_t)b * a.H + h) * Tq;
 
-  load_tile<T, D>(sQ, qb, a.sq.t, q0, Tq);
-  load_tile<T, D>(sdO, dob, a.sdo.t, q0, Tq);
+  load_tile<D>(sQ, qb, a.sq.t, q0, Tq);
+  load_tile<D>(sdO, dob, a.sdo.t, q0, Tq);
   if (tid < BQ) {
     const bool ok = q0 + tid < Tq;
     sLse[tid] = ok ? a.lse[row0 + q0 + tid] : 0.f;
@@ -295,8 +315,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Args a) {
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // the previous tile's readers of sK/sV/sdS are done
-    load_tile<T, D>(sK, kb, a.sk.t, k0, Tk);
-    load_tile<T, D>(sV, vb, a.sv.t, k0, Tk);
+    load_tile<D>(sK, kb, a.sk.t, k0, Tk);
+    load_tile<D>(sV, vb, a.sv.t, k0, Tk);
     __syncthreads();
 
     // S and dP for this thread's queries 4ty+i and keys tx+16c
@@ -361,7 +381,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Args a) {
     }
   }
 
-  T* dqb = static_cast<T*>(a.dq);
+  float* dqb = static_cast<float*>(a.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
@@ -369,13 +389,539 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Args a) {
     const size_t o = (((size_t)b * Tq + row) * a.H + h) * D;
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc)
-      dqb[o + tx + 16 * cc] = from_f32<T>(acc[i][cc] * a.scale);
+      dqb[o + tx + 16 * cc] = acc[i][cc] * a.scale;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(bool dq, const Args& a, int B, cudaStream_t stream) {
-  auto kern = dq ? flash_bwd_dq_kernel<T, D> : flash_bwd_dkv_kernel<T, D>;
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma tiles
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int ROWS = 64;   // rows of every tile: BQ = BK = 64
+constexpr int NTC = 128;   // one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return ROWS * D * 2;
+}
+
+// four [64][D] tiles besides K and V (dkv: Q and dO twice; dq: K and V
+// twice besides Q and dO), lse and delta twice (dkv), and the slack to
+// align the first tile to the 1024 bytes a swizzle pattern spans
+template <int D>
+constexpr size_t tc_smem_bytes() {
+  return 6 * tile_bytes<D>() + 2 * 2 * ROWS * sizeof(float) + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte and 4-byte async copies; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are in flight, then
+// make its copies visible to wgmma's (async proxy) reads
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// byte offset of 16-byte chunk j of row r in a swizzled [64][D] tile
+__device__ __forceinline__ uint32_t swz(int r, int j) {
+  return (j >> 3) * (ROWS * 128) + r * 128 + (((j & 7) ^ (r & 7)) << 4);
+}
+
+// rows [t0, t0 + 64) of one (b, h) of a strided [B, T, H, D] bf16 tensor
+// into the swizzled tile at dst; rows >= t_end are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src,
+                                                long long stride_t, int t0,
+                                                int t_end) {
+  constexpr int CH = D / 8;  // 16-byte chunks in a row
+#pragma unroll
+  for (int n = 0; n < ROWS * CH / NTC; ++n) {
+    const int i = threadIdx.x + n * NTC;
+    const int r = i / CH, j = i % CH;
+    const int t = t0 + r;
+    const bool ok = t < t_end;
+    cp_async16(dst + swz(r, j), src + (ok ? t * stride_t : 0) + j * 8,
+               ok ? 16 : 0);
+  }
+}
+
+// 64 per-row floats (lse or delta) from t0 on; rows >= t_end are zeros
+__device__ __forceinline__ void load_rows_async(uint32_t dst, const float* src,
+                                                int t0, int t_end) {
+  const int r = threadIdx.x;
+  if (r < ROWS) {
+    const bool ok = t0 + r < t_end;
+    cp_async4(dst + 4 * r, src + (ok ? t0 + r : 0), ok ? 4 : 0);
+  }
+}
+
+// wgmma matrix descriptor: start address, leading and stride byte
+// offsets, 128-byte swizzle
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand, k-step kk (16 columns) of a [64][D] tile: 32 bytes
+// into the 128-byte rows of column block kk / 4; 8-row groups 1 KB apart
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return gmma_desc(tile + (kk >> 2) * (ROWS * 128) + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major operand (B read transposed), k-step kk (16 rows) of a [64][D]
+// tile whose columns are N: rows 16 kk on; 8-row groups 1 KB apart along
+// K (stride offset), column blocks 8 KB apart along N (leading offset)
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return gmma_desc(tile + kk * 16 * 128, ROWS * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving register reads or writes across an
+// asynchronous product that owns the registers
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory,
+// both K-major (128-byte swizzle)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (four bf16x2
+// a thread), B from shared memory MN-major (128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128], A from registers (four bf16x2
+// a thread), B from shared memory MN-major (128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// acc[64 x 64] = A B^T over D, A and B [64][D] tiles read K-major
+template <int D>
+__device__ __forceinline__ void gemm_abt(float (&acc)[32], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(acc, desc_k(a, kk), desc_k(b, kk), kk > 0);
+}
+
+// acc[64 x D] += F B over 64 rows: F the [64 x 64] register operand
+// (four bf16x2 per 16-column step), B a [64][D] tile read MN-major
+template <int D>
+__device__ __forceinline__ void gemm_fb(float (&acc)[D / 2],
+                                        const uint32_t (&f)[16], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 64)
+      wgmma_rs_n64(acc, f + 4 * kk, desc_mn(b, kk));
+    else
+      wgmma_rs_n128(acc, f + 4 * kk, desc_mn(b, kk));
+  }
+}
+
+// Accumulator layout of a 64 x N wgmma tile: element i of a thread in
+// warp w (lane = 4 g + c) is row 16 w + g + 8 ((i >> 1) & 1), column
+// 8 (i >> 2) + 2 c + (i & 1).  Packing elements 2i and 2i+1 gives the
+// register A operand of the next product: its 16-column step kk is
+// f[4 kk .. 4 kk + 3].
+__device__ __forceinline__ int acc_row(int i) {
+  return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2) +
+         8 * ((i >> 1) & 1);
+}
+
+__device__ __forceinline__ int acc_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// acc [64 x D] * mul rounded to bf16 into rows [r0, r0 + 64) (< r_end)
+// of a contiguous [B, T, H, D] output at out (row stride stride_t),
+// staged in the free swizzled tile at stile so each thread stores whole
+// 16-byte chunks
+template <int D>
+__device__ __forceinline__ void store_tile(const float (&acc)[D / 2],
+                                           float mul, uint8_t* stile,
+                                           bf16* out, long long stride_t,
+                                           int r0, int r_end) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = acc_row(i), col = acc_col(i);
+    *reinterpret_cast<uint32_t*>(stile + swz(r, col >> 3) + 2 * (col & 7)) =
+        pack_bf16(acc[i] * mul, acc[i + 1] * mul);
+  }
+  __syncthreads();
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int n = 0; n < ROWS * CH / NTC; ++n) {
+    const int i = threadIdx.x + n * NTC;
+    const int r = i / CH, j = i % CH;
+    if (r0 + r < r_end)
+      *reinterpret_cast<uint4*>(out + (r0 + r) * stride_t + j * 8) =
+          *reinterpret_cast<const uint4*>(stile + swz(r, j));
+  }
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTC) flash_bwd_dkv_kernel_bf16(Args a) {
+  constexpr uint32_t TB = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  const uint32_t s0 = smem_u32(sm);
+  const uint32_t sK = s0, sV = s0 + TB;
+  const uint32_t sQ0 = s0 + 2 * TB, sdO0 = s0 + 4 * TB;  // two buffers each
+  // per buffer: lse[64] then delta[64]
+  const float* rows = reinterpret_cast<const float*>(sm + 6 * TB);
+  const uint32_t sRows = s0 + 6 * TB;
+
+  const int b = blockIdx.y / a.H;
+  const int h = blockIdx.y % a.H;
+  const int k0 = blockIdx.x * ROWS;
+  const int Tq = a.Tq, Tk = a.Tk;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const bf16* dob =
+      static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const size_t row0 = ((size_t)b * a.H + h) * Tq;
+  const float* lse = a.lse + row0;
+  const float* delta = a.delta + row0;
+
+  // causal: the first query that can see key k0 is row k0
+  const int qt_first = a.causal ? k0 / ROWS : 0;
+  const int n_qt = (Tq + ROWS - 1) / ROWS;
+
+  auto load_q = [&](int qt, int buf) {
+    load_tile_async<D>(sQ0 + buf * TB, qb, a.sq.t, qt * ROWS, Tq);
+    load_tile_async<D>(sdO0 + buf * TB, dob, a.sdo.t, qt * ROWS, Tq);
+    load_rows_async(sRows + buf * 512, lse, qt * ROWS, Tq);
+    load_rows_async(sRows + buf * 512 + 256, delta, qt * ROWS, Tq);
+  };
+  load_tile_async<D>(sK, kb, a.sk.t, k0, Tk);
+  load_tile_async<D>(sV, vb, a.sv.t, k0, Tk);
+  if (qt_first < n_qt) load_q(qt_first, 0);
+  cp_async_commit();
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  const float scale2 = a.scale * LOG2E;
+
+  for (int qt = qt_first; qt < n_qt; ++qt) {
+    const int buf = (qt - qt_first) & 1;
+    const int q0 = qt * ROWS;
+    const uint32_t sQ = sQ0 + buf * TB, sdO = sdO0 + buf * TB;
+    if (qt + 1 < n_qt) load_q(qt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and K, V) have landed
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+    gemm_abt<D>(st, sK, sQ);
+    gemm_abt<D>(dpt, sV, sdO);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T and dS^T in registers, packed as the next products' A operand;
+    // the element mask only where the Q tail or the diagonal crosses
+    const float* lse_t = rows + buf * 128;
+    const float* dlt_t = lse_t + 64;
+    const bool masked = (q0 + ROWS > Tq) || (a.causal && k0 + ROWS - 1 > q0);
+    uint32_t pf[16], df[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kr = acc_row(i + e), qc = acc_col(i + e);
+        bool keep = true;
+        if (masked) {
+          keep = q0 + qc < Tq;
+          if (a.causal) keep = keep && (q0 + qc >= k0 + kr);
+        }
+        p[e] = keep ? exp2f(st[i + e] * scale2 - lse_t[qc] * LOG2E) : 0.f;
+        ds[e] = p[e] * (dpt[i + e] - dlt_t[qc]);
+      }
+      pf[i / 2] = pack_bf16(p[0], p[1]);
+      df[i / 2] = pack_bf16(ds[0], ds[1]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q over this tile's 64 queries
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+    gemm_fb<D>(dv, pf, sdO);
+    gemm_fb<D>(dk, df, sQ);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(pf);
+    fence_regs(df);
+    __syncthreads();  // this buffer is free for the copy issued next step
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();
+  const size_t o = ((size_t)b * Tk * a.H + h) * D;
+  const long long stride_t = (long long)a.H * D;
+  store_tile<D>(dk, a.scale, sm, static_cast<bf16*>(a.dk) + o, stride_t, k0,
+                Tk);
+  store_tile<D>(dv, 1.f, sm + TB, static_cast<bf16*>(a.dv) + o, stride_t, k0,
+                Tk);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTC) flash_bwd_dq_kernel_bf16(Args a) {
+  constexpr uint32_t TB = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  const uint32_t s0 = smem_u32(sm);
+  const uint32_t sQ = s0, sdO = s0 + TB;
+  const uint32_t sK0 = s0 + 2 * TB, sV0 = s0 + 4 * TB;  // two buffers each
+
+  const int b = blockIdx.y / a.H;
+  const int h = blockIdx.y % a.H;
+  // heaviest causal tiles (the most KV tiles to walk) first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;
+  const int Tq = a.Tq, Tk = a.Tk;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.sq.b + h * a.sq.h;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.sk.b + h * a.sk.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.sv.b + h * a.sv.h;
+  const bf16* dob =
+      static_cast<const bf16*>(a.dout) + b * a.sdo.b + h * a.sdo.h;
+  const size_t row0 = ((size_t)b * a.H + h) * Tq;
+
+  // causal: the tile's last query sees keys up to its own row
+  const int last_q = min(q0 + ROWS, Tq) - 1;
+  const int kv_end = a.causal ? min(Tk, last_q + 1) : Tk;
+  const int n_kt = kv_end > 0 ? (kv_end + ROWS - 1) / ROWS : 0;
+
+  load_tile_async<D>(sQ, qb, a.sq.t, q0, Tq);
+  load_tile_async<D>(sdO, dob, a.sdo.t, q0, Tq);
+  if (n_kt > 0) {
+    load_tile_async<D>(sK0, kb, a.sk.t, 0, Tk);
+    load_tile_async<D>(sV0, vb, a.sv.t, 0, Tk);
+  }
+  cp_async_commit();
+
+  // lse (log2 units) and delta of this thread's two rows
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int q = q0 + acc_row(2 * half);
+    const bool ok = q < Tq;
+    lse2[half] = ok ? a.lse[row0 + q] * LOG2E : 0.f;
+    dlt[half] = ok ? a.delta[row0 + q] : 0.f;
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  const float scale2 = a.scale * LOG2E;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int buf = j & 1;
+    const int k0 = j * ROWS;
+    const uint32_t sK = sK0 + buf * TB, sV = sV0 + buf * TB;
+    if (j + 1 < n_kt) {
+      load_tile_async<D>(sK0 + (buf ^ 1) * TB, kb, a.sk.t, k0 + ROWS, Tk);
+      load_tile_async<D>(sV0 + (buf ^ 1) * TB, vb, a.sv.t, k0 + ROWS, Tk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q, dO) have landed
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: rows queries, columns keys
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    gemm_abt<D>(s, sQ, sK);
+    gemm_abt<D>(dp, sdO, sV);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS in registers, packed as the next product's A operand; the
+    // element mask only where the KV tail or the diagonal crosses
+    const bool masked = (k0 + ROWS > Tk) || (a.causal && k0 + ROWS - 1 > q0);
+    uint32_t df[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int half = ((i + e) >> 1) & 1;
+        const int kc = k0 + acc_col(i + e);
+        bool keep = true;
+        if (masked) {
+          keep = kc < Tk;
+          if (a.causal) keep = keep && (q0 + acc_row(i + e) >= kc);
+        }
+        const float p = keep ? exp2f(s[i + e] * scale2 - lse2[half]) : 0.f;
+        ds[e] = p * (dp[i + e] - dlt[half]);
+      }
+      df[i / 2] = pack_bf16(ds[0], ds[1]);
+    }
+
+    // dQ += dS K over this tile's 64 keys
+    fence_regs(dq);
+    wgmma_fence();
+    gemm_fb<D>(dq, df, sK);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(dq);
+    fence_regs(df);
+    __syncthreads();  // this buffer is free for the copy issued next step
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();
+  store_tile<D>(dq, a.scale, sm,
+                static_cast<bf16*>(a.dq) + ((size_t)b * Tq * a.H + h) * D,
+                (long long)a.H * D, q0, Tq);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int D>
+cudaError_t launch_f32(bool dq, const Args& a, int B, cudaStream_t stream) {
+  auto kern = dq ? flash_bwd_dq_kernel_f32<D> : flash_bwd_dkv_kernel_f32<D>;
   const size_t smem = dq ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -386,16 +932,36 @@ cudaError_t launch(bool dq, const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_bf16(bool dq, const Args& a, int B, cudaStream_t stream) {
+  // 16-byte copies: every row of q, k, v and dO must start 16-byte aligned
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const Strides* st[4] = {&a.sq, &a.sk, &a.sv, &a.sdo};
+  for (int i = 0; i < 4; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 || st[i]->b % 8 ||
+        st[i]->t % 8 || st[i]->h % 8)
+      return cudaErrorMisalignedAddress;
+  auto kern = dq ? flash_bwd_dq_kernel_bf16<D> : flash_bwd_dkv_kernel_bf16<D>;
+  const size_t smem = tc_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int rows = dq ? a.Tq : a.Tk;
+  dim3 grid((rows + ROWS - 1) / ROWS, B * a.H);
+  kern<<<grid, NTC, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 int dispatch(bool dq, const Args& a, int B, int D, int dtype, int device,
              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if ((dq ? a.Tq : a.Tk) <= 0 || B * a.H <= 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<float, 64>(dq, a, B, st);
-  if (dtype == 0 && D == 128) return launch<float, 128>(dq, a, B, st);
-  if (dtype == 1 && D == 64) return launch<__nv_bfloat16, 64>(dq, a, B, st);
-  if (dtype == 1 && D == 128) return launch<__nv_bfloat16, 128>(dq, a, B, st);
+  if (dtype == 0 && D == 64) return launch_f32<64>(dq, a, B, st);
+  if (dtype == 0 && D == 128) return launch_f32<128>(dq, a, B, st);
+  if (dtype == 1 && D == 64) return launch_bf16<64>(dq, a, B, st);
+  if (dtype == 1 && D == 128) return launch_bf16<128>(dq, a, B, st);
   return cudaErrorInvalidValue;
 }
 

@@ -195,6 +195,12 @@ def _launch(q, k, v, *, scale: float, causal: bool, q_offset: int,
     return out, m, l
 
 
+def _rows_aligned(x: Tensor) -> bool:
+    """Every ``[B, T, H, D]`` row of bf16 ``x`` starts on 16 bytes."""
+    return x.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in x.stride()[:3])
+
+
 class _Backward:
     """One backward's checked inputs, ``delta`` and fresh ``dq, dk, dv``,
     with a launcher for each kernel: :meth:`launch_dkv` (K2) and
@@ -209,8 +215,13 @@ class _Backward:
         if lse.shape != (b, h, tq) or lse.dtype != torch.float32:
             raise DMLCError(f"lse must be float32 [B, H, Tq], got "
                             f"{lse.dtype} {tuple(lse.shape)}")
-        self.lse, self.do = lse.contiguous(), do
         self.delta = _delta(o, do)
+        if q.dtype == torch.bfloat16:
+            # the tensor-core kernels copy rows in 16-byte chunks
+            q, k, v, do = (x if _rows_aligned(x) else
+                           x.clone(memory_format=torch.contiguous_format)
+                           for x in (q, k, v, do))
+        self.inputs, self.lse = (q, k, v, do), lse.contiguous()
         self.dq, self.dk, self.dv = (
             torch.empty_like(x, memory_format=torch.contiguous_format)
             for x in (q, k, v))

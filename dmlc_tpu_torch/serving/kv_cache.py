@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..base import DMLCError
+from ..base import DMLCError, resolve_device
 
 __all__ = ["BlockAllocator", "PagedKVCache"]
 
@@ -90,17 +90,19 @@ class _SeqEntry:
 
 
 class PagedKVCache:
-    """Block-paged K/V pools on ``device`` for a set of live sequences."""
+    """Block-paged K/V pools on ``device`` for a set of live sequences:
+    the card unless the caller names another device (``device="cpu"``
+    for the plain versions); with no card and no device it raises."""
 
     def __init__(self, n_layers: int, n_heads: int, head_dim: int, *,
                  n_blocks: int = 256, block_size: int = 16,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
+                 dtype: torch.dtype = torch.float32, device=None):
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         self.n_layers = int(n_layers)
         self.n_blocks = int(n_blocks)
         self.block_size = int(block_size)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = (self.n_layers, self.n_blocks, self.block_size, int(n_heads),
                  int(head_dim))
         self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)

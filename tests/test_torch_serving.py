@@ -118,7 +118,7 @@ def test_allocator_double_free_and_all_or_nothing():
 
 
 def test_scheduler_preempts_youngest_and_requeues_front():
-    cache = PagedKVCache(1, 1, 4, n_blocks=8, block_size=4)
+    cache = PagedKVCache(1, 1, 4, n_blocks=8, block_size=4, device="cpu")
     sched = ContinuousBatchScheduler(cache, max_active=3)
     reqs = [Request([1, 2, 3], 4) for _ in range(3)]
     for r in reqs:
@@ -136,7 +136,7 @@ def test_scheduler_preempts_youngest_and_requeues_front():
 
 
 def test_cache_write_and_advance_bookkeeping():
-    cache = PagedKVCache(2, 1, 3, n_blocks=4, block_size=2)
+    cache = PagedKVCache(2, 1, 3, n_blocks=4, block_size=2, device="cpu")
     assert cache.allocate(7, 3)
     k = torch.arange(2 * 3 * 3, dtype=torch.float32).reshape(2, 3, 1, 3)
     cache.write(7, k, -k)
@@ -190,6 +190,18 @@ def test_engine_without_device_raises_without_card(weights):
         pytest.skip("a CUDA card is present: the default device resolves")
     with pytest.raises(DMLCError, match="no CUDA device"):
         InferenceEngine(weights[2])
+
+
+def test_kv_cache_without_device_raises_without_card():
+    """A cache built without a device goes to the card, as the engine's
+    does; with no card it raises instead of building its pools on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device resolves")
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        PagedKVCache(1, 1, 4, n_blocks=2, block_size=2)
+    assert PagedKVCache(1, 1, 4, n_blocks=2, block_size=2,
+                        device="cpu").k_pool.device.type == "cpu"
 
 
 def _imported_modules(path: Path):
