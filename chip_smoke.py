@@ -13,22 +13,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
             (one process per source, all at once); ptxas's register and
             spill lines, and from ``cuobjdump -sass`` (where the toolkit
             has it) the tensor-core instructions (HGMMA, HMMA) of each
-            bf16 backward kernel, which must use wgmma
+            bf16 forward and backward kernel, which must use wgmma
 3. flash    kernel K1 (flash-attention forward) against its plain
             PyTorch version on the card: B=1, H=16, D=128, T in
             {512, 1000}, causal and not, bf16 and f32, plus (pv, m, l)
-            calls at non-zero offsets; kernel, plain and
+            calls at non-zero offsets in both dtypes; kernel, plain and
             ``F.scaled_dot_product_attention`` (yardstick only) times
    flash_bwd  kernels K2 (dK/dV) and K3 (dQ) against the plain backward
             at the same shapes, then at the two train shapes (B=8 x
             T=1024 and B=1 x T=8192, H=16, D=128, bf16, causal), where
             K1's output is held against the plain forward too; at both
-            train shapes each kernel timed alone (with its TFLOP/s and
-            share of its bound) and two launches of each held
-            bit-identical, beside the plain backward and SDPA's backward
-            (yardstick only)
+            train shapes each of K1, K2, K3 timed alone (with its
+            TFLOP/s and share of its bound) and two launches of each held
+            bit-identical, beside the plain versions and SDPA's forward
+            and backward (yardsticks only)
 4. paged    kernel K4 (paged decode attention) likewise: B=8, H=16,
-            D=128, bf16 pools, block 16, windows S in {1, 4}
+            D=128, bf16 pools, block 16, windows S in {1, 4}; two
+            launches held bit-identical
 5. slice    the flagship model (full width and depth, random weights
             from seed 0) served by the port's engine behind its HTTP
             server (POST /generate on localhost): 8 requests, prompt
@@ -130,21 +131,25 @@ def bound_ms(flops, nbytes, dtype):
                                        else "bytes")
 
 
-def sass_mma_counts(lib):
-    """Tensor-core instructions in each bf16 backward kernel of the built
-    library, from ``cuobjdump -sass``: ``{kernel<D>: {"HGMMA": n,
-    "HMMA": m}}`` (wgmma and mma.sync); None where the toolkit has no
-    cuobjdump."""
+def sass_mma_counts(libs):
+    """Tensor-core instructions in each bf16 flash kernel of the built
+    libraries, from ``cuobjdump -sass``: ``{kernel<D[, normalize]>:
+    {"HGMMA": n, "HMMA": m}}`` (wgmma and mma.sync); None where the
+    toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    sass = "\n".join(subprocess.run(
+        [tool, "-sass", str(lib)], capture_output=True, text=True,
+        timeout=300, check=True).stdout for lib in libs)
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(flash_bwd_(?:dkv|dq)_kernel_bf16)ILi(\d+)E", line)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            m = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq)_kernel_bf16)"
+                          r"ILi(\d+)E(?:Lb([01])E)?", line)
+            name = (f"{m.group(1)}<{m.group(2)}"
+                    f"{', ' + m.group(3) if m.group(3) else ''}>"
+                    if m else None)
             if name:
                 counts[name] = {"HGMMA": 0, "HMMA": 0}
         elif name:
@@ -180,7 +185,8 @@ def flash_phase(fa):
                 worst = max(worst, mx)
                 pairs = t * (t + 1) // 2 if causal else t * t
                 flops = 4.0 * b * h * pairs * d
-                nbytes = 4 * b * t * h * d * q.element_size()
+                # q, k, v read and o written once, m and l written (f32)
+                nbytes = 4 * b * t * h * d * q.element_size() + 2 * b * h * t * 4
                 bnd, by = bound_ms(flops, nbytes, dtype)
                 row = {
                     "phase": "flash", "dtype": str(dtype).split(".")[1],
@@ -198,28 +204,38 @@ def flash_phase(fa):
                 if dtype == torch.bfloat16 and t == 512 and causal:
                     main = row
     # the ring-step (pv, m, l) contract at non-zero offsets, including a
-    # KV range past every query (rows with no visible key)
-    for q_off, kv_off, tq, tk in ((512, 0, 256, 768), (0, 64, 128, 192)):
-        q = torch.randn((b, tq, h, d), generator=gen, device="cuda")
-        k = torch.randn((b, tk, h, d), generator=gen, device="cuda")
-        v = torch.randn((b, tk, h, d), generator=gen, device="cuda")
-        kw = dict(scale=d ** -0.5, causal=True, q_offset=q_off,
-                  kv_offset=kv_off)
-        pv, m, l = fa.block_attend(q, k, v, **kw)
-        pv_r, m_r, l_r = fa.block_attend(q, k, v, impl="torch", **kw)
-        torch.cuda.synchronize()
-        o = pv / l.clamp_min(1e-20).transpose(1, 2)[..., None]
-        o_r = pv_r / l_r.clamp_min(1e-20).transpose(1, 2)[..., None]
-        e_o = errors(o, o_r)[0]
-        e_m = errors(m, m_r)[0]
-        e_l = ((l - l_r).abs() / l_r.clamp_min(1.0)).max().item()
-        check(all(torch.isfinite(x).all() for x in (pv, m, l)),
-              "non-finite (pv, m, l)")
-        check(max(e_o, e_m, e_l) <= F32_TOL,
-              f"block_attend offsets {q_off}/{kv_off}: {e_o} {e_m} {e_l}")
-        emit({"phase": "flash_offsets", "q_offset": q_off,
-              "kv_offset": kv_off, "Tq": tq, "Tk": tk, "o_err": e_o,
-              "m_err": e_m, "l_rel_err": e_l})
+    # KV range past every query (rows with no visible key); m and l come
+    # from f32 scores in both dtypes, o = pv / l carries bf16's rounding
+    # of P in bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        for q_off, kv_off, tq, tk in ((512, 0, 256, 768), (0, 64, 128, 192)):
+            q, k, v = (torch.randn((b, t, h, d), generator=gen,
+                                   device="cuda").to(dtype)
+                       for t in (tq, tk, tk))
+            kw = dict(scale=d ** -0.5, causal=True, q_offset=q_off,
+                      kv_offset=kv_off)
+            pv, m, l = fa.block_attend(q, k, v, **kw)
+            pv_r, m_r, l_r = fa.block_attend(q, k, v, impl="torch", **kw)
+            torch.cuda.synchronize()
+            o = pv / l.clamp_min(1e-20).transpose(1, 2)[..., None]
+            o_r = pv_r / l_r.clamp_min(1e-20).transpose(1, 2)[..., None]
+            e_o, mean_o = errors(o, o_r)
+            e_m = errors(m, m_r)[0]
+            e_l = ((l - l_r).abs() / l_r.clamp_min(1.0)).max().item()
+            dead = l_r == 0
+            check(all(torch.isfinite(x).all() for x in (pv, m, l)),
+                  "non-finite (pv, m, l)")
+            check(bool((l[dead] == 0).all() and (m[dead] == -1e30).all()),
+                  "rows with no visible key: want m = -1e30, l = 0")
+            o_ok = (e_o <= F32_TOL if dtype == torch.float32 else
+                    e_o <= BF16_TOL[0] and mean_o <= BF16_TOL[1])
+            check(o_ok and max(e_m, e_l) <= F32_TOL,
+                  f"block_attend {dtype} offsets {q_off}/{kv_off}: "
+                  f"{e_o} {mean_o} {e_m} {e_l}")
+            emit({"phase": "flash_offsets", "dtype": str(dtype).split(".")[1],
+                  "q_offset": q_off, "kv_offset": kv_off, "Tq": tq, "Tk": tk,
+                  "o_err": e_o, "o_mean_err": mean_o, "m_err": e_m,
+                  "l_rel_err": e_l, "rows_without_key": int(dead.sum())})
     return main, worst
 
 
@@ -271,6 +287,42 @@ def fwd_check(fa, q, k, v, o):
     check(mx <= BF16_TOL[0] and mean <= BF16_TOL[1],
           f"flash fwd B={q.shape[0]} T={q.shape[1]}: {mx} {mean}")
     return mx, mean
+
+
+def fwd_timing(fa, q, k, v, b, t, h, d):
+    """K1 timed alone on q, k, v (bf16, causal, o normalised as the
+    train step calls it), two launches held bit-identical, beside the
+    plain forward and SDPA's forward (yardstick only); emits and returns
+    its row."""
+    kw = dict(scale=d ** -0.5, causal=True, q_offset=0, kv_offset=0,
+              normalize=True)
+    first = fa._launch(q, k, v, **kw)
+    second = fa._launch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    check(same, f"flash_fwd B={b} T={t}: two launches differ")
+    del first, second
+    ms = time_ms(lambda: fa._launch(q, k, v, **kw))
+    plain_ms = time_ms(lambda: fa.attention_reference(q, k, v, causal=True),
+                       iters=5)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    del qt, kt, vt
+    flops = 4.0 * d * b * h * (t * (t + 1) // 2)
+    # q, k, v read and o written once (bf16), m and l written (f32)
+    bnd, by = bound_ms(flops, 4 * q.numel() * q.element_size()
+                       + 2 * b * h * t * 4, torch.bfloat16)
+    row = {"phase": "flash_fwd_train_shape", "B": b, "T": t, "H": h, "D": d,
+           "dtype": "bfloat16", "causal": True, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "SDPA forward", "bound_ms": bnd, "bound_by": by,
+           "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
+           "bound_share": bnd / ms, "over_library": ms / library_ms,
+           "bit_identical": same}
+    emit(row)
+    return row
 
 
 def bwd_timing(fa, args, b, t, h, d):
@@ -329,10 +381,12 @@ def flash_bwd_phase(fa):
     """K2/K3 against the plain backward at B=1 (T 512, 1000, causal or
     not, bf16 and f32), then at the two train shapes (bf16, causal), where
     K1's forward is held against the plain one too and each kernel is
-    timed alone (:func:`bwd_timing`).  Returns the timing rows and each
-    kernel's max abs error at B=8 x T=1024."""
+    timed alone (:func:`fwd_timing`, :func:`bwd_timing`).  Returns the
+    K2/K3 timing rows at B=8 x T=1024, each one's max abs error there,
+    and K1's timing rows by (B, T)."""
     gen = torch.Generator("cuda").manual_seed(5)
     h, d = 16, 128
+    fwd_rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         for t in (512, 1000):
             for causal in (True, False):
@@ -351,13 +405,15 @@ def flash_bwd_phase(fa):
                           "fwd_max_abs_err": fwd_mx,
                           "fwd_mean_abs_err": fwd_mean})
         torch.cuda.empty_cache()
+        fwd_rows[(b, t)] = fwd_timing(fa, *args[:3], b, t, h, d)
+        torch.cuda.empty_cache()
         rows = bwd_timing(fa, args, b, t, h, d)
         del args
         torch.cuda.empty_cache()
     errs = {"flash_bwd_dkv": max(main["dk_max_abs_err"],
                                  main["dv_max_abs_err"]),
             "flash_bwd_dq": main["dq_max_abs_err"]}
-    return rows, errs
+    return rows, errs, fwd_rows
 
 
 # ---------------------------------------------------------------------------
@@ -375,8 +431,11 @@ def paged_case(pa, gen, *, dtype, s_w, lengths, w, b=8, h=16, d=128, bs=16):
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     q = torch.randn((b, s_w, h, d), generator=gen, device="cuda").to(dtype)
     got = pa.paged_attention(q, kp, vp, tables, lens)
+    again = pa.paged_attention(q, kp, vp, tables, lens)
     want = pa.paged_attention(q, kp, vp, tables, lens, impl="torch")
     torch.cuda.synchronize()
+    same = torch.equal(got, again)
+    check(same, f"paged {dtype} S={s_w}: two launches differ")
     mx, mean = errors(got, want)
     if dtype == torch.bfloat16:
         check(mx <= BF16_TOL[0] and mean <= BF16_TOL[1],
@@ -403,6 +462,7 @@ def paged_case(pa, gen, *, dtype, s_w, lengths, w, b=8, h=16, d=128, bs=16):
         "phase": "paged", "dtype": str(dtype).split(".")[1], "B": b,
         "S": s_w, "H": h, "D": d, "block_size": bs, "W": w,
         "lengths": list(lengths), "max_abs_err": mx, "mean_abs_err": mean,
+        "bit_identical": same,
         "ms": time_ms(lambda: pa.paged_attention(q, kp, vp, tables, lens),
                       iters=50),
         "plain_ms": time_ms(lambda: pa.paged_attention(
@@ -545,10 +605,13 @@ def slice_logits(tfm, model, cfg):
 
 def _category(name):
     low = name.lower()
-    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
-                   "paged_attention"):
-        if kernel + "_kernel" in low:
-            return kernel
+    for kernel, cat in (("flash_fwd_kernel", "flash_fwd"),
+                        ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
+                        ("flash_bwd_dq_kernel", "flash_bwd_dq"),
+                        ("paged_split_kernel", "paged_attention"),
+                        ("paged_combine_kernel", "paged_attention")):
+        if kernel in low:
+            return cat
     if "multi_tensor_apply" in low or "adam" in low:
         return "optimizer"
     if any(s in low for s in ("gemm", "cutlass", "nvjet", "xmma", "cublas")):
@@ -795,17 +858,19 @@ def main() -> int:
         if log.exists():
             ptxas += [ln.strip() for ln in log.read_text().splitlines()
                       if "registers" in ln or "spill" in ln]
-    sass = sass_mma_counts(_build.library_path(_build.CSRC / "flash_bwd.cu"))
+    sass = sass_mma_counts([_build.library_path(_build.CSRC / name)
+                            for name in ("flash_fwd.cu", "flash_bwd.cu")])
     if sass is not None:
-        check(len(sass) == 4 and all(c["HGMMA"] > 0 for c in sass.values()),
-              f"bf16 backward kernels without wgmma: {sass}")
+        # K1 at D 64/128, normalised or not; K2 and K3 at D 64/128
+        check(len(sass) == 8 and all(c["HGMMA"] > 0 for c in sass.values()),
+              f"bf16 flash kernels without wgmma: {sass}")
     emit({"phase": "build", "seconds": secs, "ptxas": ptxas,
           "sass_tensor_core_ops": sass})
 
     # 3. / 4. kernels against their plain versions
     prompt_lens = [int(x) for x in np.linspace(17, 511, 8)]
     k1, k1_err = flash_phase(fa)
-    k23, k23_err = flash_bwd_phase(fa)
+    k23, k23_err, k1_train = flash_bwd_phase(fa)
     k4, k4_err = paged_phase(pa, prompt_lens)
 
     # 5. the slice
@@ -870,6 +935,9 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+    # K1 timed alone at the train step's shapes besides its serving row
+    kernels[0]["train_ms"] = {f"B{b}xT{t}": r["ms"]
+                              for (b, t), r in k1_train.items()}
     emit({"kernels": kernels})
     RESULTS["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -2,12 +2,13 @@
 
 Each ``csrc/*.cu`` file compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes).  Libraries go into ``build/dmlc_tpu_torch/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-kernel rebuilds and an unchanged one is loaded as it is.  Nothing builds
-at import: the first launch of a kernel builds its library, and
-:func:`build_all` builds every source at once, one ``nvcc`` process per
-file, all started together.
+minutes).  Sources may include the shared headers ``csrc/*.cuh``.
+Libraries go into ``build/dmlc_tpu_torch/`` at the root of the checkout,
+named by a hash of the source, every header beside it and the flags, so
+an edited kernel or header rebuilds and an unchanged one is loaded as it
+is.  Nothing builds at import: the first launch of a kernel builds its
+library, and :func:`build_all` builds every source at once, one ``nvcc``
+process per file, all started together.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``c_void_p``, returns ``cudaGetLastError()`` after the launch, and the
@@ -28,7 +29,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 from ..base import DMLCError
 
-__all__ = ["Kernel", "build_all", "CSRC", "BUILD_DIR"]
+__all__ = ["Kernel", "build_all", "rows_aligned", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dmlc_tpu_torch"
@@ -48,9 +49,21 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
+    """The library built from ``source``, keyed by its bytes, the bytes
+    of every ``*.cuh`` header in its directory and the flags."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
+
+
+def rows_aligned(x) -> bool:
+    """Every row (last dim) of tensor ``x`` starts on 16 bytes, as the
+    kernels' 16-byte vector loads and copies need."""
+    el = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(st * el % 16 == 0
+                                          for st in x.stride()[:-1])
 
 
 def _build(sources: Sequence[Path]) -> None:

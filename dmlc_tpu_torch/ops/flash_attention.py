@@ -37,7 +37,7 @@ import torch
 from torch import Tensor
 
 from ..base import DMLCError
-from ._build import Kernel
+from ._build import Kernel, rows_aligned
 
 __all__ = ["flash_attention", "flash_backward", "flash_backward_reference",
            "block_attend", "attention_reference", "block_attend_reference",
@@ -178,6 +178,7 @@ def _check(name: str, *tensors) -> None:
 def _launch(q, k, v, *, scale: float, causal: bool, q_offset: int,
             kv_offset: int, normalize: bool):
     _check("flash_fwd", q, k, v)
+    q, k, v = _aligned_bf16(q, k, v)
     b, tq, h, d = q.shape
     tk = k.shape[1]
     out = torch.empty((b, tq, h, d), device=q.device,
@@ -195,10 +196,14 @@ def _launch(q, k, v, *, scale: float, causal: bool, q_offset: int,
     return out, m, l
 
 
-def _rows_aligned(x: Tensor) -> bool:
-    """Every ``[B, T, H, D]`` row of bf16 ``x`` starts on 16 bytes."""
-    return x.data_ptr() % 16 == 0 and all(st % 8 == 0
-                                          for st in x.stride()[:3])
+def _aligned_bf16(*xs: Tensor):
+    """bf16 inputs with every row on 16 bytes: the tensor-core kernels
+    copy rows in 16-byte chunks, so a tensor whose rows do not start on
+    one is copied; f32 inputs pass as they are."""
+    if xs[0].dtype != torch.bfloat16:
+        return xs
+    return tuple(x if rows_aligned(x) else
+                 x.clone(memory_format=torch.contiguous_format) for x in xs)
 
 
 class _Backward:
@@ -216,11 +221,7 @@ class _Backward:
             raise DMLCError(f"lse must be float32 [B, H, Tq], got "
                             f"{lse.dtype} {tuple(lse.shape)}")
         self.delta = _delta(o, do)
-        if q.dtype == torch.bfloat16:
-            # the tensor-core kernels copy rows in 16-byte chunks
-            q, k, v, do = (x if _rows_aligned(x) else
-                           x.clone(memory_format=torch.contiguous_format)
-                           for x in (q, k, v, do))
+        q, k, v, do = _aligned_bf16(q, k, v, do)
         self.inputs, self.lse = (q, k, v, do), lse.contiguous()
         self.dq, self.dk, self.dv = (
             torch.empty_like(x, memory_format=torch.contiguous_format)

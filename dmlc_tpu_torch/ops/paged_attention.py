@@ -16,7 +16,10 @@ caller scatters the window's own K/V into the pool first.  Returns
 ``[B, S, H, D]`` in q's dtype.
 
 Dispatch is on the tensors' device: a CPU tensor goes to the plain
-version, a CUDA tensor to ``csrc/paged_attention.cu`` (or a raise).
+version, a CUDA tensor to ``csrc/paged_attention.cu`` (or a raise).  The
+kernel cuts each row's KV walk into splits of whole pages (about
+``_SPLIT_TOKENS`` tokens), one thread block each, and merges the splits'
+partial ``(pv, m, l)`` from an f32 workspace this wrapper allocates.
 ``impl="cuda"|"torch"`` forces one of the two, for comparisons.
 """
 
@@ -28,17 +31,18 @@ from typing import Optional
 import torch
 
 from ..base import DMLCError
-from ._build import Kernel
+from ._build import Kernel, rows_aligned
 
 __all__ = ["paged_attention", "paged_attention_reference", "PAGED_ATTENTION"]
 
 _NEG_BIG = -1e30
 _MAX_WINDOW = 8
+_SPLIT_TOKENS = 128   # KV tokens a block of the kernel reads, at most
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 PAGED_ATTENTION = Kernel("paged_attention.cu", "dmlc_paged_attention",
-                         [_P, _L, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _F, _I, _P])
+                         [_P, _L, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _F, _I, _P])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -100,16 +104,30 @@ def _check(q, k_pool, v_pool, block_tables, lengths) -> None:
             raise DMLCError(f"{name} must be contiguous")
 
 
+def kv_splits(width: int, block_size: int) -> int:
+    """Splits of the kernel's KV walk over a table ``width`` pages wide.
+    The kernel gives each split ``ceil(width / kv_splits)`` whole pages,
+    at most ``_SPLIT_TOKENS`` tokens (one page where a page is larger)."""
+    return max(1, -(-width // max(1, _SPLIT_TOKENS // block_size)))
+
+
 def _launch(q, k_pool, v_pool, block_tables, lengths, scale: float):
     _check(q, k_pool, v_pool, block_tables, lengths)
+    if not rows_aligned(q):  # the kernel reads q in 16-byte vectors
+        q = q.clone(memory_format=torch.contiguous_format)
     b, s_w, h, d = q.shape
+    w, bs = block_tables.shape[1], k_pool.shape[1]
+    n_split = kv_splits(w, bs)
+    # per split and window row: pv [D], then m and l
+    ws = torch.empty(b * h * n_split * s_w * (d + 2), device=q.device,
+                     dtype=torch.float32)
     out = torch.empty((b, s_w, h, d), device=q.device, dtype=q.dtype)
     sq = q.stride()
     PAGED_ATTENTION.launch(
         q.data_ptr(), sq[0], sq[1], sq[2], k_pool.data_ptr(),
         v_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, s_w, block_tables.shape[1], k_pool.shape[1],
-        d, _DTYPES[q.dtype], float(scale), q.device.index or 0,
+        out.data_ptr(), ws.data_ptr(), b, h, s_w, w, bs, n_split, d,
+        _DTYPES[q.dtype], float(scale), q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
