@@ -51,8 +51,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
    profile  device time by kernel category for one flagship prefill, one
             decode step and one train step at each shape
             (torch.profiler), beside their wall times
-7. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
-            its path, max error, times and roofline bound
+7. spine    the data spine under ``build/spine`` (removed at the end):
+            a RecordIO shard of 512 records of 1025 int32 tokens written
+            by the port; the flagship trained from it through
+            ``recordio_feed`` (4 partitions x 2 records, B=8 x T=1024;
+            2 warm-up steps, then 24 fed steps paired in ABBA order with
+            steps on a batch already on the card): the first batch
+            byte-exact against the records, losses finite and falling,
+            16 launches of each of K1, K2 and K3 per step, the paired
+            step ms and the feed wait; a fresh model's full train state
+            (a depth-4 copy where build/ has under 14 GB free) saved
+            through ``CheckpointManager`` after 2 fed steps, 2 more
+            steps, restored bitwise into a fresh model and AdamW, and
+            the same 2 steps from a feed fast-forwarded to the saved
+            stream position (losses within 1e-3 relative); save,
+            restore and CRC32C GB/s.  One epoch through the packed
+            transport byte-equal to the padded route; then a 256 MB
+            shard's payload MB/s into HBM on three routes beside the
+            pinned H2D rate at the same transfer size
+8. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
+            its path (and on the spine's timed steps), max error, times
+            and roofline bound
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits with code 2 and prints no result.  Details go to
@@ -60,6 +79,7 @@ the script exits with code 2 and prints no result.  Details go to
 """
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -823,6 +843,397 @@ def grad_checks(tfm, cfg):
     return doc
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the data spine
+# ---------------------------------------------------------------------------
+
+SPINE_T = 1024                  # tokens a record holds beyond the first
+SPINE_REC = (SPINE_T + 1) * 4   # 4100 bytes a record
+SPINE_PARTS, SPINE_PER_PART = 4, 2
+SPINE_RECORDS = 512
+FEED_SHARD_BYTES = 256 << 20
+FEED_PER_PART = 384             # ~6.3 MB a feed-rate batch (4 parts)
+
+
+def spine_tokens(n, vocab, seed):
+    """``n`` records of SPINE_T + 1 int32 tokens, arithmetic sequences
+    mod ``vocab`` (the JAX example's ``make_data`` at the flagship's
+    vocab and T, drawn in one go)."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, vocab, n)[:, None]
+    step = rng.integers(1, 7, n)[:, None]
+    return ((start + step * np.arange(SPINE_T + 1)) % vocab).astype(np.int32)
+
+
+def write_shard(path, toks):
+    """One RecordIO shard, a record per row, through the port's writer."""
+    from dmlc_tpu_torch.io.recordio import RecordIOWriter
+    from dmlc_tpu_torch.io.stream import Stream
+
+    with Stream.create(path, "w") as s:
+        w = RecordIOWriter(s)
+        for row in toks:
+            w.write_record(row.tobytes())
+
+
+def bits_equal(a, b):
+    """Two checkpoint trees hold the same paths and the same bits."""
+    from dmlc_tpu_torch.checkpoint.sharded import flatten_with_path
+
+    fa, fb = flatten_with_path(a), flatten_with_path(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        return False
+    for (_, x), (_, y) in zip(fa, fb):
+        x = torch.as_tensor(x).reshape(-1).view(torch.uint8)
+        y = torch.as_tensor(y).reshape(-1).view(torch.uint8)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def spine_feed(uri):
+    from dmlc_tpu_torch.feed import recordio_feed
+
+    return recordio_feed(uri, batch_records=SPINE_PER_PART,
+                         max_bytes=SPINE_REC, num_parts=SPINE_PARTS,
+                         device="cuda")
+
+
+def spine_step(step, it):
+    """One train step on the next feed batch, or on a batch already on
+    the card when ``it`` is a pair ``(ids, labels)``: ``(batch, loss,
+    seconds in next(), step wall)``."""
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+
+    t0 = time.perf_counter()
+    batch = None if isinstance(it, tuple) else next(it)
+    t1 = time.perf_counter()
+    loss = step(*(it if batch is None else ex.batch_tokens(batch)))
+    torch.cuda.synchronize()
+    return batch, loss.item(), t1 - t0, time.perf_counter() - t0
+
+
+def spine_train(tfm, fa, cfg, uri, toks):
+    """Train the flagship from the RecordIO shard through the feed: 2
+    warm-up steps, then 24 fed steps each paired with a step on a batch
+    already on the card, in ABBA order (launch counts zeroed before the
+    timed ones), so the paired walls show what the feed's threads cost
+    the step."""
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+    from dmlc_tpu_torch.io import input_split
+
+    # the records each partition starts with, from the split's spans
+    split = input_split.create(uri, 0, 1, "recordio")
+    first = [b // (SPINE_REC + 8)
+             for b, _ in split.partition_spans(SPINE_PARTS)]
+    split.close()
+    want = torch.from_numpy(np.concatenate(
+        [toks[i:i + SPINE_PER_PART] for i in first]).view(np.uint8)).cuda()
+    resident = ex.batch_tokens({"data": torch.from_numpy(spine_tokens(
+        SPINE_PARTS * SPINE_PER_PART, cfg.vocab, 2).view(np.uint8)).cuda()})
+
+    model = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            "cuda")
+    opt = tfm.adamw(model.parameters(), 1e-4)
+    step = tfm.make_train_step(model, opt)
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
+               "flash_bwd_dq": fa.FLASH_BWD_DQ}
+    f = spine_feed(uri)
+    it = iter(f)
+    losses, walls, waits, res_walls, per_step = [], [], [], [], []
+    try:
+        for _ in range(2):
+            batch, loss, _, _ = spine_step(step, it)
+            if not losses:
+                first_exact = (torch.equal(batch["data"], want) and bool(
+                    (batch["length"] == SPINE_REC).all()))
+                probe = ex.batch_tokens(batch)
+            losses.append(loss)
+        for kern in kernels.values():
+            kern.launches = 0
+        for i in range(48):
+            fed = i % 4 in (0, 3)
+            before = [k.launches for k in kernels.values()]
+            _, loss, wait, wall = spine_step(step, it if fed else resident)
+            per_step.append([k.launches - n0 for k, n0 in
+                             zip(kernels.values(), before)])
+            if not fed:
+                res_walls.append(wall)
+            else:
+                losses.append(loss)
+                walls.append(wall)
+                waits.append(wait)
+        launches = {n: k.launches for n, k in kernels.items()}
+        # each step trains on new records, whose loss moves less than its
+        # noise in 26 steps at lr 1e-4; the first batch's loss, taken
+        # again after them, shows the updates landed
+        with torch.no_grad():
+            probe_loss = tfm.unsharded_loss(model, *probe).item()
+        stats = f.stats()
+    finally:
+        f.close()
+    check(first_exact, "spine: the first feed batch differs from the "
+          "records as written")
+    check(all(math.isfinite(x) for x in losses + [probe_loss]),
+          f"spine losses {losses}, {probe_loss}")
+    check(probe_loss < losses[0],
+          f"spine: the first batch's loss did not fall: {losses[0]} -> "
+          f"{probe_loss}")
+    check(all(n == [cfg.n_layers] * 3 for n in per_step),
+          f"spine launches per step {per_step}, want {cfg.n_layers} of each")
+    diffs = [a - b for a, b in zip(walls, res_walls)]
+    return {
+        "phase": "spine_train", "model": "flagship",
+        "feed": f"recordio_feed(num_parts={SPINE_PARTS}, "
+                f"batch_records={SPINE_PER_PART}, max_bytes={SPINE_REC})",
+        "B": SPINE_PARTS * SPINE_PER_PART, "T": SPINE_T, "lr": 1e-4,
+        "first_batch_byte_exact": first_exact, "losses": losses,
+        "first_batch_loss_after": probe_loss,
+        "launches_per_step": dict(zip(kernels, per_step[0])),
+        "launches": launches, "step_ms_p50": median(walls) * 1e3,
+        "step_ms": [w * 1e3 for w in walls],
+        "resident_step_ms_p50": median(res_walls) * 1e3,
+        "resident_step_ms": [w * 1e3 for w in res_walls],
+        "fed_minus_resident_ms_p50": median(diffs) * 1e3,
+        "fed_minus_resident_ms": [d * 1e3 for d in diffs],
+        "feed_wait_ms_p50": median(waits) * 1e3,
+        "feed_wait_ms": [w * 1e3 for w in waits],
+        "feed_wait_share": sum(waits) / sum(walls), "feed_stats": stats}
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def spine_checkpoint(tfm, cfg, uri, ckpt_dir):
+    """Train a model at ``cfg`` 2 steps from the feed, checkpoint its
+    full train state with the stream position, take 2 more steps, then
+    restore into a fresh model and AdamW and take the same 2 steps from
+    a feed fast-forwarded to the saved position."""
+    from dmlc_tpu_torch import native
+    from dmlc_tpu_torch.checkpoint import CheckpointManager
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+    from dmlc_tpu_torch.models.convert import (train_state_from_jax,
+                                               train_state_to_jax)
+
+    model = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            "cuda")
+    opt = tfm.adamw(model.parameters(), 1e-4)
+    step = tfm.make_train_step(model, opt)
+    consumed = 2
+    f = spine_feed(uri)
+    try:
+        it = iter(f)
+        for _ in range(consumed):
+            spine_step(step, it)
+        t0 = time.perf_counter()
+        saved = ex.train_state(model, opt, consumed)
+        to_host_s = time.perf_counter() - t0
+        mgr = CheckpointManager(ckpt_dir, max_to_keep=1)
+        t0 = time.perf_counter()
+        mgr.save(consumed, saved)
+        save_s = time.perf_counter() - t0
+        nbytes = mgr.stats()["bytes_written"]
+        after = [spine_step(step, it)[1] for _ in range(2)]
+    finally:
+        f.close()
+    del model, opt, step, it
+    torch.cuda.empty_cache()
+
+    model = tfm.Transformer(cfg, device="cuda")
+    opt = tfm.adamw(model.parameters(), 1e-4)
+    template = dict(train_state_to_jax(model, opt, device="meta"),
+                    stream=np.zeros(1, np.int64))
+    t0 = time.perf_counter()
+    at, restored = mgr.restore_latest(template)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_state_from_jax(restored, model, opt)
+    torch.cuda.synchronize()
+    to_card_s = time.perf_counter() - t0
+    check(at == consumed and int(restored["stream"][0]) == consumed,
+          f"restored step {at}, stream {restored['stream']}")
+    restored_equal = bits_equal(restored, saved)
+    del restored
+    back = dict(train_state_to_jax(model, opt), stream=saved["stream"])
+    state_equal = bits_equal(back, saved)
+    del back
+    check(restored_equal and state_equal,
+          f"restored state differs: file {restored_equal}, "
+          f"model {state_equal}")
+    big = max((t for t in saved["params"]["blocks"].values()),
+              key=lambda t: t.numel())
+    raw = big.reshape(-1).view(torch.uint8).numpy()
+    t0 = time.perf_counter()
+    native.crc32c(raw)
+    crc_s = time.perf_counter() - t0
+    del saved
+    step = tfm.make_train_step(model, opt)
+    f = spine_feed(uri)
+    try:
+        it = iter(f)
+        for _ in range(consumed):   # fast-forward to the stream position
+            next(it)
+        resumed = [spine_step(step, it)[1] for _ in range(2)]
+    finally:
+        f.close()
+    del model, opt, step, it
+    torch.cuda.empty_cache()
+    diff = [abs(a - b) / abs(b) for a, b in zip(resumed, after)]
+    check(max(diff) <= 1e-3, f"resumed losses {resumed} vs {after}")
+    return {
+        "phase": "spine_checkpoint", "n_layers": cfg.n_layers,
+        "step": consumed, "bytes": nbytes,
+        "leaves": len(mgr_leaves(ckpt_dir, consumed)),
+        "to_host_s": to_host_s, "save_s": save_s,
+        "save_GBps": nbytes / save_s / 1e9, "restore_s": restore_s,
+        "restore_GBps": nbytes / restore_s / 1e9, "to_card_s": to_card_s,
+        "crc32c_bytes": raw.size, "crc32c_GBps": raw.size / crc_s / 1e9,
+        "crc32c_sse42": native.crc32c_hardware(),
+        "state_bitwise_equal": restored_equal and state_equal,
+        "losses_uninterrupted": after, "losses_resumed": resumed,
+        "loss_abs_diff": [abs(a - b) for a, b in zip(resumed, after)],
+        "loss_rel_diff": diff, "manager_stats": mgr.stats()}
+
+
+def mgr_leaves(ckpt_dir, step):
+    with open(os.path.join(ckpt_dir, f"step_{step:08d}",
+                           "manifest.json")) as fh:
+        return json.load(fh)["leaves"]
+
+
+def spine_routes(uri):
+    """One epoch through the packed transport and through the padded
+    route of the same shard: every batch byte-equal on the card."""
+    from dmlc_tpu_torch.feed import recordio_feed
+
+    kw = dict(batch_records=SPINE_PER_PART, max_bytes=SPINE_REC,
+              num_parts=SPINE_PARTS, device="cuda")
+    padded = recordio_feed(uri, **kw)
+    packed = recordio_feed(uri, pack_bytes=SPINE_PER_PART * SPINE_REC, **kw)
+    n = 0
+    try:
+        for a, b in itertools.zip_longest(padded, packed):
+            check(a is not None and b is not None,
+                  f"the routes end at different batches ({n})")
+            check(sorted(a) == sorted(b), f"keys {sorted(a)} {sorted(b)}")
+            for k in a:
+                check(torch.equal(a[k], b[k]), f"batch {n} {k} differs")
+            n += 1
+    finally:
+        padded.close()
+        packed.close()
+    check(n == SPINE_RECORDS // (SPINE_PARTS * SPINE_PER_PART),
+          f"{n} batches in the epoch")
+    return {"phase": "spine_routes", "batches": n,
+            "packed_equals_padded": True,
+            "bytes_to_device": {"padded": padded.stats()["bytes_to_device"],
+                                "packed": packed.stats()["bytes_to_device"]}}
+
+
+def h2d_ceiling(nbytes, iters=32):
+    """MB/s of non-blocking copies from one pinned host buffer of
+    ``nbytes`` to the card, timed with CUDA events."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        dst.copy_(src, non_blocking=True)
+    b.record()
+    torch.cuda.synchronize()
+    return nbytes * iters / 1e6 / (a.elapsed_time(b) / 1e3)
+
+
+def spine_feed_rate(uri):
+    """Payload MB/s into HBM over one epoch of the large shard on three
+    routes, beside the pinned H2D rate at the same transfer size."""
+    from dmlc_tpu_torch.feed import recordio_feed, recordio_packed_feed
+
+    per_part_bytes = FEED_PER_PART * SPINE_REC
+    routes = {
+        "padded": lambda: recordio_feed(
+            uri, batch_records=FEED_PER_PART, max_bytes=SPINE_REC,
+            num_parts=SPINE_PARTS, device="cuda"),
+        "packed_transport": lambda: recordio_feed(
+            uri, batch_records=FEED_PER_PART, max_bytes=SPINE_REC,
+            num_parts=SPINE_PARTS, device="cuda", pack_bytes=per_part_bytes),
+        "recordio_packed_feed": lambda: recordio_packed_feed(
+            uri, buf_bytes=per_part_bytes, max_records=FEED_PER_PART,
+            num_parts=SPINE_PARTS, device="cuda"),
+    }
+    doc = {"phase": "spine_feed_rate", "shard_bytes": os.path.getsize(uri),
+           "num_parts": SPINE_PARTS, "batch_bytes": SPINE_PARTS
+           * per_part_bytes}
+    for name, make in routes.items():
+        f = make()
+        payload = torch.zeros((), dtype=torch.int64, device="cuda")
+        batches = 0
+        try:
+            t0 = time.perf_counter()
+            for b in f:
+                if "length" in b:
+                    payload += b["length"].sum()
+                else:
+                    offs = b["offsets"].view(SPINE_PARTS, -1)
+                    payload += offs.gather(
+                        1, b["count"].view(-1, 1).long()).sum()
+                batches += 1
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            f.close()
+        payload = int(payload)
+        check(payload == (doc["shard_bytes"] // (SPINE_REC + 8)) * SPINE_REC,
+              f"{name}: {payload} payload bytes")
+        doc[name] = {"MBps": payload / 1e6 / dt, "seconds": dt,
+                     "payload_bytes": payload, "batches": batches,
+                     "stats": f.stats()}
+    doc["h2d_pinned_MBps"] = h2d_ceiling(doc["batch_bytes"])
+    return doc
+
+
+def spine_phase(tfm, fa, cfg):
+    """The data spine on the card: RecordIO shards written by the port,
+    read through the input split and the device feed into the flagship
+    train step, checkpointed and resumed in the JAX package's format.
+    The ~6 GB train state is checkpointed at full depth where build/ has
+    14 GB free, else a depth-4 copy at full width.  ``build/spine`` goes
+    at the end."""
+    root = os.path.join(ROOT, "build", "spine")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        free = shutil.disk_usage(root).free
+        uri = os.path.join(root, "tokens.rec")
+        toks = spine_tokens(SPINE_RECORDS, cfg.vocab, 0)
+        write_shard(uri, toks)
+        train_doc = spine_train(tfm, fa, cfg, uri, toks)
+        torch.cuda.empty_cache()
+        ckpt_cfg = (cfg if free >= 14e9
+                    else dataclasses.replace(cfg, n_layers=4))
+        ckpt_doc = spine_checkpoint(tfm, ckpt_cfg, uri,
+                                    os.path.join(root, "ckpt"))
+        ckpt_doc["disk_free_bytes"] = free
+        shutil.rmtree(os.path.join(root, "ckpt"))
+        routes_doc = spine_routes(uri)
+        big = os.path.join(root, "feed.rec")
+        t0 = time.perf_counter()
+        write_shard(big, spine_tokens(FEED_SHARD_BYTES // (SPINE_REC + 8),
+                                      cfg.vocab, 1))
+        rate_doc = spine_feed_rate(big)
+        rate_doc["write_s"] = time.perf_counter() - t0 - sum(
+            rate_doc[r]["seconds"] for r in ("padded", "packed_transport",
+                                             "recordio_packed_feed"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return train_doc, routes_doc, rate_doc, ckpt_doc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -908,8 +1319,15 @@ def main() -> int:
     emit(profile_phase(tfm, model, cfg, {"train": one_step,
                                          "train_long": long_step}))
     del train_model, one_step, long_step, step
+    torch.cuda.empty_cache()
 
-    # 7. the kernels line: each kernel's launches on its own path (K1 and
+    # 7. the data spine: the train step fed from RecordIO, checkpointed
+    spine_docs = spine_phase(tfm, fa, cfg)
+    for doc in spine_docs:
+        emit(doc)
+    spine_launches = spine_docs[0]["launches"]
+
+    # 8. the kernels line: each kernel's launches on its own path (K1 and
     # K4 serving, K2 and K3 training; K1 also runs 16 times per train step)
     kernels = []
     for kname, src, replaces, row, err, path, counts in (
@@ -930,6 +1348,7 @@ def main() -> int:
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": replaces, "path": path,
                         "launches": counts[kname],
+                        "spine_launches": spine_launches.get(kname, 0),
                         "max_abs_err": err, "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

@@ -1,5 +1,6 @@
-"""Error type and typed environment access (the port's own copy of the two
-names it needs from ``dmlc_tpu/base.py``), and the port's device rule."""
+"""Error type, ``check`` and typed environment access (the port's own copy
+of the names it needs from ``dmlc_tpu/base.py``), and the port's device
+rule."""
 
 from __future__ import annotations
 
@@ -8,11 +9,18 @@ from typing import Optional, Type, TypeVar
 
 import torch
 
-__all__ = ["DMLCError", "get_env", "resolve_device"]
+__all__ = ["DMLCError", "check", "get_env", "resolve_device"]
 
 
 class DMLCError(RuntimeError):
     """Exception for all fatal checks (analog of ``dmlc::Error``)."""
+
+
+def check(cond, msg="") -> None:
+    """Analog of ``CHECK(cond) << msg``: raise :class:`DMLCError` unless
+    ``cond`` holds; ``msg`` is a string or a callable that makes one."""
+    if not cond:
+        raise DMLCError(f"Check failed: {msg() if callable(msg) else msg}")
 
 
 _T = TypeVar("_T")

@@ -1,0 +1,455 @@
+"""Sharded checkpoints of nested dicts/lists/tuples of tensors, in the JAX
+package's on-disk format (the port of ``dmlc_tpu/checkpoint/sharded.py``).
+
+Layout under a checkpoint directory::
+
+    manifest.json          {"format": 1, "leaves": {key: {"path", "shape",
+                            "dtype", "spec", "shards", "crc32c"}}}
+    <leaf-key>.<shard-id>  the shard's raw little-endian bytes
+
+A leaf's key is JAX's ``keystr`` of its path (``['params']['embed']``,
+``['opt'][0].mu[...]`` for a named tuple's field) with every character
+but ``[A-Za-z0-9._-]`` made ``_`` and the ends stripped; dict keys are
+visited in sorted order, as JAX flattens them.  A shard id names the
+box it covers (``0-2048_0-32768``, ``scalar``); the port writes each
+leaf as one shard.  bfloat16 moves as its bytes (``"bfloat16"`` in the
+manifest, as JAX writes it), never through float32 or numpy.  So a
+checkpoint the JAX package saved restores here and the other way
+round.
+
+Crash consistency: shards first, the manifest last through a temp file,
+``fsync`` and ``os.replace``; a step without a committed manifest does
+not exist for restore.  Every shard carries a CRC-32C digest in the
+manifest and a restore verifies it.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import re
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..base import DMLCError, check
+from ..io.integrity import crc32c
+from ..io.stream import Stream
+
+__all__ = ["CorruptCheckpoint", "MissingLeaf", "save_pytree",
+           "restore_pytree", "CheckpointManager", "leaf_key",
+           "flatten_with_path"]
+
+MANIFEST = "manifest.json"
+_logger = logging.getLogger("dmlc_tpu_torch.checkpoint")
+
+_TORCH_DTYPES = {
+    torch.float32: "float32", torch.float64: "float64",
+    torch.float16: "float16", torch.bfloat16: "bfloat16",
+    torch.int8: "int8", torch.int16: "int16", torch.int32: "int32",
+    torch.int64: "int64", torch.uint8: "uint8", torch.bool: "bool",
+}
+_DTYPE_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+
+
+class CorruptCheckpoint(DMLCError):
+    """A checkpoint whose manifest does not parse, or a shard that fails
+    its CRC32C digest or its size."""
+
+
+class MissingLeaf(DMLCError):
+    """The restore template names a leaf the manifest does not carry."""
+
+
+# ---------------------------------------------------------------------------
+# trees: JAX's flattening order and key strings
+# ---------------------------------------------------------------------------
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray, np.generic, int, float))
+
+
+def flatten_with_path(tree) -> List[Tuple[str, Any]]:
+    """``[(keystr, leaf)]`` in ``jax.tree_util.tree_flatten_with_path``
+    order: dict keys sorted, sequences by index, named tuples by field;
+    ``None`` holds no leaf."""
+    out: List[Tuple[str, Any]] = []
+
+    def walk(node, path: str) -> None:
+        if node is None:
+            return
+        if _is_leaf(node):
+            out.append((path, node))
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}[{k!r}]")
+        elif _is_namedtuple(node):
+            for name in node._fields:
+                walk(getattr(node, name), f"{path}.{name}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        else:
+            raise DMLCError(f"checkpoint tree node of type "
+                            f"{type(node).__name__} at {path or '<root>'}")
+
+    walk(tree, "")
+    return out
+
+
+def _unflatten(tree, leaves: Dict[str, Any]):
+    """``tree`` with each leaf replaced by ``leaves[keystr]``."""
+    def build(node, path: str):
+        if node is None:
+            return None
+        if _is_leaf(node):
+            return leaves[path]
+        if isinstance(node, dict):
+            return {k: build(node[k], f"{path}[{k!r}]") for k in node}
+        if _is_namedtuple(node):
+            return type(node)(*(build(getattr(node, n), f"{path}.{n}")
+                                for n in node._fields))
+        return type(node)(build(v, f"{path}[{i}]")
+                          for i, v in enumerate(node))
+
+    return build(tree, "")
+
+
+def leaf_key(path: str) -> str:
+    """The file-safe key of a leaf path (``_leaf_key`` of the JAX
+    package)."""
+    safe = "".join(c if (c.isalnum() or c in "._-") else "_" for c in path)
+    return safe.strip("_") or "leaf"
+
+
+def _index_key(shape) -> str:
+    """The id of the shard covering the whole array."""
+    return "_".join(f"0-{d}" for d in shape) if len(shape) else "scalar"
+
+
+def _host_bytes(leaf) -> Tuple[np.ndarray, tuple, str]:
+    """(uint8 view of the leaf's bytes on the host, shape, dtype name)."""
+    if isinstance(leaf, torch.Tensor):
+        check(leaf.dtype in _TORCH_DTYPES,
+              f"checkpoint: unsupported dtype {leaf.dtype}")
+        t = leaf.detach().to("cpu").contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy()
+        return raw, tuple(t.shape), _TORCH_DTYPES[t.dtype]
+    a = np.ascontiguousarray(np.asarray(leaf))
+    return a.reshape(-1).view(np.uint8), a.shape, str(a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# save / restore
+# ---------------------------------------------------------------------------
+
+def _local_path(uri: str) -> Optional[str]:
+    if uri.startswith("file://"):
+        return uri[len("file://"):]
+    return None if "://" in uri else uri
+
+
+def _join(base: str, name: str) -> str:
+    return base.rstrip("/") + "/" + name
+
+
+def _commit_manifest(uri: str, data: bytes) -> None:
+    """The manifest, written last and atomically: temp file, fsync,
+    rename.  Shards without a committed manifest are invisible to
+    restore, so a crash mid-save leaves the previous step the target."""
+    path = _local_path(_join(uri, MANIFEST))
+    check(path is not None, f"checkpoint {uri}: the port writes local "
+          "paths only")
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def save_pytree(uri: str, tree: Any) -> int:
+    """Write ``tree`` (nested dicts/lists/tuples of tensors and arrays)
+    under ``uri``; returns the bytes of shards written.  Tensors on the
+    card are copied to the host one leaf at a time."""
+    path = _local_path(uri)
+    check(path is not None, f"checkpoint {uri}: the port writes local "
+          "paths only")
+    os.makedirs(path, exist_ok=True)
+    manifest: Dict[str, Any] = {"format": 1, "leaves": {}}
+    nbytes = 0
+    for kpath, leaf in flatten_with_path(tree):
+        key = leaf_key(kpath)
+        check(key not in manifest["leaves"], f"duplicate leaf key {key}")
+        raw, shape, dtype = _host_bytes(leaf)
+        ikey = _index_key(shape)
+        fname = f"{key}.{ikey}"
+        with Stream.create(_join(uri, fname), "w") as s:
+            s.write(memoryview(raw))
+        nbytes += raw.size
+        manifest["leaves"][key] = {
+            "path": kpath, "shape": list(shape), "dtype": dtype,
+            "spec": None, "shards": {ikey: fname},
+            "crc32c": {ikey: crc32c(raw)}}
+    _commit_manifest(uri, json.dumps(manifest, indent=1).encode())
+    return nbytes
+
+
+def _read_file(uri: str) -> np.ndarray:
+    path = _local_path(uri)
+    check(path is not None, f"checkpoint {uri}: the port reads local "
+          "paths only")
+    out = np.empty(os.path.getsize(path), np.uint8)
+    mv = memoryview(out)
+    with Stream.create(uri, "r") as s:
+        got = 0
+        while got < out.size:
+            n = s.readinto(mv[got:])
+            if n == 0:
+                break
+            got += n
+    return out[:got]
+
+
+def _try_extents(ikey: str, shape) -> Optional[tuple]:
+    """((start, stop), ...) when ikey is a well-formed in-bounds shard id
+    for ``shape``, else None."""
+    if ikey == "scalar":
+        return () if tuple(shape) == () else None
+    parts = ikey.split("_")
+    if len(parts) != len(shape):
+        return None
+    out = []
+    for p, dim in zip(parts, shape):
+        m = p.split("-")
+        if len(m) != 2 or not (m[0].isdigit() and m[1].isdigit()):
+            return None
+        a, b = int(m[0]), int(m[1])
+        if not (0 <= a < b <= dim):
+            return None
+        out.append((a, b))
+    return tuple(out)
+
+
+def _exact_cover(boxes, shape) -> bool:
+    """True iff the shard boxes tile the array: disjoint, and their
+    volume is the array's."""
+    if any(b is None for b in boxes):
+        return False
+    vol = 0
+    for b in boxes:
+        v = 1
+        for a, c in b:
+            v *= c - a
+        vol += v
+    if vol != int(np.prod(shape, dtype=np.int64)):
+        return False
+    for i in range(len(boxes)):
+        for j in range(i + 1, len(boxes)):
+            if all(a1 < b2 and a2 < b1
+                   for (a1, b1), (a2, b2) in zip(boxes[i], boxes[j])):
+                return False
+    return True
+
+
+def _load_manifest(uri: str) -> Dict[str, Any]:
+    raw = bytes(_read_file(_join(uri, MANIFEST)))
+    try:
+        manifest = json.loads(raw)
+        if not isinstance(manifest, dict):
+            raise ValueError("manifest is not a JSON object")
+    except ValueError as e:
+        raise CorruptCheckpoint(f"checkpoint manifest at {uri} is "
+                                f"unparseable ({e})") from e
+    if manifest.get("format") != 1:
+        raise CorruptCheckpoint(f"checkpoint manifest at {uri} has unknown "
+                                f"format {manifest.get('format')!r}")
+    if not isinstance(manifest.get("leaves"), dict):
+        raise CorruptCheckpoint(f"checkpoint manifest at {uri} lacks its "
+                                "leaves table")
+    return manifest
+
+
+def _restore(uri: str, template: Any) -> Tuple[Any, int]:
+    manifest = _load_manifest(uri)
+    leaves_meta = manifest["leaves"]
+    listing: List[str] = []
+    nread = 0
+
+    def shard_bytes(key, ikey, nbytes, want_crc) -> np.ndarray:
+        nonlocal nread
+        # the file name is derived, not looked up: in a multi-host JAX save
+        # each process writes its own shards, one writes the manifest
+        raw = _read_file(_join(uri, f"{key}.{ikey}"))
+        nread += raw.size
+        if want_crc is not None and crc32c(raw) != int(want_crc):
+            raise CorruptCheckpoint(
+                f"checkpoint shard {key}.{ikey} failed its CRC32C digest "
+                f"— the checkpoint at {uri} is corrupt")
+        if raw.size != nbytes:
+            raise CorruptCheckpoint(
+                f"checkpoint shard {key}.{ikey} holds {raw.size} bytes, "
+                f"expected {nbytes} — the checkpoint at {uri} is corrupt")
+        return raw
+
+    def shard_ids(key, meta, shape) -> List[str]:
+        """The shard ids covering the leaf: the manifest's, completed
+        from the directory listing when it does not cover the array."""
+        ikeys = [k for k in meta["shards"]
+                 if _try_extents(k, shape) is not None]
+        if _exact_cover([_try_extents(k, shape) for k in ikeys], shape):
+            return ikeys
+        if not listing:
+            listing.extend(os.listdir(_local_path(uri)))
+        prefix = key + "."
+        extra = {n[len(prefix):] for n in listing if n.startswith(prefix)}
+        ikeys = sorted(set(ikeys) | {k for k in extra
+                                     if _try_extents(k, shape)})
+        check(_exact_cover([_try_extents(k, shape) for k in ikeys], shape),
+              f"checkpoint leaf {key}: shard files {ikeys} do not tile the "
+              "array exactly")
+        return ikeys
+
+    out: Dict[str, Any] = {}
+    for kpath, tmpl in flatten_with_path(template):
+        key = leaf_key(kpath)
+        meta = leaves_meta.get(key)
+        if meta is None:
+            raise MissingLeaf(f"checkpoint missing leaf {key}")
+        shape = tuple(meta["shape"])
+        dtype = _DTYPE_NAMES.get(meta["dtype"])
+        check(dtype is not None,
+              f"checkpoint leaf {key}: unsupported dtype {meta['dtype']}")
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        crcs = meta.get("crc32c") or {}
+        ids = shard_ids(key, meta, shape)
+        if len(ids) == 1:
+            full = torch.from_numpy(shard_bytes(
+                key, ids[0], int(np.prod(shape, dtype=np.int64)) * itemsize,
+                crcs.get(ids[0]))).view(dtype).reshape(shape)
+        else:
+            full = torch.empty(shape, dtype=dtype)
+            for ikey in ids:
+                box = _try_extents(ikey, shape)
+                sub = tuple(b - a for a, b in box)
+                raw = shard_bytes(key, ikey,
+                                  int(np.prod(sub, dtype=np.int64))
+                                  * itemsize, crcs.get(ikey))
+                full[tuple(slice(a, b) for a, b in box)] = \
+                    torch.from_numpy(raw).view(dtype).reshape(sub)
+        if isinstance(tmpl, (np.ndarray, np.generic)):
+            check(dtype != torch.bfloat16, f"checkpoint leaf {key}: "
+                  "bfloat16 restores into a tensor template, not numpy")
+            full = full.numpy()
+        out[kpath] = full
+    return _unflatten(template, out), nread
+
+
+def restore_pytree(uri: str, template: Any) -> Any:
+    """The tree saved under ``uri``, shaped as ``template`` (its values
+    are ignored; a ``device="meta"`` tensor template costs no memory).
+    Leaves come back as CPU tensors, or numpy arrays where the template
+    holds numpy."""
+    return _restore(uri, template)[0]
+
+
+class CheckpointManager:
+    """Step-numbered checkpoints under ``base_uri`` with crash-consistent
+    restore and retention of the newest ``max_to_keep`` committed steps.
+
+    A step exists once its manifest is committed; ``latest_step`` and
+    ``restore_latest`` scan the step directories and skip a torn one, and
+    ``restore_latest`` falls back a step past a corrupt one.  The
+    ``LATEST`` file is a hint for people, never the restore pointer.
+    :meth:`stats` counts saves and bytes written and read."""
+
+    def __init__(self, base_uri: str, *, max_to_keep: int = 3):
+        check(max_to_keep >= 1,
+              f"max_to_keep must be >= 1, got {max_to_keep}")
+        self.base = base_uri.rstrip("/")
+        check(_local_path(self.base) is not None,
+              f"checkpoint {base_uri}: the port writes local paths only")
+        self.max_to_keep = max_to_keep
+        self._stats = {"saves": 0, "bytes_written": 0, "bytes_read": 0}
+
+    def stats(self) -> Dict[str, int]:
+        return dict(self._stats)
+
+    def _step_dir(self, step: int) -> str:
+        return f"{self.base}/step_{step:08d}"
+
+    def save(self, step: int, tree: Any) -> None:
+        self._stats["bytes_written"] += save_pytree(self._step_dir(step),
+                                                    tree)
+        self._stats["saves"] += 1
+        with Stream.create(_join(self.base, "LATEST"), "w") as s:
+            s.write(str(step).encode())
+        self._retain()
+
+    def _has_manifest(self, step: int) -> bool:
+        return os.path.exists(_local_path(_join(self._step_dir(step),
+                                                MANIFEST)))
+
+    def _step_dirs(self) -> List[int]:
+        base = _local_path(self.base)
+        if not os.path.isdir(base):
+            return []
+        return [int(m.group(1)) for m in
+                (re.match(r"^step_(\d+)$", n) for n in os.listdir(base))
+                if m]
+
+    def _committed_steps(self) -> List[int]:
+        """Committed step numbers, newest first."""
+        return [s for s in sorted(self._step_dirs(), reverse=True)
+                if self._has_manifest(s)]
+
+    def latest_step(self) -> Optional[int]:
+        """The newest step with a committed manifest."""
+        steps = self._committed_steps()
+        return steps[0] if steps else None
+
+    def restore_latest(self, template: Any):
+        """``(step, tree)`` of the newest committed step that restores
+        cleanly, falling back past steps that fail their digests or whose
+        manifest is corrupt; ``(None, None)`` when there is none.  Only
+        :class:`CorruptCheckpoint` falls back: read errors and template
+        mismatches propagate."""
+        last_err: Optional[DMLCError] = None
+        candidates = self._committed_steps()
+        if not candidates:
+            return None, None
+        for step in candidates:
+            try:
+                tree, nread = _restore(self._step_dir(step), template)
+            except CorruptCheckpoint as e:
+                last_err = e
+                _logger.warning("checkpoint step %d failed to restore (%s); "
+                                "falling back to the previous committed "
+                                "step", step, e)
+                continue
+            self._stats["bytes_read"] += nread
+            return step, tree
+        raise DMLCError(f"no committed checkpoint under {self.base} restored "
+                        f"cleanly (last error: {last_err})")
+
+    def _retain(self) -> None:
+        committed = self._committed_steps()
+        # the newest max_to_keep committed steps stay; a torn directory
+        # never pushes a restorable step out of the window
+        for old in committed[self.max_to_keep:]:
+            shutil.rmtree(_local_path(self._step_dir(old)),
+                          ignore_errors=True)
+        # torn directories older than the newest committed step will never
+        # complete; newer ones may be a save in flight
+        if committed:
+            for step in self._step_dirs():
+                if step < committed[0] and not self._has_manifest(step):
+                    shutil.rmtree(_local_path(self._step_dir(step)),
+                                  ignore_errors=True)

@@ -1,0 +1,7 @@
+"""The device feed of the port (the port of ``dmlc_tpu/feed``)."""
+
+from .device_feed import (  # noqa: F401
+    DeviceFeed,
+    recordio_feed,
+    recordio_packed_feed,
+)

@@ -1,0 +1,22 @@
+"""IO layer of the port: URIs, streams, the local filesystem, RecordIO,
+integrity and the byte-range input split (the port of
+``dmlc_tpu/io``)."""
+
+from .stream import (  # noqa: F401
+    FileStream,
+    MemoryBytesStream,
+    MemoryFixedSizeStream,
+    SeekStream,
+    Serializable,
+    Stream,
+)
+from .uri import URI, URISpec  # noqa: F401
+from .filesys import FileInfo, FileSystem, register_filesystem  # noqa: F401
+from .recordio import (  # noqa: F401
+    KMAGIC,
+    RecordIOChunkReader,
+    RecordIOReader,
+    RecordIOWriter,
+)
+from . import input_split  # noqa: F401
+from .input_split import InputSplit, InputSplitBase, RecordIOSplitter  # noqa: F401

@@ -1,4 +1,4 @@
-"""Weights to and from the JAX package's parameter pytree, as numpy arrays.
+"""Weights and train state to and from the JAX package's pytrees.
 
 ``params_from_jax`` takes the tree ``dmlc_tpu.models.transformer.
 init_params`` builds (after ``jax.tree.map(np.asarray, ...)``): blocks
@@ -7,18 +7,33 @@ is its inverse.  Neither needs jax nor the JAX package.  bfloat16
 leaves are ``ml_dtypes``' bfloat16 on the numpy side, which
 ``torch.from_numpy`` refuses; they go through their uint16 bits instead,
 so both directions are bit-exact.
+
+``train_state_to_jax`` / ``train_state_from_jax`` carry the whole train
+state in the tree the JAX example checkpoints, ``{"params": ..., "opt":
+optax.adamw's state}``, with torch tensors as leaves (bfloat16 stays
+torch's, no numpy on the way): the AdamW moments are optax's
+``ScaleByAdamState.mu``/``.nu`` and torch's per-parameter ``step`` its
+``count``.  ``checkpoint.sharded`` writes this tree in the JAX package's
+format.
 """
 
 from __future__ import annotations
 
+from collections import namedtuple
 from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
+from ..base import DMLCError
 from .transformer import Transformer, TransformerConfig
 
-__all__ = ["params_from_jax", "params_to_jax", "tensor_from_numpy"]
+__all__ = ["params_from_jax", "params_to_jax", "tensor_from_numpy",
+           "ScaleByAdamState", "train_state_to_jax", "train_state_from_jax"]
+
+#: optax's ``ScaleByAdamState`` as a named tuple: its fields are the
+#: tree's leaves (``['opt'][0].count``, ``.mu[...]``, ``.nu[...]``)
+ScaleByAdamState = namedtuple("ScaleByAdamState", "count mu nu")
 
 _BLOCK_LEAVES = ("ln1", "ln2", "wq", "wk", "wv", "wo", "gate", "w_in",
                  "w_gate", "w_out")
@@ -86,3 +101,115 @@ def params_to_jax(model: Transformer, n_stages: int = 1) -> Dict:
     return {"embed": _to_numpy(model.embed),
             "unembed": _to_numpy(model.unembed),
             "ln_f": _to_numpy(model.ln_f), "blocks": blocks}
+
+
+def _param_leaves(model: Transformer):
+    """``(tree path, [tensor per layer] or tensor)`` of every parameter,
+    in the JAX tree's layout."""
+    out = [(("embed",), model.embed), (("unembed",), model.unembed),
+           (("ln_f",), model.ln_f)]
+    for name in _BLOCK_LEAVES:
+        out.append((("blocks", name),
+                    [getattr(layer, name) for layer in model.layers]))
+    return out
+
+
+def _tree_set(tree: Dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _tree_get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _stacked(tensors, device) -> torch.Tensor:
+    """Per-layer tensors stacked ``[1, L, ...]`` (one pipeline stage) on
+    ``device``, copied one layer at a time (no stack on the card)."""
+    out = torch.empty((1, len(tensors)) + tuple(tensors[0].shape),
+                      dtype=tensors[0].dtype, device=device)
+    if out.device.type != "meta":
+        for i, t in enumerate(tensors):
+            out[0, i].copy_(t.detach())
+    return out
+
+
+def _leaf(t: torch.Tensor, device) -> torch.Tensor:
+    out = torch.empty(t.shape, dtype=t.dtype, device=device)
+    if out.device.type != "meta":
+        out.copy_(t.detach())
+    return out
+
+
+@torch.no_grad()
+def train_state_to_jax(model: Transformer, optimizer: torch.optim.AdamW,
+                       device="cpu") -> Dict:
+    """``{"params", "opt"}`` as the JAX example's train state: params in
+    ``params_to_jax``'s layout (one stage) and ``opt =
+    (ScaleByAdamState(count, mu, nu),)`` (optax.adamw's state; its other
+    two entries hold no leaves), every leaf a tensor on ``device``.  A
+    parameter without optimizer state (no step taken) has zero moments,
+    as ``optax.adamw(...).init``.  ``device="meta"`` gives the structure
+    alone, a restore template."""
+    params, mu, nu = {}, {}, {}
+    steps = set()
+
+    def moment(p: torch.Tensor, key: str) -> torch.Tensor:
+        st = optimizer.state.get(p, {})
+        if "step" in st:
+            steps.add(int(st["step"]))
+        return st[key] if key in st else torch.zeros_like(p)
+
+    for path, ref in _param_leaves(model):
+        for tree, get in ((params, lambda p: p),
+                          (mu, lambda p: moment(p, "exp_avg")),
+                          (nu, lambda p: moment(p, "exp_avg_sq"))):
+            if isinstance(ref, list):
+                leaf = _stacked([get(p) for p in ref], device)
+            else:
+                leaf = _leaf(get(ref), device)
+            _tree_set(tree, path, leaf)
+    if len(steps) > 1:
+        raise DMLCError(f"optimizer parameters are at different steps "
+                        f"{sorted(steps)}; optax keeps one count")
+    count = torch.full((), steps.pop() if steps else 0, dtype=torch.int32,
+                       device=device)
+    return {"params": params, "opt": (ScaleByAdamState(count, mu, nu),)}
+
+
+@torch.no_grad()
+def train_state_from_jax(tree: Mapping, model: Transformer,
+                         optimizer: torch.optim.AdamW) -> None:
+    """Load a JAX-layout train state (``train_state_to_jax``'s tree, a
+    restored checkpoint, or the JAX package's own with numpy leaves) into
+    ``model`` and ``optimizer`` in place."""
+    def as_tensor(x) -> torch.Tensor:
+        return x if isinstance(x, torch.Tensor) else tensor_from_numpy(x)
+
+    adam = tree["opt"][0]
+    count = int(as_tensor(adam.count))
+    for path, ref in _param_leaves(model):
+        leaves = [as_tensor(_tree_get(t, path))
+                  for t in (tree["params"], adam.mu, adam.nu)]
+        params = ref if isinstance(ref, list) else [ref]
+        if isinstance(ref, list):
+            leaves = [x.reshape((len(ref),) + tuple(x.shape[2:]))
+                      for x in leaves]
+        for i, p in enumerate(params):
+            src = [x[i] if isinstance(ref, list) else x for x in leaves]
+            if tuple(src[0].shape) != tuple(p.shape):
+                raise ValueError(f"{'/'.join(path)}: shape "
+                                 f"{tuple(src[0].shape)} != {tuple(p.shape)}")
+            p.copy_(src[0])
+            if count == 0:
+                optimizer.state.pop(p, None)
+                continue
+            optimizer.state[p] = {
+                # torch keeps a non-capturable AdamW's step as a float32
+                # CPU scalar; optax's count is that number as int32
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": src[1].to(p.device, p.dtype, copy=True),
+                "exp_avg_sq": src[2].to(p.device, p.dtype, copy=True)}
