@@ -69,6 +69,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
             transport byte-equal to the padded route; then a 256 MB
             shard's payload MB/s into HBM on three routes beside the
             pinned H2D rate at the same transfer size
+   telemetry  the port's ``LoadGenerator`` drives the port's server (the
+            flagship, spec_k=3, seed 0): 8 streams x 2 requests, prompts
+            of 17..511 tokens, 32 new tokens; gates: /metrics parses as
+            exposition text, /requests holds one finished record per
+            request, a duplicate request_id returns the original's
+            tokens without a second prefill (K1's count does not move),
+            a drain started during a request finishes it and answers the
+            next POST with 503; the ledger's own host cost per step
+            (empty steps timed on the card).  The train phase's 8 timed
+            steps run through the step ledger (gate: its MFU within 1%
+            of the smoke's own over the same steps), then 12 ABBA pairs
+            of ledgered against bare steps; the spine's fed steps report
+            the ledger's feed-wait share beside the feed's own wait, and
+            a checkpoint save made inside a step its stall.  All of it
+            goes on one ``telemetry`` line, beside the card's name and
+            power limit
 8. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
             its path (and on the spine's timed steps), max error, times
             and roofline bound
@@ -79,6 +95,7 @@ the script exits with code 2 and prints no result.  Details go to
 """
 
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -89,6 +106,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -109,6 +127,7 @@ TRAIN_B, TRAIN_T = 8, 1024   # bench.py's train shapes
 LONG_T = 8192
 
 RESULTS = {}
+TELEMETRY = {}   # the telemetry line, filled by the serving, train and spine phases
 
 
 def emit(doc):
@@ -564,6 +583,153 @@ def serve_batch(serving, model, prompts, spec_k):
         eng.close()
 
 
+def http(url, doc=None, timeout=600):
+    """``(status, body)`` of a GET (``doc`` None) or a JSON POST; a JSON
+    body is decoded, any other is text."""
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, body, ctype = r.status, r.read(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        code, body, ctype = e.code, e.read(), e.headers["Content-Type"]
+    return code, (json.loads(body) if ctype == "application/json"
+                  else body.decode())
+
+
+def pctl(xs, q):
+    """Nearest-rank percentile (the ledgers' convention)."""
+    xs = sorted(xs)
+    return xs[min(int(q / 100 * len(xs)), len(xs) - 1)]
+
+
+def ledger_cost(tele, n=400):
+    """Host microseconds of the ledger's own work per step on the card:
+    ``n`` empty steps (begin event, end event and its wait, the span
+    walk over two spans, the record and the registry mirror) through a
+    ledger of their own, then the per-step request-ledger work of a
+    batch of 8 (8 token bursts and one iteration record)."""
+    led = tele.StepLedger()
+    led.declare_dtype("bfloat16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        led.step_begin()
+        with tele.span("feed.wait", stage="feed"):
+            pass
+        with tele.span("serving.prefill", stage="serving"):
+            pass
+        led.step_end(tokens=8.0, flops=1e12, tokens_per_step=1.0)
+    step_us = (time.perf_counter() - t0) / n * 1e6
+    reqs = tele.RequestLedger(slo=tele.SLOMonitor(), trace_rows=True)
+    for i in range(8):
+        reqs.on_submit(i, 100)
+        reqs.on_prefill_begin(i)
+        reqs.on_first_token(i)
+    kv = {"blocks_in_use": 10, "n_blocks": 256, "occupancy": 0.04,
+          "waste_tokens": 3, "cached_tokens": 157}
+    t0 = time.perf_counter()
+    for _ in range(n):
+        now = time.perf_counter()
+        for i in range(8):
+            reqs.on_token(i, t=now)
+        reqs.on_iteration(active=8, waiting=0, tokens=8, kv_stats=kv)
+    return {"ledger_step_us": step_us,
+            "request_ledger_step_us": (time.perf_counter() - t0) / n * 1e6}
+
+
+def telemetry_serving(serving, tele, fa, model, cfg):
+    """The port's load generator against the port's server, then the
+    serving telemetry gates (see the module docstring)."""
+    from dmlc_tpu_torch.telemetry.exporters import validate_exposition_text
+
+    tele.reset()
+    tele.reset_steps()
+    tele.reset_events()
+    eng = serving.InferenceEngine(model, device="cuda", n_blocks=256,
+                                  block_size=16, max_active=8,
+                                  queue_depth=64, spec_k=3)
+    eng.start()
+    srv = serving.ServingHTTPServer(eng)
+    try:
+        gen = serving.LoadGenerator(srv.url, n_streams=8,
+                                    requests_per_stream=2,
+                                    prompt_len=(17, 511), max_tokens=32,
+                                    vocab=cfg.vocab, seed=0)
+        load = gen.run()
+        check(load["n_requests_ok"] == 16 and not gen.failures,
+              f"loadgen: {load} {gen.failures[:2]}")
+        _, text = http(srv.url + "/metrics")
+        samples = validate_exposition_text(text)
+        _, reqs = http(srv.url + "/requests")
+        recent = reqs["recent"]
+        check(reqs["summary"]["requests_done"] == 16 and len(recent) == 16
+              and len({r["id"] for r in recent}) == 16
+              and all(r["state"] == "done" and r["n_generated"] == 32
+                      for r in recent),
+              f"/requests: {reqs['summary']}")
+        steps = tele.ledger().records()
+        led = tele.ledger().summary()
+        check(led["mfu"] is not None, "decode MFU unreported")
+        # a duplicate request_id: the original's tokens, no second prefill
+        doc = {"prompt": list(range(1, 200)), "max_tokens": 32,
+               "request_id": "smoke-dedupe"}
+        code1, first = http(srv.url + "/generate", doc)
+        k1 = fa.FLASH_FWD.launches
+        code2, again = http(srv.url + "/generate", doc)
+        check(code1 == code2 == 200 and again["id"] == first["id"]
+              and again["output_ids"] == first["output_ids"]
+              and fa.FLASH_FWD.launches == k1,
+              f"dedupe: {code1} {code2}, K1 {k1} -> "
+              f"{fa.FLASH_FWD.launches}")
+        # a drain started during a request finishes it; the next POST 503s
+        inflight = {}
+        t = threading.Thread(target=lambda: inflight.setdefault(
+            "r", http(srv.url + "/generate", {"prompt": [5] * 64,
+                                              "max_tokens": 256})))
+        t.start()
+        deadline = time.monotonic() + 300
+        while eng.scheduler.counts()[0] < 1:
+            check(time.monotonic() < deadline, "drain: never active")
+            time.sleep(0.005)
+        eng.begin_drain()
+        code3, refused = http(srv.url + "/generate",
+                              {"prompt": [1, 2], "max_tokens": 2})
+        clean = srv.drain(timeout_s=300)
+        t.join(timeout=300)
+        code4, done = inflight["r"]
+        check(code3 == 503 and clean and code4 == 200
+              and done["n_generated"] == 256,
+              f"drain: POST {code3}, clean {clean}, in-flight {code4}")
+    finally:
+        srv.close()
+        eng.close()
+    walls = [r["wall_s"] for r in steps]
+    issue = [r["host_issue_s"] for r in steps]
+    return {
+        "requests": 16, "streams": 8, "spec_k": 3,
+        "loadgen": {k: load[k] for k in (
+            "wall_s", "total_generated_tokens", "aggregate_tokens_per_s",
+            "p50_ttft_s", "p99_ttft_s", "p50_latency_s",
+            "tokens_per_s_per_user", "client_server_delta_p99_s")},
+        "requests_summary": reqs["summary"],
+        "gap_p99_s": reqs["summary"]["tbt_p99_s"],
+        "decode_steps": len(steps),
+        "decode_wall_p50_s": pctl(walls, 50),
+        "decode_wall_p99_s": pctl(walls, 99),
+        "decode_host_issue_p50_s": pctl(issue, 50),
+        "decode_host_issue_p99_s": pctl(issue, 99),
+        "decode_mfu": led["mfu"],
+        "tokens_per_step": led["tokens_per_step"],
+        "spec_accept_rate": led["spec_accept_rate"],
+        "metrics_samples": samples,
+        "dedupe_same_tokens_no_prefill": True,
+        "drain": {"refused": code3, "clean": clean,
+                  "inflight_tokens": done["n_generated"]},
+        **ledger_cost(tele)}
+
+
 def slice_inputs(cfg):
     """Inputs of one prefill (T=512) and one decode step (B=8, every row
     on the prefilled context, lengths 17..511) at flagship shapes."""
@@ -762,12 +928,36 @@ def timed_steps(step, ids, labels, n, kernels=()):
     return walls, losses, launches
 
 
-def train_phase(tfm, fa, cfg):
+def ledger_pairs(step, bare, ids, labels, pairs=12):
+    """``pairs`` pairs of a ledgered and a bare step on one model, in ABBA
+    order, each a host wall ended by ``torch.cuda.synchronize()``: the
+    ledgered minus the bare wall per pair, in ms."""
+    walls = {True: [], False: []}
+    for i in range(2 * pairs):
+        ledgered = i % 4 in (0, 3)
+        t0 = time.perf_counter()
+        (step if ledgered else bare)(ids, labels)
+        torch.cuda.synchronize()
+        walls[ledgered].append(time.perf_counter() - t0)
+    diffs = [(a - b) * 1e3 for a, b in zip(walls[True], walls[False])]
+    return {"pairs": pairs, "ledgered_ms_p50": median(walls[True]) * 1e3,
+            "bare_ms_p50": median(walls[False]) * 1e3,
+            "diff_ms_p50": median(diffs), "diff_ms_min": min(diffs),
+            "diff_ms_max": max(diffs),
+            "ledgered_slower": sum(d > 0 for d in diffs),
+            "diff_ms": diffs}
+
+
+def train_phase(tfm, fa, tele, cfg):
     """The flagship train step at B=8 x T=1024: 2 warm-up steps, then the
-    counters are zeroed and 8 steps timed on the same batch."""
+    counters are zeroed and 8 steps timed on the same batch, all through
+    the step ledger (reset first: the serving phases declared decode
+    FLOPs), then 12 ABBA pairs of ledgered against bare steps."""
+    tele.reset_steps()
     model = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                             "cuda")
-    step = tfm.make_train_step(model, tfm.adamw(model.parameters(), 1e-4))
+    opt = tfm.adamw(model.parameters(), 1e-4)
+    step = tfm.make_train_step(model, opt)
     ids, labels = train_batch(cfg, TRAIN_B, TRAIN_T, 1)
     torch.cuda.reset_peak_memory_stats()
     _, warm, _ = timed_steps(step, ids, labels, 2)
@@ -778,6 +968,28 @@ def train_phase(tfm, fa, cfg):
     walls, losses, per_step = timed_steps(step, ids, labels, 8,
                                           tuple(kernels.values()))
     launches = {name: kern.launches for name, kern in kernels.items()}
+    recs = tele.ledger().records()[-8:]
+    peak = tele.ledger().peak_flops()
+    check(len(recs) == 8 and peak == PEAK_FLOPS[torch.bfloat16]
+          and all(r["mfu"] is not None for r in recs),
+          f"ledger: {len(recs)} records, peak {peak}")
+    ledger_mfu = sum(r["flops"] for r in recs) / sum(
+        r["wall_s"] for r in recs) / peak
+    own_mfu = (tfm.train_flops_per_token(cfg, TRAIN_T) * TRAIN_B * TRAIN_T
+               * len(walls) / sum(walls) / PEAK_FLOPS[torch.bfloat16])
+    check(abs(ledger_mfu / own_mfu - 1) <= 0.01,
+          f"ledger MFU {ledger_mfu} vs the smoke's {own_mfu}")
+    TELEMETRY["train"] = {
+        "B": TRAIN_B, "T": TRAIN_T, "steps": len(recs),
+        "step_p50_s": pctl([r["wall_s"] for r in recs], 50),
+        "step_p99_s": pctl([r["wall_s"] for r in recs], 99),
+        "host_issue_p50_s": pctl([r["host_issue_s"] for r in recs], 50),
+        "event_span_p50_s": pctl([r["event_span_s"] for r in recs], 50),
+        "ledger_mfu": ledger_mfu, "smoke_mfu_same_steps": own_mfu,
+        "mfu_rel_diff": ledger_mfu / own_mfu - 1,
+        "ledger_vs_bare": ledger_pairs(
+            step, tfm.make_train_step(model, opt, ledger=False), ids,
+            labels)}
     losses = warm + losses
     check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
@@ -899,16 +1111,25 @@ def spine_feed(uri):
                          device="cuda")
 
 
-def spine_step(step, it):
-    """One train step on the next feed batch, or on a batch already on
-    the card when ``it`` is a pair ``(ids, labels)``: ``(batch, loss,
-    seconds in next(), step wall)``."""
+def spine_step(step, it, inside=None):
+    """One bare train step on the next feed batch, or on a batch already
+    on the card when ``it`` is a pair ``(ids, labels)``, as one step of
+    the process step ledger opened before the batch is pulled (so the
+    feed's wait is the step's feed-wait), with ``inside()`` run after
+    the train step and before the step closes: ``(batch, loss, seconds
+    in next(), step wall)``.  ``ledger().records()[-1]`` is its record."""
+    from dmlc_tpu_torch import telemetry as tele
     from dmlc_tpu_torch.examples import train_lm_recordio as ex
 
     t0 = time.perf_counter()
+    tele.step_begin()
     batch = None if isinstance(it, tuple) else next(it)
     t1 = time.perf_counter()
-    loss = step(*(it if batch is None else ex.batch_tokens(batch)))
+    ids, labels = it if batch is None else ex.batch_tokens(batch)
+    loss = step(ids, labels)
+    if inside is not None:
+        inside()
+    tele.step_end(tokens=float(ids.numel()))
     torch.cuda.synchronize()
     return batch, loss.item(), t1 - t0, time.perf_counter() - t0
 
@@ -932,15 +1153,19 @@ def spine_train(tfm, fa, cfg, uri, toks):
     resident = ex.batch_tokens({"data": torch.from_numpy(spine_tokens(
         SPINE_PARTS * SPINE_PER_PART, cfg.vocab, 2).view(np.uint8)).cuda()})
 
+    from dmlc_tpu_torch import telemetry as tele
+
     model = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                             "cuda")
     opt = tfm.adamw(model.parameters(), 1e-4)
-    step = tfm.make_train_step(model, opt)
+    # bare: spine_step brackets the ledger's step around the feed's wait
+    step = tfm.make_train_step(model, opt, ledger=False)
     kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
                "flash_bwd_dq": fa.FLASH_BWD_DQ}
     f = spine_feed(uri)
     it = iter(f)
     losses, walls, waits, res_walls, per_step = [], [], [], [], []
+    fed_recs, fed_stats_wait = [], []
     try:
         for _ in range(2):
             batch, loss, _, _ = spine_step(step, it)
@@ -954,7 +1179,11 @@ def spine_train(tfm, fa, cfg, uri, toks):
         for i in range(48):
             fed = i % 4 in (0, 3)
             before = [k.launches for k in kernels.values()]
+            wait0 = f.stats()["wait_s"]
             _, loss, wait, wall = spine_step(step, it if fed else resident)
+            if fed:
+                fed_recs.append(tele.ledger().records()[-1])
+                fed_stats_wait.append(f.stats()["wait_s"] - wait0)
             per_step.append([k.launches - n0 for k, n0 in
                              zip(kernels.values(), before)])
             if not fed:
@@ -981,6 +1210,20 @@ def spine_train(tfm, fa, cfg, uri, toks):
           f"{probe_loss}")
     check(all(n == [cfg.n_layers] * 3 for n in per_step),
           f"spine launches per step {per_step}, want {cfg.n_layers} of each")
+    ledger_wait = sum(r["feed_wait_s"] for r in fed_recs)
+    feed_wait = sum(fed_stats_wait)
+    ledger_wall = sum(r["wall_s"] for r in fed_recs)
+    # the ledger bills the consumer's feed.wait span, which wraps the
+    # block the feed's own wait clock times
+    check(abs(ledger_wait - feed_wait) <= 1e-3 + 0.05 * feed_wait,
+          f"spine: ledger feed wait {ledger_wait} s, the feed's {feed_wait}")
+    TELEMETRY["spine"] = {
+        "fed_steps": len(fed_recs),
+        "ledger_feed_wait_share": ledger_wait / ledger_wall,
+        "feed_own_wait_share": feed_wait / ledger_wall,
+        "ledger_feed_wait_s": ledger_wait, "feed_own_wait_s": feed_wait,
+        "ledger_fed_step_p50_s": pctl([r["wall_s"] for r in fed_recs], 50),
+        "host_issue_p50_s": pctl([r["host_issue_s"] for r in fed_recs], 50)}
     diffs = [a - b for a, b in zip(walls, res_walls)]
     return {
         "phase": "spine_train", "model": "flagship",
@@ -1016,23 +1259,39 @@ def spine_checkpoint(tfm, cfg, uri, ckpt_dir):
     from dmlc_tpu_torch.models.convert import (train_state_from_jax,
                                                train_state_to_jax)
 
+    from dmlc_tpu_torch import telemetry as tele
+
     model = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                             "cuda")
     opt = tfm.adamw(model.parameters(), 1e-4)
-    step = tfm.make_train_step(model, opt)
+    step = tfm.make_train_step(model, opt, ledger=False)
     consumed = 2
+    mgr = CheckpointManager(ckpt_dir, max_to_keep=1)
+    held = {}
+
+    def save_inside():
+        """The checkpoint, made inside the second step."""
+        t0 = time.perf_counter()
+        held["saved"] = ex.train_state(model, opt, consumed)
+        t1 = time.perf_counter()
+        mgr.save(consumed, held["saved"])
+        held["to_host_s"], held["save_s"] = t1 - t0, time.perf_counter() - t1
+
     f = spine_feed(uri)
     try:
         it = iter(f)
-        for _ in range(consumed):
-            spine_step(step, it)
-        t0 = time.perf_counter()
-        saved = ex.train_state(model, opt, consumed)
-        to_host_s = time.perf_counter() - t0
-        mgr = CheckpointManager(ckpt_dir, max_to_keep=1)
-        t0 = time.perf_counter()
-        mgr.save(consumed, saved)
-        save_s = time.perf_counter() - t0
+        for i in range(consumed):
+            spine_step(step, it, save_inside if i == consumed - 1 else None)
+        rec = tele.ledger().records()[-1]
+        saved, to_host_s, save_s = (held["saved"], held["to_host_s"],
+                                    held["save_s"])
+        check(0 < rec["checkpoint_stall_s"] <= save_s,
+              f"checkpoint stall {rec['checkpoint_stall_s']} s of a "
+              f"{save_s} s save")
+        TELEMETRY["checkpoint"] = {
+            "n_layers": cfg.n_layers, "step_wall_s": rec["wall_s"],
+            "checkpoint_stall_s": rec["checkpoint_stall_s"],
+            "save_s": save_s, "to_host_s": to_host_s}
         nbytes = mgr.stats()["bytes_written"]
         after = [spine_step(step, it)[1] for _ in range(2)]
     finally:
@@ -1067,8 +1326,8 @@ def spine_checkpoint(tfm, cfg, uri, ckpt_dir):
     t0 = time.perf_counter()
     native.crc32c(raw)
     crc_s = time.perf_counter() - t0
-    del saved
-    step = tfm.make_train_step(model, opt)
+    del saved, held
+    step = tfm.make_train_step(model, opt, ledger=False)
     f = spine_feed(uri)
     try:
         it = iter(f)
@@ -1245,6 +1504,7 @@ def main() -> int:
     from dmlc_tpu_torch.ops import flash_attention as fa
     from dmlc_tpu_torch.ops import paged_attention as pa
     from dmlc_tpu_torch import serving
+    from dmlc_tpu_torch import telemetry as tele
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1311,9 +1571,15 @@ def main() -> int:
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main path never launched: {launches}")
     emit(logit_checks(tfm, model, cfg))
+    TELEMETRY["serving"] = telemetry_serving(serving, tele, fa, model, cfg)
+    # a closed engine's KV pools live until the collector breaks the
+    # server's handler-class cycle; free them before training's peak
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 6. training
-    train_model, one_step, train_launches, step = train_phase(tfm, fa, cfg)
+    train_model, one_step, train_launches, step = train_phase(tfm, fa, tele,
+                                                              cfg)
     long_step = train_long_phase(tfm, cfg, step)
     emit(grad_checks(tfm, cfg))
     emit(profile_phase(tfm, model, cfg, {"train": one_step,
@@ -1326,6 +1592,7 @@ def main() -> int:
     for doc in spine_docs:
         emit(doc)
     spine_launches = spine_docs[0]["launches"]
+    emit({"phase": "telemetry", "card": smi, **TELEMETRY})
 
     # 8. the kernels line: each kernel's launches on its own path (K1 and
     # K4 serving, K2 and K3 training; K1 also runs 16 times per train step)

@@ -2,8 +2,9 @@
 
 The JAX package ``dmlc_tpu`` stays the reference; this package keeps its
 layout (``io/``, ``feed/``, ``checkpoint/``, ``ops/``, ``models/``,
-``serving/``) so each module's counterpart is easy to find, imports
-``torch`` and never ``jax``, and imports nothing of ``dmlc_tpu``.  Every kernel the JAX package wrote in Pallas for the
+``serving/``, ``telemetry/``) so each module's counterpart is easy to
+find, imports ``torch`` and never ``jax``, and imports nothing of
+``dmlc_tpu``.  Every kernel the JAX package wrote in Pallas for the
 TPU is a hand-written CUDA kernel here (``ops/csrc/``), built with
 ``nvcc`` at first use; each sits beside a plain PyTorch version that a
 CPU tensor is routed to.
@@ -17,5 +18,9 @@ per-block remat, flash attention's backward kernels, AdamW), and the
 data spine that feeds it: RecordIO shards through the byte-range input
 split (``io``) and the device feed (``feed``) into the train step, with
 checkpoints in the JAX package's format (``checkpoint``;
-``python -m dmlc_tpu_torch.examples.train_lm_recordio``).
+``python -m dmlc_tpu_torch.examples.train_lm_recordio``); and the
+telemetry those paths drive (``telemetry``: the step ledger on the
+train and decode steps, the request, SLO and availability ledgers, the
+Prometheus and Chrome-trace exporters behind the server's endpoints,
+and ``serving.loadgen``), with the JAX package's metric names.
 """

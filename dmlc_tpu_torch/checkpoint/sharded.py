@@ -21,6 +21,14 @@ Crash consistency: shards first, the manifest last through a temp file,
 ``fsync`` and ``os.replace``; a step without a committed manifest does
 not exist for restore.  Every shard carries a CRC-32C digest in the
 manifest and a restore verifies it.
+
+Telemetry, as the JAX package's: ``checkpoint.save`` and
+``checkpoint.restore`` spans with their ``save``/``restore`` duration
+histograms, the ``saves``, ``restores``, ``bytes_written`` and
+``bytes_read`` counters, and ``integrity.checksum_failures`` with a
+``checkpoint_shard_corrupt`` event per failed digest.  A save made
+inside a step on the stepping thread is that step's
+``checkpoint_stall_s`` in the step ledger.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..base import DMLCError, check
 from ..io.integrity import crc32c
 from ..io.stream import Stream
@@ -182,6 +191,16 @@ def save_pytree(uri: str, tree: Any) -> int:
     path = _local_path(uri)
     check(path is not None, f"checkpoint {uri}: the port writes local "
           "paths only")
+    with telemetry.span("checkpoint.save", stage="checkpoint",
+                        args={"uri": uri}), \
+            telemetry.timed("checkpoint", "save"):
+        nbytes = _save(uri, path, tree)
+    telemetry.inc("checkpoint", "bytes_written", nbytes)
+    telemetry.inc("checkpoint", "saves")
+    return nbytes
+
+
+def _save(uri: str, path: str, tree: Any) -> int:
     os.makedirs(path, exist_ok=True)
     manifest: Dict[str, Any] = {"format": 1, "leaves": {}}
     nbytes = 0
@@ -278,6 +297,15 @@ def _load_manifest(uri: str) -> Dict[str, Any]:
 
 
 def _restore(uri: str, template: Any) -> Tuple[Any, int]:
+    with telemetry.span("checkpoint.restore", stage="checkpoint",
+                        args={"uri": uri}), \
+            telemetry.timed("checkpoint", "restore"):
+        out = _restore_tree(uri, template)
+    telemetry.inc("checkpoint", "restores")
+    return out
+
+
+def _restore_tree(uri: str, template: Any) -> Tuple[Any, int]:
     manifest = _load_manifest(uri)
     leaves_meta = manifest["leaves"]
     listing: List[str] = []
@@ -289,7 +317,11 @@ def _restore(uri: str, template: Any) -> Tuple[Any, int]:
         # each process writes its own shards, one writes the manifest
         raw = _read_file(_join(uri, f"{key}.{ikey}"))
         nread += raw.size
+        telemetry.inc("checkpoint", "bytes_read", raw.size)
         if want_crc is not None and crc32c(raw) != int(want_crc):
+            telemetry.inc("integrity", "checksum_failures")
+            telemetry.record_event("checkpoint_shard_corrupt", uri=uri,
+                                   shard=f"{key}.{ikey}")
             raise CorruptCheckpoint(
                 f"checkpoint shard {key}.{ikey} failed its CRC32C digest "
                 f"— the checkpoint at {uri} is corrupt")

@@ -1,9 +1,9 @@
-"""Host concurrency helpers the device feed needs (the port of
-``BufferPool`` from ``dmlc_tpu/concurrency.py``).
+"""Host concurrency helpers the device feed and telemetry need (the port
+of ``BufferPool`` and ``make_lock`` from ``dmlc_tpu/concurrency.py``).
 
-The JAX package builds its locks through a lock-order checker; the port
-uses plain ``threading`` locks (the checker is later work, ROADMAP.md
-Queue 1).
+The JAX package builds its locks through a lock-order checker; the
+port's :func:`make_lock` hands out plain ``threading`` locks (the
+checker is later work, ROADMAP.md Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -12,9 +12,17 @@ import threading
 import time
 from typing import Callable, Generic, List, Optional, TypeVar
 
-__all__ = ["BufferPool"]
+__all__ = ["BufferPool", "make_lock"]
 
 T = TypeVar("T")
+
+
+def make_lock(name: str) -> threading.Lock:
+    """A plain ``threading.Lock``.  ``name`` is the lock's name in the
+    JAX package's lock-order graph (``Class.attr`` or ``module.attr``),
+    kept at every call site for the checker's port."""
+    del name
+    return threading.Lock()
 
 
 class BufferPool(Generic[T]):

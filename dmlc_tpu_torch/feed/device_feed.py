@@ -34,6 +34,14 @@ Every batch carries ``parts_alive``, a host float32 tensor ``[num_parts]``:
 1.0 where the partition contributed rows, 0.0 where a drained partition
 was zeroed.
 
+Telemetry, as the JAX feed records it: ``feed.parse`` and ``feed.stage``
+spans on the parser workers, ``feed.assemble`` and ``feed.place`` on the
+placer, the ``feed.batches`` and ``feed.bytes_to_device`` counters, and
+``feed.wait`` on the consumer's thread around its wait for a batch.  The
+step ledger bills only spans on the stepping thread, so ``feed.wait`` is
+a step's feed-wait share while the producers' spans overlap it.
+``stats()`` keeps the feed's own totals beside them.
+
 Batch-borrowing contract: a partition iterator's yielded dict is read
 only between the yield and the next ``next()`` on that iterator (it is
 copied into staging at once), so iterators reuse one output buffer.
@@ -52,6 +60,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..base import check, get_env, resolve_device
 from ..concurrency import BufferPool
 from . import spans as _spans
@@ -227,7 +236,8 @@ class DeviceFeed:
         if self._part_done[p]:
             return None
         t0 = time.perf_counter()
-        batch = next(self._part_iters[p], None)
+        with telemetry.span("feed.parse", stage="feed", args={"part": p}):
+            batch = next(self._part_iters[p], None)
         self._add("parse_s", time.perf_counter() - t0)
         if batch is None:
             with self._cv:
@@ -267,12 +277,19 @@ class DeviceFeed:
                     if slot is not _MAKING:
                         return slot
                 self._cv.wait(_POLL_S)
-        while True:
-            sbuf = self._pool.acquire(timeout=_POLL_S)
-            if sbuf is not None:
-                break
-            if self._stop.is_set() or self._error is not None:
-                return None
+        # stage stall: parsing ran ahead of the transfer pipeline and
+        # waits for a staging buffer to come back from the placer
+        t0 = time.perf_counter()
+        try:
+            while True:
+                sbuf = self._pool.acquire(timeout=_POLL_S)
+                if sbuf is not None:
+                    break
+                if self._stop.is_set() or self._error is not None:
+                    return None
+        finally:
+            telemetry.observe_duration("feed", "stage_stall",
+                                       time.perf_counter() - t0)
         with self._cv:
             slot = self._pending[step] = _Slot(step, sbuf, self._n_parts,
                                                self._workers)
@@ -283,14 +300,16 @@ class DeviceFeed:
         if batch is None:
             return  # drained: placement zeroes its rows on the device
         t0 = time.perf_counter()
-        for k, t in self._template.items():
-            d0 = t.shape[0]
-            dst = slot.sbuf.arrays[k][p * d0:(p + 1) * d0]
-            src = batch[k]
-            check(dst.shape == src.shape and dst.dtype == src.dtype,
-                  f"partition {p} batch key '{k}' is {src.shape}/{src.dtype}"
-                  f", expected {dst.shape}/{dst.dtype}")
-            np.copyto(dst, src)
+        with telemetry.span("feed.stage", stage="feed", args={"part": p}):
+            for k, t in self._template.items():
+                d0 = t.shape[0]
+                dst = slot.sbuf.arrays[k][p * d0:(p + 1) * d0]
+                src = batch[k]
+                check(dst.shape == src.shape and dst.dtype == src.dtype,
+                      f"partition {p} batch key '{k}' is "
+                      f"{src.shape}/{src.dtype}, expected "
+                      f"{dst.shape}/{dst.dtype}")
+                np.copyto(dst, src)
         slot.alive[p] = True
         self._add("stage_s", time.perf_counter() - t0)
 
@@ -329,7 +348,9 @@ class DeviceFeed:
         sbuf = _StagingBuf(self._template, self._n_parts, self._on_card)
         with self._cv:
             self._built.append(sbuf)
+            staged = sum(b.nbytes for b in self._built)
         self._add("staging_buffers_built", 1)
+        telemetry.set_gauge("feed", "staging_pool_bytes", staged)
         return sbuf
 
     # ---- placer ---------------------------------------------------------
@@ -384,7 +405,10 @@ class DeviceFeed:
         step = 0
         try:
             while True:
-                with self._cv:
+                # "assembly" = waiting for the parser workers to complete
+                # this step's staging buffer
+                with telemetry.span("feed.assemble", stage="feed"), \
+                        telemetry.timed("feed", "assemble"), self._cv:
                     while not (self._error is not None or self._empty_epoch
                                or (step in self._pending
                                    and self._pending[step].done)):
@@ -404,18 +428,21 @@ class DeviceFeed:
                     return
                 t0 = time.perf_counter()
                 event = None
-                if self._on_card:
-                    with torch.cuda.stream(self._stream):
+                with telemetry.span("feed.place", stage="feed"), \
+                        telemetry.annotate("dmlc_feed_batch"), \
+                        telemetry.timed("feed", "device_put"):
+                    if self._on_card:
+                        with torch.cuda.stream(self._stream):
+                            dev = self._place(slot)
+                            if self._transform is not None:
+                                dev = self._transform(dev)
+                            event = torch.cuda.Event()
+                            event.record(self._stream)
+                        slot.sbuf.event = event
+                    else:
                         dev = self._place(slot)
                         if self._transform is not None:
                             dev = self._transform(dev)
-                        event = torch.cuda.Event()
-                        event.record(self._stream)
-                    slot.sbuf.event = event
-                else:
-                    dev = self._place(slot)
-                    if self._transform is not None:
-                        dev = self._transform(dev)
                 dev["parts_alive"] = torch.from_numpy(
                     slot.alive.astype(np.float32))
                 self._add("place_s", time.perf_counter() - t0)
@@ -426,13 +453,17 @@ class DeviceFeed:
                     self._stats["batches"] += 1
                     self._stats["bytes_to_device"] += nbytes
                     fed = self._stats["bytes_to_device"]
+                telemetry.inc("feed", "batches")
+                telemetry.inc("feed", "bytes_to_device", nbytes)
                 if fed - self._last_log >= _LOG_EVERY:
                     _logger.info("feed: %.0f MB to device, %.2f MB/sec",
                                  fed / 1e6,
                                  fed / 1e6 / (time.perf_counter() - self._t0))
                     self._last_log = fed
-                if not self._put((dev, event)):
-                    return
+                # a full queue means the consumer is the bottleneck
+                with telemetry.timed("feed", "producer_stall"):
+                    if not self._put((dev, event)):
+                        return
                 # the copies must land before the buffer is recycled
                 if event is not None and not self._wait_copies(event):
                     return
@@ -482,17 +513,21 @@ class DeviceFeed:
         consumer = (torch.cuda.current_stream(self.device) if self._on_card
                     else None)
         while True:
-            t0 = time.perf_counter()
-            while True:
-                try:
-                    item = self._queue.get(timeout=_POLL_S)
-                    break
-                except Empty:
-                    if not placer.is_alive() and self._queue.empty():
-                        raise RuntimeError(
-                            "DeviceFeed placer stopped without ending the "
-                            "epoch (the feed was closed)")
-            self._add("wait_s", time.perf_counter() - t0)
+            # an empty queue means the producer is the bottleneck; this
+            # span is the step ledger's feed-wait (consumer thread only)
+            with telemetry.span("feed.wait", stage="feed"), \
+                    telemetry.timed("feed", "consumer_stall"):
+                t0 = time.perf_counter()
+                while True:
+                    try:
+                        item = self._queue.get(timeout=_POLL_S)
+                        break
+                    except Empty:
+                        if not placer.is_alive() and self._queue.empty():
+                            raise RuntimeError(
+                                "DeviceFeed placer stopped without ending "
+                                "the epoch (the feed was closed)")
+                self._add("wait_s", time.perf_counter() - t0)
             if item is None:
                 return
             if isinstance(item, _ProducerError):

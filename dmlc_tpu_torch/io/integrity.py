@@ -13,8 +13,10 @@
   replay drops it on sight (the byte-range partition contract
   reproduces the same record begins).
 
-The JAX package also counts these events in its telemetry, which the
-port does not have yet (ROADMAP.md, Queue 1 item 3).
+Each event is counted as the JAX package counts it
+(``integrity.corrupt_records``, ``integrity.quarantined_spans``,
+``integrity.skiplist_drops``) and the corrupt records and quarantines
+land in the event ring (``telemetry.events``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import logging
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from .. import telemetry
 from ..base import DMLCError, get_env
 
 __all__ = [
@@ -94,15 +97,20 @@ _spans: Dict[str, Dict[int, int]] = {}
 
 def record_quarantine(source: str, begin: int, end: int) -> None:
     """Add a poisoned span to the skip-list (idempotent per (source,
-    begin))."""
+    begin)) and count it."""
     with _lock:
         per = _spans.setdefault(source, {})
+        fresh = begin not in per
         per[begin] = max(end, per.get(begin, end))
+    if fresh:
+        telemetry.inc("integrity", "quarantined_spans")
+        telemetry.record_event("quarantine", source=source, begin=begin,
+                               end=end)
 
 
 def should_drop(source: Optional[str], begin: Optional[int]) -> bool:
-    """True when the record at ``begin`` was quarantined and a replay
-    must drop it."""
+    """True (and counted) when the record at ``begin`` was quarantined
+    and a replay must drop it."""
     if source is None or begin is None or not _spans:
         # the unlocked emptiness probe is a benign race (_spans only grows
         # between resets): it keeps the per-record read paths lock-free
@@ -110,7 +118,10 @@ def should_drop(source: Optional[str], begin: Optional[int]) -> bool:
         return False
     with _lock:
         per = _spans.get(source)
-        return per is not None and begin in per
+        if per is None or begin not in per:
+            return False
+    telemetry.inc("integrity", "skiplist_drops")
+    return True
 
 
 def has_quarantine(source: Optional[str]) -> bool:
@@ -142,9 +153,12 @@ def handle_corrupt(what: str, *, source: Optional[str] = None,
     """One corrupt record: raise :class:`CorruptRecord` under ``raise``,
     return (the caller skips and resyncs) under ``skip``, and also
     record the span under ``quarantine``."""
+    telemetry.inc("integrity", "corrupt_records")
     p = policy()
     where = (f"{source or '<stream>'}"
              + (f" @[{begin},{end})" if begin is not None else ""))
+    telemetry.record_event("corrupt_record", what=what, where=where,
+                           policy=p)
     if p == "raise":
         raise CorruptRecord(f"corrupt record ({what}) at {where}")
     if p == "quarantine" and source is not None and begin is not None:

@@ -8,9 +8,10 @@ loss ``unsharded_loss`` (``forward_local`` with ``ShardAxes()``,
 :356-409), a train step with AdamW as ``make_train_step`` builds it with
 ``optax.adamw`` (:761-850), and the serving forwards
 ``forward_prefill`` / ``forward_prefill_last`` (:504-558) and
-``forward_decode_paged`` (:690-758).  The sharded paths, the train
-step's mesh, overlap and step ledger, routed top-k MoE and the gather
-decode path come in later slices.
+``forward_decode_paged`` (:690-758).  The train step drives the step
+ledger as the reference's does (:855-887).  The sharded paths, the
+train step's mesh and overlap, routed top-k MoE and the gather decode
+path come in later slices.
 
 Each layer module keeps the JAX weight layouts (``wq [E, H, D]``,
 ``wo [H, D, E]``, ``w_in [X, E, F]``, ...) so weights convert one to one
@@ -38,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import telemetry
 from ..base import resolve_device
 from ..ops.core import embed_lookup, rms_norm, rope, rope_angles, rotate, \
     softmax_xent, swiglu_ffn
@@ -74,7 +76,7 @@ class TransformerConfig:
         if self.remat_policy == "save_flash_mlp":
             raise ValueError(
                 "remat_policy 'save_flash_mlp' is not ported yet (ROADMAP.md "
-                "Queue 3: the save_flash_mlp remat policy)")
+                "Queue 1 item 4: the model options left out)")
         if self.remat_policy not in _REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
                              f"expected one of {_REMAT_POLICIES}")
@@ -272,12 +274,22 @@ def adamw(params, lr: float) -> torch.optim.AdamW:
                              weight_decay=1e-4)
 
 
-def make_train_step(model: Transformer, optimizer=None):
+def make_train_step(model: Transformer, optimizer=None, ledger: bool = True):
     """``train_step(ids, labels) -> loss``: one AdamW update of ``model``
     in place (the ``train_step`` body of ``make_train_step`` :844-850 on
     one card).  The step's gradients stay in ``p.grad`` until the next
     step.  The default optimizer is ``adamw(model.parameters(), 1e-3)``,
-    as the reference's ``optax.adamw(1e-3)``."""
+    as the reference's ``optax.adamw(1e-3)``.
+
+    With ``ledger`` (default) every call drives the process step ledger
+    (``telemetry.steps``) as the reference's does (:865-887): the first
+    call declares the model's train FLOPs per token at the batch's
+    sequence length and its dtype, and each step is ``step_begin`` →
+    step → ``step_end(tokens=B·T)``.  On a card ``step_end`` waits on an
+    event recorded after the optimizer's kernels, so the record's
+    ``wall_s`` is the step and ``host_issue_s`` its enqueue.
+    ``ledger=False`` returns the bare step (for a caller that brackets
+    the step itself, e.g. around its feed's wait)."""
     if optimizer is None:
         optimizer = adamw(model.parameters(), 1e-3)
 
@@ -288,7 +300,25 @@ def make_train_step(model: Transformer, optimizer=None):
         optimizer.step()
         return loss.detach()
 
-    return train_step
+    if not ledger:
+        return train_step
+    cfg = model.cfg
+    declared = []
+
+    def stepped(ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        if not declared:
+            telemetry.declare_flops_per_token(
+                train_flops_per_token(cfg, int(ids.shape[-1])))
+            telemetry.declare_dtype(cfg.dtype)
+            declared.append(True)
+        telemetry.step_begin()
+        # a raising step leaves the ledger's step open; the next
+        # step_begin abandons it instead of recording a garbage wall
+        loss = train_step(ids, labels)
+        telemetry.step_end(tokens=float(ids.numel()))
+        return loss
+
+    return stepped
 
 
 # ---------------------------------------------------------------------------

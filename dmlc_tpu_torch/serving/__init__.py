@@ -3,16 +3,24 @@
   * ``kv_cache``   paged KV pools on the device + free-list allocator
   * ``scheduler``  iteration-level admit/evict with preemption-by-recompute
   * ``engine``     the prefill/decode loop (flash and paged kernels),
-                   greedy sampling, n-gram speculative decoding
-  * ``server``     POST /generate + GET /healthz
+                   greedy sampling, n-gram speculative decoding, the
+                   request / SLO / availability ledgers and the decode
+                   step ledger, idempotent submits and drain
+  * ``server``     POST /generate + the telemetry endpoints (/metrics,
+                   /healthz, /requests, /slo, /goodput, /trace, /spans)
+                   and drain on SIGTERM
+  * ``loadgen``    N-stream closed-loop load against a server
   * ``serve``      ``python -m dmlc_tpu_torch.serving.serve``
 """
 
-from .engine import AdmissionFull, InferenceEngine, RequestTooLarge  # noqa: F401
+from .engine import (AdmissionFull, EngineDraining, InferenceEngine,  # noqa: F401
+                     RequestTooLarge)
 from .kv_cache import BlockAllocator, PagedKVCache  # noqa: F401
+from .loadgen import LoadGenerator  # noqa: F401
 from .scheduler import ContinuousBatchScheduler, Request  # noqa: F401
 from .server import ServingHTTPServer  # noqa: F401
 
 __all__ = ["AdmissionFull", "BlockAllocator", "ContinuousBatchScheduler",
-           "InferenceEngine", "PagedKVCache", "Request", "RequestTooLarge",
+           "EngineDraining", "InferenceEngine", "LoadGenerator",
+           "PagedKVCache", "Request", "RequestTooLarge",
            "ServingHTTPServer"]

@@ -10,12 +10,28 @@ Sampling is greedy; with ``spec_k > 0`` an n-gram drafter proposes up to
 ``spec_k`` tokens per row and the longest-accepted-prefix walk keeps the
 output identical to plain greedy decoding.
 
+Instrumentation, as the reference's (``dmlc_tpu/serving/engine.py``
+:826-995): every decode iteration is a **step** on the process step ledger
+(``telemetry.step_begin`` before the window is built, ``step_end`` with
+the committed tokens, the exact forward FLOPs of each row's context,
+tokens per row and the draft accept rate, after the host commit and
+before completions are delivered); every admitted request is tracked by
+a :class:`telemetry.RequestLedger` (``engine.requests``: queue wait,
+prefill, TTFT, token gaps, preemptions, finish with a reason) that
+streams into the :class:`telemetry.SLOMonitor` (``engine.slo``), and an
+:class:`telemetry.AvailabilityLedger` (``engine.availability``) splits
+the replica's wall into serving / draining / crashed_recovering /
+starved_idle.  ``submit(request_id=...)`` is idempotent through a
+bounded dedupe table (``DMLC_SERVE_DEDUPE_MAX``); ``begin_drain`` /
+``drain`` stop admitting (:class:`EngineDraining`) while in-flight
+generations finish.
+
 Differences from the reference: no jit (PyTorch runs eagerly, so there
 are no shape buckets to pin and the decode batch is the live rows only,
 with no dead padding rows); the pools live only on the device; and the
-dedupe table, SLO monitor, request/step/availability ledgers, compute
-telemetry and drain-on-SIGTERM wait for a later slice.  ``stats()``
-keeps plain integer counters instead.
+compute telemetry (cost analysis, memory samples) is ROADMAP.md Queue 1
+item 9.  ``stats()`` also keeps plain integer counters and the kernels'
+launch counts.
 
 The engine runs on the CUDA card unless the caller passes
 ``device="cpu"`` (the tests do); with no card and no device it raises.
@@ -26,13 +42,16 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from collections import deque
 from typing import Dict, List, Optional
 
 import torch
 
+from .. import telemetry
 from ..base import DMLCError, get_env, resolve_device
-from ..models.transformer import (Transformer, forward_decode_paged,
-                                  forward_prefill_last)
+from ..concurrency import make_lock
+from ..models.transformer import (Transformer, decode_flops_per_token,
+                                  forward_decode_paged, forward_prefill_last)
 from ..ops.flash_attention import FLASH_FWD
 from ..ops.paged_attention import PAGED_ATTENTION
 from .kv_cache import PagedKVCache
@@ -40,7 +59,7 @@ from .scheduler import (ACTIVE, WAITING, AlreadyFinished,
                         ContinuousBatchScheduler, Request, coerce_priority)
 
 __all__ = ["InferenceEngine", "AdmissionFull", "RequestTooLarge",
-           "resolve_device", "kernel_launches"]
+           "EngineDraining", "resolve_device", "kernel_launches"]
 
 logger = logging.getLogger("dmlc_tpu_torch.serving")
 
@@ -53,10 +72,65 @@ class RequestTooLarge(DMLCError):
     """The request could never fit the KV pool, even alone (HTTP 413)."""
 
 
+class EngineDraining(DMLCError):
+    """The engine stopped admitting (SIGTERM drain); HTTP 503 +
+    Retry-After — in-flight generations keep decoding to completion."""
+
+
 def kernel_launches() -> Dict[str, int]:
     """Process-wide launch counts of the kernels the serving path runs."""
     return {"flash_fwd": FLASH_FWD.launches,
             "paged_attention": PAGED_ATTENTION.launches}
+
+
+class _DedupeTable:
+    """Idempotency-key table: client ``request_id`` → :class:`Request`.
+
+    A duplicate submission while the original is live returns the SAME
+    request (the second waiter parks on it), and a duplicate after a
+    successful finish returns the finished request from a bounded ring
+    (``DMLC_SERVE_DEDUPE_MAX``) instead of generating again.  FAILED
+    requests are dropped from the table: a retry of a failed id is a
+    fresh attempt."""
+
+    def __init__(self, capacity: int):
+        self.capacity = max(1, int(capacity))
+        self._lock = make_lock("_DedupeTable._lock")
+        self._live: dict = {}
+        self._done: dict = {}
+        self._order: deque = deque()
+
+    def get(self, key: str) -> Optional[Request]:
+        with self._lock:
+            return self._live.get(key) or self._done.get(key)
+
+    def claim(self, key: str, req: Request) -> Request:
+        """Publish ``req`` under ``key`` unless a concurrent submit got
+        there first; returns whichever request owns the key."""
+        with self._lock:
+            prior = self._live.get(key) or self._done.get(key)
+            if prior is not None:
+                return prior
+            self._live[key] = req
+            return req
+
+    def drop(self, key: str, req: Request) -> None:
+        """Un-publish after a failed admission/finish — only if the
+        mapping is still ours (a fresh retry may have re-claimed)."""
+        with self._lock:
+            if self._live.get(key) is req:
+                del self._live[key]
+
+    def finish(self, key: str, req: Request) -> None:
+        """Move a successfully finished request into the bounded ring."""
+        with self._lock:
+            if self._live.get(key) is not req:
+                return
+            del self._live[key]
+            self._done[key] = req
+            self._order.append(key)
+            while len(self._order) > self.capacity:
+                self._done.pop(self._order.popleft(), None)
 
 
 class _Slots:
@@ -92,7 +166,9 @@ class InferenceEngine:
     Defaults come from the reference's ``DMLC_SERVE_*`` knobs
     (``MAX_ACTIVE``, ``KV_BLOCKS``, ``KV_BLOCK_SIZE``, ``QUEUE_DEPTH``,
     ``ADMIT_TIMEOUT_S``, ``MAX_TOKENS``, ``SPEC_K``, ``SPEC_MIN_CTX``,
-    ``CRASH_REQUEUE_MAX``)."""
+    ``CRASH_REQUEUE_MAX``, ``DEDUPE_MAX``, ``DRAIN_S``); the SLO
+    objectives from ``DMLC_SLO_*`` (the process-default monitor unless
+    ``slo_monitor`` is given)."""
 
     def __init__(self, model: Transformer, *, device=None,
                  n_blocks: Optional[int] = None,
@@ -102,7 +178,8 @@ class InferenceEngine:
                  admit_timeout_s: Optional[float] = None,
                  max_new_tokens: Optional[int] = None,
                  eos_id: Optional[int] = None,
-                 spec_k: Optional[int] = None):
+                 spec_k: Optional[int] = None,
+                 slo_monitor=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise DMLCError(f"model is on {model.device}, engine on "
@@ -137,8 +214,24 @@ class InferenceEngine:
         self.spec_min_ctx = max(1, get_env("DMLC_SERVE_SPEC_MIN_CTX", 4))
         self._spec_window = 1 + self.spec_k
         self._crash_requeue_max = get_env("DMLC_SERVE_CRASH_REQUEUE_MAX", 2)
+        # request-scoped observability: the per-request lifecycle ledger
+        # (/requests) feeding the SLO burn-rate monitor (/slo), and the
+        # availability ledger; a replica is idle until its loop works
+        self.slo = (slo_monitor if slo_monitor is not None
+                    else telemetry.slo.monitor())
+        self.requests = telemetry.RequestLedger(slo=self.slo)
+        self.availability = telemetry.AvailabilityLedger()
+        self.availability.set_state("starved_idle")
+        self._dedupe = _DedupeTable(get_env("DMLC_SERVE_DEDUPE_MAX", 512))
         self._stop = threading.Event()
+        self._draining = threading.Event()
+        # iteration seqlock: odd while an iteration is mid-flight (its
+        # pop window can hold a request in NEITHER queue), even when
+        # quiescent; single writer (the engine thread), read by drain()
+        self._step_seq = 0
         self._thread: Optional[threading.Thread] = None
+        self._flops_declared = False
+        self._fpt_cache: Dict[int, float] = {}   # context → FLOPs/token
         self.counters = {"prefills": 0, "decode_steps": 0,
                          "tokens_generated": 0, "spec_proposed": 0,
                          "spec_accepted": 0, "preemptions": 0,
@@ -147,16 +240,52 @@ class InferenceEngine:
     # ---- client surface -------------------------------------------------
     def submit(self, prompt_ids: List[int],
                max_new_tokens: Optional[int] = None,
-               timeout: Optional[float] = None, priority=None) -> Request:
+               timeout: Optional[float] = None,
+               request_id: Optional[str] = None,
+               priority=None, tenant: Optional[str] = None,
+               trace_id: Optional[str] = None) -> Request:
         """Admit a request or raise: :class:`AdmissionFull` when no queue
         slot frees within ``timeout`` (default ``admit_timeout_s``),
         :class:`RequestTooLarge` when it could never fit the pool,
-        ``ValueError`` for bad ids or priority."""
+        :class:`EngineDraining` while draining, ``ValueError`` for bad
+        ids, priority or tenant.
+
+        ``request_id`` is the client's idempotency key: a duplicate of a
+        live request, or of a successfully finished one still in the
+        dedupe ring, returns the ORIGINAL request instead of generating
+        again.  The lookup runs before the drain gate, so a retry of
+        already-admitted work resolves on a draining replica too.
+        ``tenant`` labels the request; ``trace_id`` (the X-DMLC-Trace
+        context) stamps it and its ledger rows."""
+        t_submit = time.perf_counter()
+        if request_id is not None:
+            if (not isinstance(request_id, str) or not request_id
+                    or len(request_id) > 128):
+                raise ValueError("request_id must be a non-empty string "
+                                 "of at most 128 chars")
+            prior = self._dedupe.get(request_id)
+            if prior is not None:
+                telemetry.inc("serving", "dedupe_hits")
+                return prior
+        if self._draining.is_set():
+            raise EngineDraining(
+                "engine is draining (shutdown notice); retry against "
+                "another replica")
         mnt = (max_new_tokens if max_new_tokens is not None
                else self.default_max_new_tokens)
         prio = coerce_priority(priority, self.priority_levels,
                                self.priority_default)
-        req = Request(prompt_ids, mnt, eos_id=self.eos_id, priority=prio)
+        if tenant is None:
+            tenant = "default"
+        elif (not isinstance(tenant, str) or not tenant
+                or len(tenant) > 64):
+            raise ValueError("tenant must be a non-empty string of at "
+                             "most 64 chars")
+        req = Request(prompt_ids, mnt, eos_id=self.eos_id, priority=prio,
+                      tenant=tenant)
+        req.client_id = request_id
+        if trace_id is not None:
+            req.trace_id = str(trace_id)
         if any(t < 0 or t >= self.cfg.vocab for t in req.prompt_ids):
             raise ValueError(
                 f"prompt ids out of range for vocab {self.cfg.vocab}")
@@ -166,15 +295,35 @@ class InferenceEngine:
                 f"request needs up to {req.n_prompt + mnt + self.spec_k} "
                 f"cached tokens; cache holds "
                 f"{self.cache.n_blocks * self.cache.block_size}")
+        if request_id is not None:
+            # publish BEFORE the slot wait so a concurrent duplicate parks
+            # on this request instead of racing it into a second one
+            claimed = self._dedupe.claim(request_id, req)
+            if claimed is not req:
+                telemetry.inc("serving", "dedupe_hits")
+                return claimed
         if not self._slots.acquire(
                 self.admit_timeout_s if timeout is None else timeout):
+            telemetry.inc("serving", "rejected")
+            if request_id is not None:
+                # un-publish so a later retry is a fresh attempt, and wake
+                # any duplicate that parked during the slot wait
+                self._dedupe.drop(request_id, req)
+                req.rejected_busy = True
+                req.reject("admission queue full; retry later")
             raise AdmissionFull("admission queue full; retry later")
         req.slot_held = True
+        telemetry.inc("serving", "requests")
+        # the ledger entry opens at the submit stamp, so queue_s includes
+        # the admission-slot wait a saturated server imposes
+        self.requests.on_submit(req.id, req.n_prompt, mnt, t=t_submit,
+                                trace_id=req.trace_id)
         self.scheduler.enqueue(req)
         if self._stop.is_set():
             # close() may have swept between the acquire and the enqueue
             try:
-                self._finish(req, error="engine shut down")
+                self._finish(req, error="engine shut down",
+                             reason="shutdown")
             except AlreadyFinished:
                 pass
             raise DMLCError("engine shut down")
@@ -201,6 +350,52 @@ class InferenceEngine:
                                         name="serving-engine")
         self._thread.start()
 
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def begin_drain(self) -> None:
+        """Stop admitting; the decode loop keeps running so active (and
+        already-queued) generations finish."""
+        if not self._draining.is_set():
+            self._draining.set()
+            self.availability.set_state("draining")
+            telemetry.set_gauge("serving", "draining", 1)
+            active, waiting = self.scheduler.counts()
+            telemetry.record_event("serving_drain_begin", active=active,
+                                   waiting=waiting)
+
+    def drain(self, timeout_s: Optional[float] = None) -> bool:
+        """Graceful shutdown: stop admitting, finish every in-flight
+        generation within ``timeout_s`` (``DMLC_SERVE_DRAIN_S``, default
+        30), then close.  Returns True when the backlog fully drained,
+        False when the deadline cut it off (close() fails the rest)."""
+        t = (timeout_s if timeout_s is not None
+             else get_env("DMLC_SERVE_DRAIN_S", 30.0))
+        self.begin_drain()
+        deadline = time.monotonic() + t
+        # "drained" is judged on a consistent cut: queue membership from
+        # one lock hold, and the step seqlock covers a request popped by
+        # next_prefill but not yet activated (in neither queue): either a
+        # read is odd or the two reads differ, and both retry
+        while True:
+            s1 = self._step_seq
+            active, waiting = self.scheduler.counts()
+            s2 = self._step_seq
+            if not active and not waiting and s1 == s2 and s1 % 2 == 0:
+                break
+            if time.monotonic() > deadline:
+                logger.warning(
+                    "drain deadline (%.1fs) hit with %d active / %d "
+                    "waiting; failing the rest", t, active, waiting)
+                self.close()
+                telemetry.record_event("serving_drain_end", clean=False)
+                return False
+            time.sleep(0.02)
+        self.close()
+        telemetry.record_event("serving_drain_end", clean=True)
+        return True
+
     def close(self) -> None:
         """Stop the loop, fail whatever is still queued or active, and
         wake blocked submitters."""
@@ -216,15 +411,18 @@ class InferenceEngine:
             self._thread = None
         for req in self.scheduler.all_pending():
             try:
-                self._finish(req, error="engine shut down")
+                self._finish(req, error="engine shut down",
+                             reason="shutdown")
             except AlreadyFinished:
                 pass
 
     def _loop(self) -> None:
         while not self._stop.is_set():
+            crashed = False
             try:
                 did = self.step()
             except Exception as e:  # noqa: BLE001 - the loop must not die
+                crashed = True
                 # the active set's cache state is unknown after a crash,
                 # its output is not: requeue each for recompute-resume
                 # (bounded per request), fail it past the budget
@@ -233,14 +431,31 @@ class InferenceEngine:
                     if (req.crash_requeues < self._crash_requeue_max
                             and self.scheduler.requeue_active(req)):
                         self.counters["crash_requeues"] += 1
+                        telemetry.inc("serving", "crash_requeues")
+                        self.requests.on_preempt(req.id)
                         continue
                     try:
                         self._finish(
-                            req, error=f"engine iteration failed: {e!r}")
+                            req, error=f"engine iteration failed: {e!r}",
+                            reason="crash")
                     except AlreadyFinished:
                         pass
                 did = False
+            # draining wins (work still finishes during a drain), then
+            # crash recovery, then serving vs idle; set_state is a no-op
+            # when the state is unchanged
+            if self._draining.is_set():
+                self.availability.set_state("draining")
+            elif crashed:
+                self.availability.set_state("crashed_recovering")
+            elif did:
+                self.availability.set_state("serving")
+            else:
+                self.availability.set_state("starved_idle")
             if not did:
+                # idle: the SLO windows keep aging, so evaluation keeps
+                # running (throttled inside)
+                self.slo.maybe_evaluate()
                 time.sleep(0.002)
 
     # ---- one iteration --------------------------------------------------
@@ -248,24 +463,43 @@ class InferenceEngine:
         """Admit every prefill that fits (up to ``max_active``), then run
         one decode window for every active request.  Returns whether any
         work happened.  Public so tests can single-step the engine."""
-        with torch.inference_mode():
-            did = False
-            while True:
-                req = self.scheduler.next_prefill()
-                if req is None:
-                    break
-                self._run_prefill(req)
-                did = True
-                if req.state == WAITING:
-                    break  # allocate lost a race; retry next iteration
-            active = self.scheduler.active_requests()
-            if active:
-                self._run_decode(active)
-                did = True
-            return did
+        self._step_seq += 1
+        try:
+            with torch.inference_mode():
+                did = False
+                while True:
+                    req = self.scheduler.next_prefill()
+                    if req is None:
+                        break
+                    self._run_prefill(req)
+                    did = True
+                    if req.state == WAITING:
+                        break  # allocate lost a race; retry next iteration
+                active = self.scheduler.active_requests()
+                if active:
+                    self._run_decode(active)
+                    did = True
+                return did
+        finally:
+            self._step_seq += 1
 
-    def _finish(self, req: Request, error: Optional[str] = None) -> None:
+    def _finish(self, req: Request, error: Optional[str] = None,
+                reason: Optional[str] = None) -> None:
         self.scheduler.finish(req, error=error)
+        # scheduler.finish raising AlreadyFinished above is the
+        # exactly-once guard for the ledger too
+        self.requests.on_finish(req.id, error=error, reason=reason)
+        if req.client_id is not None:
+            if error:
+                # a retry of a FAILED request is a fresh attempt
+                self._dedupe.drop(req.client_id, req)
+            else:
+                self._dedupe.finish(req.client_id, req)
+        if req.latency_s is not None:
+            telemetry.observe_duration("serving", "latency", req.latency_s)
+        tps = req.decode_tokens_per_s
+        if tps is not None:
+            telemetry.set_gauge("serving", "tokens_per_s_per_user", tps)
         if req.slot_held:
             req.slot_held = False
             self._slots.release()
@@ -286,55 +520,79 @@ class InferenceEngine:
             padded = n + (-n % bs)   # the kernel's tail mask keeps this safe
             ids = torch.zeros((1, padded), dtype=torch.long)
             ids[0, :n] = torch.tensor(ctx, dtype=torch.long)
-            logits, k, v = forward_prefill_last(
-                self.model, ids.to(self.device),
-                torch.tensor([n - 1], device=self.device))
-            self.cache.write(req.id, k[:, 0, :n], v[:, 0, :n], start=0)
-            logits = logits[0].float().cpu()
+            t0 = time.perf_counter()
+            self.requests.on_prefill_begin(req.id, t=t0, resume=resume)
+            with telemetry.span("serving.prefill", stage="serving",
+                                args={"tokens": n, "req": req.id}):
+                logits, k, v = forward_prefill_last(
+                    self.model, ids.to(self.device),
+                    torch.tensor([n - 1], device=self.device))
+                self.cache.write(req.id, k[:, 0, :n], v[:, 0, :n], start=0)
+                logits = logits[0].float().cpu()   # waits for the card
+            telemetry.observe_duration("serving", "prefill",
+                                       time.perf_counter() - t0)
+            telemetry.inc("serving", "prefill_tokens", n)
         except Exception as e:  # noqa: BLE001 - fail THIS request only
             logger.exception("prefill of request %d failed", req.id)
-            self._finish(req, error=f"prefill failed: {e!r}")
+            self._finish(req, error=f"prefill failed: {e!r}",
+                         reason="prefill")
             return
         self.counters["prefills"] += 1
         if not resume:
             if not bool(torch.isfinite(logits).all()):
+                telemetry.inc("serving", "nonfinite_failures")
                 self._finish(req, error="non-finite logits during prefill "
-                             "(numeric corruption); retry the request")
+                             "(numeric corruption); retry the request",
+                             reason="nonfinite")
                 return
             next_id = int(torch.argmax(logits))
             req.generated.append(next_id)
             self.counters["tokens_generated"] += 1
+            telemetry.inc("serving", "tokens_generated")
             req.ttft_s = time.monotonic() - req.submit_t
+            telemetry.observe_duration("serving", "ttft", req.ttft_s)
+            # the ledger's TTFT moment: ttft_s = queue_s + prefill_s
+            self.requests.on_first_token(req.id)
             if req.is_finished_by(next_id):
                 self._finish(req)
                 return
+        else:
+            # the resume re-cached its context without sampling; decode
+            # resumes from generated[-1] next iteration
+            self.requests.on_prefill_end(req.id)
         self.scheduler.activate(req)
 
     def _ensure_decode_capacity(self, active: List[Request],
-                                n_tokens: int = 1) -> List[Request]:
+                                n_tokens: int = 1) -> tuple:
         """Reserve ``n_tokens`` more slots per active request, preempting
-        youngest-first under pressure; returns the survivors."""
+        youngest-first under pressure; returns ``(survivors,
+        n_preempted)``."""
         if active and self.cache.extend_many([r.id for r in active],
                                              n_tokens):
-            return list(active)
+            return list(active), 0
         alive = []
+        n_preempted = 0
         for req in active:
             if req.state != ACTIVE:
                 continue  # a preemption below already took it out
             while not self.cache.extend(req.id, n_tokens):
                 victim = self.scheduler.preempt_youngest()
                 if victim is not None:
+                    n_preempted += 1
                     self.counters["preemptions"] += 1
+                    telemetry.inc("serving", "preemptions")
+                    self.requests.on_preempt(victim.id)
                 if victim is None:
                     self._finish(req, error="kv cache exhausted with "
-                                 "nothing left to evict")
+                                 "nothing left to evict",
+                                 reason="kv_exhausted")
                     break
                 if victim is req:
                     break  # preempted itself; resumes via re-prefill
             else:
                 alive.append(req)
         # a later request's eviction can preempt an earlier survivor
-        return [r for r in alive if r.state == ACTIVE]
+        return [r for r in alive if r.state == ACTIVE], n_preempted
 
     def _draft_tokens(self, req: Request) -> List[int]:
         """n-gram drafter: the longest (3→1) suffix of prompt+generated
@@ -363,9 +621,21 @@ class InferenceEngine:
 
     def _run_decode(self, active: List[Request]) -> None:
         s_w = self._spec_window
-        active = self._ensure_decode_capacity(active, s_w)
+        active, n_preempted = self._ensure_decode_capacity(active, s_w)
         if not active:
+            if n_preempted:
+                self.requests.on_iteration(
+                    active=0, waiting=self.scheduler.n_waiting,
+                    preempted=n_preempted, kv_stats=self.cache.stats())
             return
+        if not self._flops_declared:
+            # per-token FLOPs vary with context: declared once for the
+            # ledger's goodput math, the exact FLOPs passed every step
+            telemetry.declare_flops_per_token(
+                decode_flops_per_token(self.cfg, self.cache.block_size))
+            telemetry.declare_dtype(self.cfg.dtype)
+            self._flops_declared = True
+        telemetry.step_begin()
         b = len(active)
         # column 0 is the token each row consumes; columns 1..k carry the
         # drafter's proposals (zeros when it has none: the window mask is
@@ -380,8 +650,8 @@ class InferenceEngine:
             drafts.append(d)
         tables, lengths = self.cache.block_tables_array(
             [r.id for r in active])
-        base = torch.tensor([self.cache.length(r.id) for r in active],
-                            dtype=torch.long)
+        base_lens = [self.cache.length(r.id) for r in active]
+        base = torch.tensor(base_lens, dtype=torch.long)
         positions = base[:, None] + torch.arange(s_w)
         logits = forward_decode_paged(
             self.model, ids.to(self.device), positions.to(self.device),
@@ -389,6 +659,17 @@ class InferenceEngine:
         amax = logits.argmax(dim=-1)                              # [B, S]
         fin = torch.isfinite(torch.gather(logits, 2, amax[..., None]))[..., 0]
         amax, fin = amax.cpu().tolist(), fin.cpu().tolist()
+        # executed FLOPs: every window position runs the full forward
+        # whether or not its token commits (MFU counts work executed);
+        # context depths repeat across rows and steps, so memoized
+        flops = 0.0
+        for n0 in base_lens:
+            for c in range(n0 + 1, n0 + s_w + 1):
+                f = self._fpt_cache.get(c)
+                if f is None:
+                    f = self._fpt_cache[c] = decode_flops_per_token(
+                        self.cfg, c)
+                flops += f
         # longest-accepted-prefix walk: position s emits argmax(logits[s]);
         # the walk continues only while the draft matches that argmax, so
         # the output is exactly plain greedy decoding
@@ -401,6 +682,10 @@ class InferenceEngine:
             fail = done = False
             for s in range(1 + len(draft)):
                 if not fin[i][s]:
+                    telemetry.inc("serving", "nonfinite_failures")
+                    logger.error("request %d produced non-finite logits "
+                                 "at decode position %d", req.id,
+                                 base_lens[i] + s)
                     fail = True
                     break
                 next_id = amax[i][s]
@@ -419,16 +704,50 @@ class InferenceEngine:
         # step); commit before any finish below frees blocks
         self.cache.advance_many([(req.id, n) for req, n, _, _ in outcomes
                                  if n])
+        t_commit = time.perf_counter()
+        for req, n_row, _, _ in outcomes:
+            if n_row:
+                self.requests.on_token(req.id, t=t_commit, n=n_row)
+        telemetry.step_end(
+            tokens=float(n_tokens), flops=flops, tokens_per_step=n_tokens / b,
+            spec_accept_rate=(n_accepted / n_proposed
+                              if n_proposed else None))
+        # completion delivery happens AFTER step_end: waking a handler
+        # thread is response streaming, not decode work
         for req, _, fail, done in outcomes:
             if fail:
                 self._finish(req, error="non-finite logits during decode "
-                             "(numeric corruption); retry the request")
+                             "(numeric corruption); retry the request",
+                             reason="nonfinite")
             elif done:
                 self._finish(req)
         self.counters["decode_steps"] += 1
         self.counters["tokens_generated"] += n_tokens
         self.counters["spec_proposed"] += n_proposed
         self.counters["spec_accepted"] += n_accepted
+        if n_tokens:
+            telemetry.inc("serving", "tokens_generated", n_tokens)
+        telemetry.inc("serving", "decode_steps")
+        telemetry.observe("serving", "decode_batch", b)
+        telemetry.set_gauge("serving", "paged_active", 1.0)
+        telemetry.inc("serving", "paged_decode_steps")
+        if s_w > 1:
+            telemetry.inc("serving", "spec_proposed", n_proposed)
+            telemetry.inc("serving", "spec_accepted", n_accepted)
+            if n_proposed:
+                telemetry.set_gauge("serving", "spec_accept_rate",
+                                    100.0 * n_accepted / n_proposed)
+            telemetry.observe("serving", "spec_tokens_per_step",
+                              n_tokens / b)
+        # the per-iteration record (batch composition, queue depth, KV
+        # pressure: the /requests load signal), then a throttled SLO
+        # evaluation on fresh evidence
+        self.requests.on_iteration(
+            active=b, waiting=self.scheduler.n_waiting,
+            preempted=n_preempted, tokens=n_tokens,
+            kv_stats=self.cache.stats())
+        self.availability.note_tokens(n_tokens)
+        self.slo.maybe_evaluate()
 
     # ---- observability --------------------------------------------------
     def stats(self) -> dict:
@@ -437,8 +756,13 @@ class InferenceEngine:
             "active": active,
             "waiting": waiting,
             "max_active": self.max_active,
+            "draining": self.draining,
             "device": str(self.device),
             "kv": self.cache.stats(),
             "counters": dict(self.counters),
             "kernel_launches": kernel_launches(),
+            "ledger": telemetry.ledger().summary(),
+            "requests": self.requests.summary(),
+            "slo_active": self.slo.active(),
+            "availability": self.availability.report(),
         }

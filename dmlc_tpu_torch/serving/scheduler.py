@@ -6,8 +6,9 @@ highest-priority-first, FIFO within a class, gated on a free active slot
 and on the free list covering the context plus one decode slot; memory
 pressure evicts the lowest-priority active request, youngest within its
 class, which re-enters the FRONT of the wait queue keeping the tokens it
-generated (its re-prefill recomputes ``context_ids()``).  The telemetry
-gauges of the reference are left out.
+generated (its re-prefill recomputes ``context_ids()``).  The reference's
+queue-depth and active-request gauges are left out: the engine's request
+ledger records both every decode iteration.
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ class Request:
     across preemptions; ``wait()`` blocks until the engine finishes it."""
 
     def __init__(self, prompt_ids: List[int], max_new_tokens: int,
-                 eos_id: Optional[int] = None, priority: int = 1):
+                 eos_id: Optional[int] = None, priority: int = 1,
+                 tenant: str = "default"):
         if not prompt_ids:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
@@ -76,6 +78,7 @@ class Request:
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
         self.priority = int(priority)
+        self.tenant = str(tenant)
         self.submit_t = time.monotonic()
         self.state = WAITING
         self.generated: List[int] = []
@@ -85,6 +88,8 @@ class Request:
         self.preemptions = 0
         self.crash_requeues = 0
         self.slot_held = False
+        self.client_id: Optional[str] = None  # idempotency key, if any
+        self.trace_id: Optional[str] = None   # X-DMLC-Trace trace id
         self._done = threading.Event()
 
     @property
@@ -109,6 +114,17 @@ class Request:
             return None
         return self.finish_t - self.submit_t
 
+    @property
+    def decode_tokens_per_s(self) -> Optional[float]:
+        """Per-user decode throughput: generated tokens over the time
+        after the first token (None until finished or with one token)."""
+        if self.finish_t is None or self.ttft_s is None:
+            return None
+        decode_s = (self.finish_t - self.submit_t) - self.ttft_s
+        if self.n_generated <= 1 or decode_s <= 0:
+            return None
+        return (self.n_generated - 1) / decode_s
+
     def is_finished_by(self, token: int) -> bool:
         return (self.n_generated >= self.max_new_tokens
                 or (self.eos_id is not None and token == self.eos_id))
@@ -116,9 +132,19 @@ class Request:
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self._done.wait(timeout)
 
+    def reject(self, error: str) -> None:
+        """Terminal transition for a request that was never enqueued
+        (its admission failed after a dedupe claim published it): mark it
+        FAILED and wake duplicate waiters; no scheduler or cache state
+        to release."""
+        self.state = FAILED
+        self.error = error
+        self.finish_t = time.monotonic()
+        self._done.set()
+
     def result(self) -> Dict:
         """JSON-able completion document (the server's response body)."""
-        return {
+        out = {
             "id": self.id,
             "state": self.state,
             "error": self.error,
@@ -127,9 +153,16 @@ class Request:
             "output_ids": list(self.generated),
             "ttft_s": self.ttft_s,
             "latency_s": self.latency_s,
+            "decode_tokens_per_s": self.decode_tokens_per_s,
             "preemptions": self.preemptions,
             "priority": self.priority,
+            "tenant": self.tenant,
         }
+        if self.client_id is not None:
+            out["request_id"] = self.client_id
+        if self.trace_id is not None:
+            out["trace_id"] = self.trace_id
+        return out
 
 
 class ContinuousBatchScheduler:
@@ -143,6 +176,11 @@ class ContinuousBatchScheduler:
         self._waiting: deque = deque()
         self._active: List[Request] = []
         self._lock = threading.Lock()
+
+    @property
+    def n_waiting(self) -> int:
+        with self._lock:
+            return len(self._waiting)
 
     def active_requests(self) -> List[Request]:
         with self._lock:

@@ -2,9 +2,12 @@
 
 Builds the model (random weights from ``--seed``), the paged KV cache
 and the continuous-batching engine on the CUDA card, then serves
-POST /generate and GET /healthz until interrupted.  Capacity knobs come
-from the ``DMLC_SERVE_*`` environment family, as in the JAX package's
-``bin/dmlc-serve``.
+POST /generate and the telemetry endpoints (/metrics, /healthz,
+/requests, /slo, /goodput, /trace, /spans) until interrupted.  SIGTERM
+drains: new requests get 503 + Retry-After, in-flight ones finish
+within ``DMLC_SERVE_DRAIN_S``, then the process exits.  Capacity knobs
+come from the ``DMLC_SERVE_*`` environment family and SLOs from
+``DMLC_SLO_*``, as in the JAX package's ``bin/dmlc-serve``.
 
 Usage:
   python -m dmlc_tpu_torch.serving.serve [--host H] [--port P]
@@ -56,13 +59,18 @@ def main(argv=None) -> int:
     engine = InferenceEngine(model, device=device, eos_id=args.eos_id)
     engine.start()
     server = ServingHTTPServer(engine, host=args.host, port=args.port)
+    server.install_drain_handler()
     print(f"dmlc_tpu_torch serve: {server.url}/generate (model={args.model},"
           f" device={device}, kv={engine.cache.n_blocks}x"
           f"{engine.cache.block_size} tokens, max_active="
-          f"{engine.max_active})", flush=True)
+          f"{engine.max_active}); /metrics /healthz /requests /slo /trace "
+          f"(SLOs {'on' if engine.slo.enabled else 'off: set DMLC_SLO_*'})",
+          flush=True)
     try:
-        while True:
-            time.sleep(0.5)
+        while not engine.draining:
+            time.sleep(0.2)
+        server.wait_drained()
+        print("dmlc_tpu_torch serve: drained, exiting", flush=True)
     except KeyboardInterrupt:
         print("dmlc_tpu_torch serve: shutting down", flush=True)
     finally:
