@@ -67,8 +67,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
             stream position (losses within 1e-3 relative); save,
             restore and CRC32C GB/s.  One epoch through the packed
             transport byte-equal to the padded route; then a 256 MB
-            shard's payload MB/s into HBM on three routes beside the
-            pinned H2D rate at the same transfer size
+            shard's payload MB/s into HBM on three routes (each route's
+            first batch on the card equal to the CPU's) beside the pinned
+            H2D rate at the same transfer size
    telemetry  the port's ``LoadGenerator`` drives the port's server (the
             flagship, spec_k=3, seed 0): 8 streams x 2 requests, prompts
             of 17..511 tokens, 32 new tokens; gates: /metrics parses as
@@ -85,7 +86,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
             a checkpoint save made inside a step its stall.  All of it
             goes on one ``telemetry`` line, beside the card's name and
             power limit
-8. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
+8. sparse   dmlc-core's sparse text path under ``build/sparse`` (removed
+            at the end): a ~256 MB LibSVM file in the Criteo Display
+            Advertising Challenge's row shape (a 0/1 label from a planted
+            logistic model, 13 integer and 26 hashed categorical
+            features, indices in [0, 2^20)) and a 1,000,000-row CSV in
+            UCI HIGGS's (a label, 28 floats), written from seed 0; each
+            through ``libsvm_feed`` onto the card at 4 partitions x 2048
+            rows (LibSVM on the fused native route and, as ``fmt="auto"``,
+            on the classic route, ``create_row_iter`` + ``pack_rowblock``;
+            CSV on the classic route): gates: each route's first batch
+            equal to the same route on the CPU, the LibSVM routes' epoch
+            row counts and checksums equal; text MB/s, placed MB/s, rows/s, parse and
+            consumer-wait seconds beside the pinned H2D rate; 50 SGD
+            steps on fed batches of the examples' logistic loss (a [2^20]
+            weight) and squared loss, both falling; then the spine's
+            RecordIO routes' MB/s through the native scan and packs
+            beside the rates of the numpy route they replaced (one
+            ``sparse_recordio`` line)
+9. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
             its path (and on the spine's timed steps), max error, times
             and roofline bound
 
@@ -1144,7 +1163,7 @@ def spine_train(tfm, fa, cfg, uri, toks):
     from dmlc_tpu_torch.io import input_split
 
     # the records each partition starts with, from the split's spans
-    split = input_split.create(uri, 0, 1, "recordio")
+    split = input_split.create(uri, 0, 1, "recordio", threaded=False)
     first = [b // (SPINE_REC + 8)
              for b, _ in split.partition_spans(SPINE_PARTS)]
     split.close()
@@ -1415,26 +1434,34 @@ def spine_feed_rate(uri):
 
     per_part_bytes = FEED_PER_PART * SPINE_REC
     routes = {
-        "padded": lambda: recordio_feed(
+        "padded": lambda device: recordio_feed(
             uri, batch_records=FEED_PER_PART, max_bytes=SPINE_REC,
-            num_parts=SPINE_PARTS, device="cuda"),
-        "packed_transport": lambda: recordio_feed(
+            num_parts=SPINE_PARTS, device=device),
+        "packed_transport": lambda device: recordio_feed(
             uri, batch_records=FEED_PER_PART, max_bytes=SPINE_REC,
-            num_parts=SPINE_PARTS, device="cuda", pack_bytes=per_part_bytes),
-        "recordio_packed_feed": lambda: recordio_packed_feed(
+            num_parts=SPINE_PARTS, device=device, pack_bytes=per_part_bytes),
+        "recordio_packed_feed": lambda device: recordio_packed_feed(
             uri, buf_bytes=per_part_bytes, max_records=FEED_PER_PART,
-            num_parts=SPINE_PARTS, device="cuda"),
+            num_parts=SPINE_PARTS, device=device),
     }
     doc = {"phase": "spine_feed_rate", "shard_bytes": os.path.getsize(uri),
            "num_parts": SPINE_PARTS, "batch_bytes": SPINE_PARTS
            * per_part_bytes}
     for name, make in routes.items():
-        f = make()
+        cpu = make("cpu")
+        try:
+            want = {k: v.clone() for k, v in next(iter(cpu)).items()}
+        finally:
+            cpu.close()
+        f = make("cuda")
         payload = torch.zeros((), dtype=torch.int64, device="cuda")
-        batches = 0
+        batches, exact = 0, None
         try:
             t0 = time.perf_counter()
             for b in f:
+                if exact is None:
+                    exact = sorted(b) == sorted(want) and all(
+                        torch.equal(b[k].cpu(), want[k]) for k in want)
                 if "length" in b:
                     payload += b["length"].sum()
                 else:
@@ -1449,9 +1476,11 @@ def spine_feed_rate(uri):
         payload = int(payload)
         check(payload == (doc["shard_bytes"] // (SPINE_REC + 8)) * SPINE_REC,
               f"{name}: {payload} payload bytes")
+        check(exact, f"{name}: the first batch on the card differs from the "
+              "CPU's")
         doc[name] = {"MBps": payload / 1e6 / dt, "seconds": dt,
                      "payload_bytes": payload, "batches": batches,
-                     "stats": f.stats()}
+                     "first_batch_equals_cpu": exact, "stats": f.stats()}
     doc["h2d_pinned_MBps"] = h2d_ceiling(doc["batch_bytes"])
     return doc
 
@@ -1491,6 +1520,318 @@ def spine_phase(tfm, fa, cfg):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return train_doc, routes_doc, rate_doc, ckpt_doc
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the sparse text path
+# ---------------------------------------------------------------------------
+
+SPARSE_PARTS, SPARSE_PER_PART = 4, 2048   # ~3.9 MB a global batch
+CRITEO_INT, CRITEO_CAT = 13, 26           # Criteo's 39 features a row
+SPARSE_NUM_COL = 1 << 20                  # hashed index space
+SPARSE_LIBSVM_BYTES = 256 << 20
+HIGGS_ROWS, HIGGS_COLS = 1_000_000, 28    # HIGGS-1M: a label, 28 floats
+LOSS_STEPS = 50
+# the RecordIO routes' MB/s on the 256 MB shard when the feed's scan and
+# packs ran in numpy and Python (an earlier run of this script, H100
+# 80GB HBM3, 700.00 W), printed beside this run's
+NUMPY_ROUTE_RECORDIO_MBPS = {"padded": 439.65, "packed_transport": 158.62,
+                             "recordio_packed_feed": 162.65}
+
+
+def _ndigits(v):
+    n = np.ones(v.shape, np.int64)
+    for p in range(1, 19):
+        n += v >= 10 ** p
+    return n
+
+
+def _put_uint(buf, pos, v, width=None):
+    """Decimal digits of ``v`` (uint64) into ``buf`` at ``pos``, zero-padded
+    to ``width`` when given; returns the digit counts."""
+    nd = _ndigits(v) if width is None else np.full(v.shape, width, np.int64)
+    for d in range(int(nd.max(initial=1))):
+        m = nd > d
+        buf[(pos + nd - 1 - d)[m]] = 48 + (v[m] // 10 ** d) % 10
+    return nd
+
+
+def _emit_rows(fields, seps):
+    """One text block from ``fields``: a list of (kind, array [rows, k])
+    items, kind ``"u"`` unsigned integers, ``"f6"`` signed fixed-point with
+    6 decimals, ``"f3"`` fixed-point in [0, 1) with 3 decimals, each cell
+    followed by the byte ``seps[i]`` (space, ':' or ',') and every row by
+    a newline.  All vectorized: a cell's length, then offsets, then the
+    digits in place."""
+    rows = fields[0][1].shape[0]
+    cells = []   # per column: (kind, values, length)
+    for (kind, arr), sep in zip(fields, seps):
+        for j in range(arr.shape[1]):
+            v = arr[:, j]
+            if kind == "u":
+                ln = _ndigits(v) + 1
+            elif kind == "f3":
+                ln = np.full(rows, 6, np.int64)          # 0.xyz + sep
+            else:
+                q = np.rint(np.abs(v) * 1e6).astype(np.int64)
+                ln = (v < 0) + _ndigits(q // 1_000_000) + 8   # . 6 digits sep
+            cells.append((kind, v, ln, sep))
+    lens = np.stack([c[2] for c in cells], 1)
+    row_len = lens.sum(1)
+    row_off = np.zeros(rows + 1, np.int64)
+    np.cumsum(row_len, out=row_off[1:])
+    buf = np.empty(int(row_off[-1]), np.uint8)
+    pos = row_off[:-1].copy()
+    for kind, v, ln, sep in cells:
+        if kind == "u":
+            _put_uint(buf, pos, v.astype(np.uint64))
+        elif kind == "f3":
+            buf[pos] = 48
+            buf[pos + 1] = 46
+            _put_uint(buf, pos + 2, np.rint(v * 1000).astype(np.uint64)
+                      .clip(0, 999), width=3)
+        else:
+            q = np.rint(np.abs(v) * 1e6).astype(np.int64)
+            neg = v < 0
+            buf[pos[neg]] = 45
+            p = pos + neg
+            nd = _put_uint(buf, p, (q // 1_000_000).astype(np.uint64))
+            buf[p + nd] = 46
+            _put_uint(buf, p + nd + 1, (q % 1_000_000).astype(np.uint64),
+                      width=6)
+        pos = pos + ln
+        buf[pos - 1] = ord(sep)
+    buf[row_off[1:] - 1] = 10
+    return buf
+
+
+def criteo_rows(rng, n, w_true):
+    """``n`` LibSVM rows in Criteo's shape: a 0/1 label drawn from the
+    planted logistic model ``w_true``, 13 integer features (indices 0..12,
+    values in [0, 1)) and 26 hashed categorical ones (indices in
+    [13, 2^20), value 1)."""
+    dense = np.round(rng.random((n, CRITEO_INT)), 3)
+    cat = np.sort(rng.integers(CRITEO_INT, SPARSE_NUM_COL, (n, CRITEO_CAT)),
+                  axis=1)
+    logit = dense @ w_true[:CRITEO_INT] + w_true[cat].sum(1)
+    label = (rng.random(n) < 1 / (1 + np.exp(-logit))).astype(np.int64)
+    idx_dense = np.broadcast_to(np.arange(CRITEO_INT), (n, CRITEO_INT))
+    fields = [("u", label[:, None])]
+    seps = [" "]
+    for j in range(CRITEO_INT):
+        fields += [("u", idx_dense[:, j:j + 1]), ("f3", dense[:, j:j + 1])]
+        seps += [":", " "]
+    for j in range(CRITEO_CAT):
+        fields += [("u", cat[:, j:j + 1]), ("u", np.ones((n, 1), np.int64))]
+        seps += [":", " "]
+    return _emit_rows(fields, seps)
+
+
+def higgs_rows(rng, n, w_true):
+    """``n`` CSV rows in HIGGS's shape: a 0/1 label (a planted linear
+    rule on the features) and 28 float columns, 6 decimals."""
+    x = rng.standard_normal((n, HIGGS_COLS))
+    label = (x @ w_true + 0.5 * rng.standard_normal(n) > 0).astype(np.int64)
+    return _emit_rows([("u", label[:, None]), ("f6", x)], [",", ","])
+
+
+def write_sparse_files(root, libsvm_bytes=SPARSE_LIBSVM_BYTES,
+                       higgs_rows_n=HIGGS_ROWS, seed=0):
+    """The LibSVM and CSV files under ``root`` from ``seed``, in blocks
+    of rows; returns their paths and row counts."""
+    rng = np.random.default_rng(seed)
+    w_svm = np.concatenate([rng.standard_normal(CRITEO_INT) * 2.0,
+                            rng.standard_normal(SPARSE_NUM_COL - CRITEO_INT)
+                            * 0.3])
+    w_svm[:CRITEO_INT] -= w_svm[:CRITEO_INT].mean()
+    svm = os.path.join(root, "criteo.libsvm")
+    rows_svm = 0
+    with open(svm, "wb") as f:
+        size = 0
+        while size < libsvm_bytes:
+            n = min(100_000, max(1, (libsvm_bytes - size) // 380 + 1))
+            buf = criteo_rows(rng, n, w_svm)
+            f.write(buf.tobytes())
+            size += buf.size
+            rows_svm += n
+    w_csv = rng.standard_normal(HIGGS_COLS)
+    csv = os.path.join(root, "higgs.csv")
+    with open(csv, "wb") as f:
+        for lo in range(0, higgs_rows_n, 100_000):
+            f.write(higgs_rows(rng, min(100_000, higgs_rows_n - lo),
+                               w_csv).tobytes())
+    return svm, rows_svm, csv, higgs_rows_n
+
+
+def _batch_checksum(b):
+    """(rows, checksum) of one sparse batch as int64 tensors on its
+    device: the words of every label, value and index summed as integers,
+    so equal batches give equal sums in any order."""
+    rows = (b["mask"].sum(1) > 0).sum()
+    chk = (b["label"].view(torch.int32).long().sum()
+           + b["value"].view(torch.int32).long().sum()
+           + b["index"].long().sum() + b["mask"].view(torch.int32).long()
+           .sum())
+    return rows, chk
+
+
+def sparse_route(make, text_bytes):
+    """One route of ``libsvm_feed``: its first batch on the CPU, then one
+    epoch on the card, timed: the first batch byte-equal to the CPU's,
+    the epoch's row count and checksum, MB/s of text parsed and of bytes
+    placed, rows/s, the feed's parse and consumer-wait seconds."""
+    cpu = make("cpu")
+    try:
+        want = {k: v.clone() for k, v in next(iter(cpu)).items()}
+    finally:
+        cpu.close()
+    f = make("cuda")
+    rows = torch.zeros((), dtype=torch.int64, device="cuda")
+    chk = torch.zeros((), dtype=torch.int64, device="cuda")
+    batches, first = 0, None
+    try:
+        t0 = time.perf_counter()
+        for b in f:
+            if first is None:
+                first = {k: v.cpu() for k, v in b.items()}
+            r, c = _batch_checksum(b)
+            rows += r
+            chk += c
+            batches += 1
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        f.close()
+    exact = sorted(first) == sorted(want) and all(
+        torch.equal(first[k], want[k]) for k in want)
+    st = f.stats()
+    return {"first_batch_equals_cpu": exact, "rows": int(rows),
+            "checksum": int(chk), "batches": batches, "seconds": dt,
+            "text_MBps": text_bytes / 1e6 / dt,
+            "placed_MBps": st["bytes_to_device"] / 1e6 / dt,
+            "rows_per_s": int(rows) / dt, "parse_s": st["parse_s"],
+            "consumer_wait_s": st["wait_s"], "stats": st}
+
+
+def sparse_losses(make_svm, make_csv):
+    """50 SGD steps on the card on fed batches with each example's loss:
+    logistic on a [2^20] weight (``examples/train_libsvm.py:49-58``,
+    lr 0.5) from the LibSVM feed and squared (``examples/train_csv.py:46-50``,
+    lr 0.1) on a [28] weight from the CSV feed."""
+    def logistic(w, b):
+        x = b["value"] * b["mask"]
+        p = torch.sigmoid((x * w[b["index"].long()]).sum(1))
+        eps = 1e-7
+        y = b["label"]
+        return -(y * torch.log(p + eps)
+                 + (1 - y) * torch.log(1 - p + eps)).mean()
+
+    def squared(w, b):
+        pred = (b["value"] * b["mask"] * w[b["index"].long()]).sum(1)
+        return (pred - b["label"]).square().mean()
+
+    out = {}
+    for name, make, n_w, lr, loss_fn in (
+            ("logistic", make_svm, SPARSE_NUM_COL, 0.5, logistic),
+            ("squared", make_csv, HIGGS_COLS, 0.1, squared)):
+        w = torch.zeros(n_w, device="cuda", requires_grad=True)
+        f = make("cuda")
+        losses = []
+        try:
+            for b in itertools.islice(f, LOSS_STEPS):
+                loss = loss_fn(w, b)
+                loss.backward()
+                with torch.no_grad():
+                    w -= lr * w.grad
+                    w.grad = None
+                losses.append(loss.detach())
+        finally:
+            f.close()
+        losses = [x.item() for x in losses]
+        check(len(losses) == LOSS_STEPS
+              and all(math.isfinite(x) for x in losses),
+              f"sparse {name} losses {losses}")
+        first, last = losses[0], sum(losses[-5:]) / 5
+        check(last < first, f"sparse {name} loss did not fall: {first} -> "
+              f"{last} (mean of the last 5)")
+        out[name] = {"losses": losses, "first": first, "last5_mean": last,
+                     "lr": lr, "weight": n_w}
+    return out
+
+
+def sparse_phase(smi, rate_doc, spine_first_exact):
+    """The sparse text path on the card: LibSVM (Criteo's row shape) and
+    CSV (HIGGS's) files written from seed 0 under ``build/sparse``
+    (removed after), fed through ``libsvm_feed`` on both routes, checked
+    against the CPU and across routes, then 50 steps of each example's
+    loss; the RecordIO routes' MB/s through the native scan beside the
+    numpy route's.
+    """
+    from dmlc_tpu_torch.feed import libsvm_feed
+
+    root = os.path.join(ROOT, "build", "sparse")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        t0 = time.perf_counter()
+        svm, n_svm, csv, n_csv = write_sparse_files(root)
+        write_s = time.perf_counter() - t0
+        csv_uri = csv + "?format=csv&label_column=0"
+
+        def make_svm(fmt):   # "libsvm": the fused route; "auto": classic
+            return lambda device: libsvm_feed(
+                svm, batch_size=SPARSE_PER_PART, max_nnz=CRITEO_INT
+                + CRITEO_CAT, fmt=fmt, num_parts=SPARSE_PARTS,
+                device=device)
+
+        def make_csv(device):
+            return libsvm_feed(csv_uri, batch_size=SPARSE_PER_PART,
+                               max_nnz=HIGGS_COLS, fmt="csv",
+                               num_parts=SPARSE_PARTS, device=device)
+
+        svm_bytes, csv_bytes = os.path.getsize(svm), os.path.getsize(csv)
+        routes = {"libsvm_fused": sparse_route(make_svm("libsvm"),
+                                               svm_bytes),
+                  "libsvm_classic": sparse_route(make_svm("auto"),
+                                                 svm_bytes),
+                  "csv_classic": sparse_route(make_csv, csv_bytes)}
+        batch_bytes = SPARSE_PARTS * SPARSE_PER_PART * (
+            4 + 12 * (CRITEO_INT + CRITEO_CAT))
+        doc = {"phase": "sparse", "card": smi, "write_s": write_s,
+               "libsvm": {"path": "criteo.libsvm", "bytes": svm_bytes,
+                          "rows": n_svm, "features_per_row":
+                          CRITEO_INT + CRITEO_CAT},
+               "csv": {"path": "higgs.csv", "bytes": csv_bytes,
+                       "rows": n_csv, "columns": HIGGS_COLS + 1},
+               "num_parts": SPARSE_PARTS, "batch_rows": SPARSE_PER_PART,
+               "libsvm_batch_bytes": batch_bytes, **routes,
+               "h2d_pinned_MBps": h2d_ceiling(batch_bytes)}
+        for name, r in routes.items():
+            check(r["first_batch_equals_cpu"],
+                  f"sparse {name}: the first batch on the card differs from "
+                  "the CPU's")
+        a, b = routes["libsvm_fused"], routes["libsvm_classic"]
+        check(a["rows"] == b["rows"] == n_svm and a["checksum"]
+              == b["checksum"], f"sparse: the LibSVM routes disagree: "
+              f"{a['rows']}/{a['checksum']} vs {b['rows']}/{b['checksum']} "
+              f"({n_svm} rows written)")
+        check(routes["csv_classic"]["rows"] == n_csv,
+              f"sparse csv: {routes['csv_classic']['rows']} of {n_csv} rows")
+        doc["losses"] = sparse_losses(make_svm("libsvm"), make_csv)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec = {"phase": "sparse_recordio", "card": smi,
+           "first_batch_byte_exact": spine_first_exact,
+           "shard_bytes": rate_doc["shard_bytes"]}
+    for name, before in NUMPY_ROUTE_RECORDIO_MBPS.items():
+        rec[name] = {"MBps": rate_doc[name]["MBps"],
+                     "numpy_route_MBps": before,
+                     "first_batch_equals_cpu":
+                     rate_doc[name]["first_batch_equals_cpu"],
+                     "parse_s": rate_doc[name]["stats"]["parse_s"],
+                     "consumer_wait_s": rate_doc[name]["stats"]["wait_s"]}
+    rec["h2d_pinned_MBps"] = rate_doc["h2d_pinned_MBps"]
+    return doc, rec
 
 
 def main() -> int:
@@ -1592,9 +1933,14 @@ def main() -> int:
     for doc in spine_docs:
         emit(doc)
     spine_launches = spine_docs[0]["launches"]
+
+    # 8. the sparse text path: LibSVM and CSV through libsvm_feed
+    for doc in sparse_phase(smi, spine_docs[2],
+                            spine_docs[0]["first_batch_byte_exact"]):
+        emit(doc)
     emit({"phase": "telemetry", "card": smi, **TELEMETRY})
 
-    # 8. the kernels line: each kernel's launches on its own path (K1 and
+    # 9. the kernels line: each kernel's launches on its own path (K1 and
     # K4 serving, K2 and K3 training; K1 also runs 16 times per train step)
     kernels = []
     for kname, src, replaces, row, err, path, counts in (

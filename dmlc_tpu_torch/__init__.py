@@ -1,8 +1,8 @@
 """dmlc_tpu_torch: the PyTorch / CUDA port of ``dmlc_tpu`` for an NVIDIA H100.
 
 The JAX package ``dmlc_tpu`` stays the reference; this package keeps its
-layout (``io/``, ``feed/``, ``checkpoint/``, ``ops/``, ``models/``,
-``serving/``, ``telemetry/``) so each module's counterpart is easy to
+layout (``io/``, ``data/``, ``feed/``, ``checkpoint/``, ``ops/``,
+``models/``, ``serving/``, ``telemetry/``) so each module's counterpart is easy to
 find, imports ``torch`` and never ``jax``, and imports nothing of
 ``dmlc_tpu``.  Every kernel the JAX package wrote in Pallas for the
 TPU is a hand-written CUDA kernel here (``ops/csrc/``), built with
@@ -22,5 +22,9 @@ checkpoints in the JAX package's format (``checkpoint``;
 telemetry those paths drive (``telemetry``: the step ledger on the
 train and decode steps, the request, SLO and availability ledgers, the
 Prometheus and Chrome-trace exporters behind the server's endpoints,
-and ``serving.loadgen``), with the JAX package's metric names.
+and ``serving.loadgen``), with the JAX package's metric names; and
+dmlc-core's sparse text path: the LibSVM, CSV and libfm parsers
+(``data``) over the input splits (text, RecordIO, indexed, stdin,
+``#cachefile``) into ``feed.libsvm_feed``, on a host C++ core
+(``native``) shared with the RecordIO feed's scan and packs.
 """

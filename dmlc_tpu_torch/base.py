@@ -9,11 +9,15 @@ from typing import Optional, Type, TypeVar
 
 import torch
 
-__all__ = ["DMLCError", "check", "get_env", "resolve_device"]
+__all__ = ["DMLCError", "ParamError", "check", "get_env", "resolve_device"]
 
 
 class DMLCError(RuntimeError):
     """Exception for all fatal checks (analog of ``dmlc::Error``)."""
+
+
+class ParamError(ValueError, DMLCError):
+    """An invalid parameter value (analog of ``dmlc::ParamError``)."""
 
 
 def check(cond, msg="") -> None:

@@ -2,6 +2,9 @@
 
 from .device_feed import (  # noqa: F401
     DeviceFeed,
+    libsvm_feed,
+    pack_rowblock,
+    pack_rowblock_plain,
     recordio_feed,
     recordio_packed_feed,
 )

@@ -1,5 +1,5 @@
-"""The device feed: RecordIO partitions into batches on the card (the port
-of ``dmlc_tpu/feed/device_feed.py``).
+"""The device feed: RecordIO and sparse-text partitions into batches on
+the card (the port of ``dmlc_tpu/feed/device_feed.py``).
 
 Layout: partition ``p`` of ``num_parts`` fills rows ``[p·B, (p+1)·B)``
 of one tensor on the device, the JAX package's global layout
@@ -45,6 +45,11 @@ a step's feed-wait share while the producers' spans overlap it.
 Batch-borrowing contract: a partition iterator's yielded dict is read
 only between the yield and the next ``next()`` on that iterator (it is
 copied into staging at once), so iterators reuse one output buffer.
+
+Host work on the partition iterators runs in the C++ core (``native``)
+with the GIL released, so the parser workers overlap: the RecordIO chunk
+scan and packs (``feed.spans``), the CSR pack of :func:`pack_rowblock`,
+and :func:`libsvm_feed`'s fused LibSVM tokenize-and-pack.
 """
 
 from __future__ import annotations
@@ -60,16 +65,92 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import native, telemetry
 from ..base import check, get_env, resolve_device
 from ..concurrency import BufferPool
 from . import spans as _spans
 
-__all__ = ["DeviceFeed", "recordio_feed", "recordio_packed_feed"]
+__all__ = ["DeviceFeed", "libsvm_feed", "pack_rowblock",
+           "pack_rowblock_plain", "recordio_feed", "recordio_packed_feed"]
 
 _logger = logging.getLogger("dmlc_tpu_torch.feed")
 _POLL_S = 0.1
 _LOG_EVERY = 10 << 20   # bytes between throughput log lines
+
+
+def _batch_arrays(batch_size: int, max_nnz: int) -> Dict[str, np.ndarray]:
+    return {"label": np.zeros(batch_size, np.float32),
+            "value": np.zeros((batch_size, max_nnz), np.float32),
+            "index": np.zeros((batch_size, max_nnz), np.int32),
+            "mask": np.zeros((batch_size, max_nnz), np.float32)}
+
+
+def pack_rowblock(blk, batch_size: int, max_nnz: int, num_col: int = 0,
+                  out: Optional[Dict[str, np.ndarray]] = None):
+    """RowBlock (CSR) to a fixed-shape batch {label [B], value [B, K],
+    index [B, K], mask [B, K]} (float32/int32): rows padded (mask 0) or
+    truncated to ``K = max_nnz``, masked cells written as zero; with
+    ``num_col > 0`` indices are clamped to ``[0, num_col)`` so a gather
+    into a ``[num_col]`` weight stays in bounds.
+
+    ``out`` (those keys) is filled in place and returned.  The pack is
+    one native call (``dmlc_pad_pack_csr``) into an ``out`` of exactly
+    those dtypes and shapes; an ``out`` of other dtypes (legal: the
+    values are cast on assignment) or shapes is packed by
+    :func:`pack_rowblock_plain`, which casts, or refuses a shape that
+    does not broadcast."""
+    if out is None:
+        out = _batch_arrays(batch_size, max_nnz)
+    b = min(batch_size, blk.size)
+    expect = (("label", np.float32, (batch_size,)),
+              ("value", np.float32, (batch_size, max_nnz)),
+              ("index", np.int32, (batch_size, max_nnz)),
+              ("mask", np.float32, (batch_size, max_nnz)))
+    if all(out[k].flags["C_CONTIGUOUS"] and out[k].dtype == dt
+           and out[k].shape == shp for k, dt, shp in expect):
+        native.pad_pack_csr(blk.label[:b], blk.offset[: b + 1], blk.index,
+                            blk.value, b, batch_size, max_nnz, num_col, out)
+        return out
+    return pack_rowblock_plain(blk, batch_size, max_nnz, num_col, out)
+
+
+def pack_rowblock_plain(blk, batch_size: int, max_nnz: int,
+                        num_col: int = 0,
+                        out: Optional[Dict[str, np.ndarray]] = None):
+    """The plain version of :func:`pack_rowblock`: one broadcast numpy
+    gather, bit-identical to the native pack."""
+    if out is None:
+        out = _batch_arrays(batch_size, max_nnz)
+    label, value = out["label"], out["value"]
+    index, mask = out["index"], out["mask"]
+    b = min(batch_size, blk.size)
+    label[b:] = 0
+    label[:b] = blk.label[:b]
+    src_val = np.asarray(blk.value)
+    src_idx = np.asarray(blk.index)
+    if b == 0 or src_val.size == 0:
+        value[:] = 0
+        index[:] = 0
+        mask[:] = 0
+        return out
+    # each cell reads offset[row] + column, masked past the row's length
+    offsets = np.asarray(blk.offset[: b + 1], np.int64)
+    lens = np.diff(offsets)
+    ar = np.arange(max_nnz, dtype=np.int64)
+    sel = ar[None, :] < lens[:, None]                        # [b, K]
+    src = np.minimum(offsets[:-1, None] + ar[None, :], src_val.size - 1)
+    value[b:] = 0
+    # masked cells are written zero, not multiplied by zero: the clamped
+    # gather reads other rows' values, and NaN/Inf * 0 is NaN
+    value[:b] = np.where(sel, src_val[src], np.float32(0))
+    index[b:] = 0
+    index[:b] = src_idx[src]
+    index[:b] *= sel
+    mask[b:] = 0
+    mask[:b] = sel
+    if num_col > 0:
+        np.minimum(index, num_col - 1, out=index)
+    return out
 
 
 class _ProducerError:
@@ -562,6 +643,12 @@ class DeviceFeed:
         if not any(t.is_alive() for t in threads):
             self._thread = None
             self._parsers = []
+            # the partition iterators' splits hold prefetch threads of
+            # their own: closing a generator runs its cleanup now
+            for it in self._part_iters:
+                if hasattr(it, "close"):
+                    it.close()
+            self._part_iters = []
         else:
             # _thread stays set, so __iter__ refuses a second pipeline
             _logger.warning("DeviceFeed.close(): a pipeline thread is still "
@@ -585,6 +672,98 @@ class DeviceFeed:
     @property
     def world(self) -> tuple:
         return self._world
+
+
+# ---------------------------------------------------------------------------
+# Sparse text feeds
+# ---------------------------------------------------------------------------
+
+def _classic_part_iter(uri: str, fmt: str, batch_size: int, max_nnz: int,
+                       part: int, n_parts: int):
+    """One partition through ``create_row_iter`` (the parser, or the
+    ``#cachefile`` page cache), its blocks re-sliced into fixed batches by
+    :func:`pack_rowblock` into one borrowed batch dict."""
+    from ..data import create_row_iter
+
+    it = create_row_iter(uri, part, n_parts, fmt)
+    try:
+        ncol = it.num_col()
+        out = None
+        for blk in it:
+            for lo in range(0, blk.size, batch_size):
+                sub = blk.slice(lo, min(lo + batch_size, blk.size))
+                out = pack_rowblock(sub, batch_size, max_nnz, ncol, out=out)
+                yield out
+    finally:
+        if hasattr(it, "close"):
+            it.close()
+
+
+def _fused_part_iter(uri: str, batch_size: int, max_nnz: int, part: int,
+                     n_parts: int):
+    """One LibSVM partition through the fused native route: one
+    ``dmlc_parse_libsvm_into`` call per (chunk window, batch) tokenizes
+    the text and writes the padded rows of one borrowed batch dict in
+    place, no intermediate CSR.  Indices are not clamped: the classic
+    route clamps to the partition's largest index + 1, which no parsed
+    index exceeds, so the routes give the same batches."""
+    from ..io import input_split
+
+    split = input_split.create(uri, part, n_parts, "text")
+    try:
+        out = _batch_arrays(batch_size, max_nnz)
+        r = 0
+        while True:
+            chunk = split.next_chunk()
+            if chunk is None:
+                break
+            start, n = 0, len(chunk)
+            while start < n:
+                with telemetry.span("feed.parse_native", stage="feed"), \
+                        telemetry.timed("feed", "parse_native"):
+                    r, start = native.parse_libsvm_into(chunk, start, r,
+                                                        max_nnz, 0, out)
+                if r == batch_size:
+                    yield out
+                    r = 0
+            chunk = None
+        if r:  # the epoch's short last batch, zero-padded
+            for v in out.values():
+                v[r:] = 0
+            yield out
+    finally:
+        split.close()
+
+
+def libsvm_feed(uri: str, *, batch_size: int, max_nnz: int,
+                fmt: str = "libsvm", num_parts: int = 1, device=None,
+                queue_depth: Optional[int] = None, world=None) -> DeviceFeed:
+    """Sparse text (LibSVM, CSV, libfm) as padded CSR batches {label
+    [num_parts · B], value / index / mask [num_parts · B, max_nnz]},
+    ``B = batch_size`` rows of each partition.
+
+    ``fmt="libsvm"`` on a URI without a ``#cachefile`` (and no
+    ``format=`` other than libsvm) takes the fused native route: the
+    text is tokenized straight into the batch, with the GIL released so
+    ``DMLC_FEED_WORKERS`` partition threads overlap.  Every other URI or
+    ``fmt`` (``"csv"``, ``"libfm"``, ``"auto"``) takes the classic
+    route: ``create_row_iter`` (the parsers, the ``#cachefile`` page
+    cache) and :func:`pack_rowblock`.  On LibSVM text both give the same
+    batches.  With ``world=(rank, world_size)`` this process reads global
+    partitions ``rank·num_parts + p`` of ``world_size·num_parts``."""
+    from ..io.uri import URISpec
+
+    spec = URISpec(uri, 0, 1)
+    if (fmt == "libsvm" and spec.cache_file is None
+            and spec.args.get("format", "libsvm") == "libsvm"):
+        part_iter = functools.partial(_fused_part_iter, uri, batch_size,
+                                      max_nnz)
+    else:
+        part_iter = functools.partial(_classic_part_iter, uri, fmt,
+                                      batch_size, max_nnz)
+    return DeviceFeed(device=device, num_parts=num_parts,
+                      queue_depth=queue_depth,
+                      source_builder=_builder(part_iter), world=world)
 
 
 # ---------------------------------------------------------------------------
@@ -646,7 +825,7 @@ def _packed_part_iter(uri: str, part: int, n_parts: int, buf_bytes: int,
             i = 0
             n_spans = len(lens)
             while i < n_spans:
-                consumed, pos, full = _spans.pack_spans(
+                consumed, pos, full = native.pack_spans(
                     src, offs[i:], lens[i:], pack_dst, pos,
                     max_records - count, count == 0, ends[count:])
                 count += consumed

@@ -1,14 +1,20 @@
 """RecordIO chunk scans and the row gathers of the device feed (the port
-of the span functions of ``dmlc_tpu/feed/device_feed.py`` and the numpy
-path of ``native.pack_spans``).
+of the span functions of ``dmlc_tpu/feed/device_feed.py``).
 
 A chunk scan yields ``(offset, len, flag)`` triples, one per logical
 record: flags 0/1 plain (direct payload / escaped multi-segment region),
 2/3 checksummed (CRC32C-verified in the scan), and typed rejects with
-flag >= 8 covering [begin, resync point) of every corruption.  The
-triples are bit-identical to the JAX package's (its native scanner and
-its Python twin, which this is).  A host C++ core for the scan and the
-packs is later work (ROADMAP.md, Queue 1).
+flag >= 8 covering [begin, resync point) of every corruption.
+
+The hot path is the host C++ core (``native``, a copy of the JAX
+package's): one fused scan-and-verify call per chunk
+(:func:`scan_chunk`), one pad-pack call per span group
+(:func:`gather_rows_into`) and one pack call per (chunk, batch)
+(``native.pack_spans``), each with the GIL released.  The numpy and Python
+walkers beside them (``*_plain``) are the plain versions, bit-identical
+to the JAX package's Python twins; the tests hold the two routes to the
+same triples and bytes, and nothing calls the plain versions on the
+feed's path.
 """
 
 from __future__ import annotations
@@ -17,13 +23,15 @@ from typing import Optional
 
 import numpy as np
 
+from .. import native, telemetry
 from ..io import integrity
-from ..io.recordio import (CRC_BIT, HEAD_CFLAGS, _MAGIC_BYTES, _U32,
+from ..io.recordio import (CRC_BIT, HEAD_CFLAGS, KMAGIC, _MAGIC_BYTES, _U32,
                            decode_flag, decode_length, find_next_record_head,
                            stored_crc)
 
-__all__ = ["chunk_spans", "scan_chunk", "verify_spans", "reassemble_region",
-           "chunk_record_views", "gather_rows_into", "pack_spans"]
+__all__ = ["chunk_spans", "scan_chunk", "scan_chunk_plain", "verify_spans",
+           "reassemble_region", "chunk_record_views", "gather_rows_into",
+           "gather_rows_into_plain", "pack_spans_plain"]
 
 #: reject kinds (flag >= 8) and the message each reports; kind 12 names
 #: the offending cflag read back from the chunk
@@ -37,12 +45,18 @@ _REJECT_WHAT = {
 }
 
 
-def scan_chunk(mv: memoryview) -> np.ndarray:
+def scan_chunk(mv) -> np.ndarray:
     """One pass over a record-aligned chunk: the ``[n, 3]`` uint64 span
-    table, checksummed segments verified inline.  No policy is applied
-    here (:func:`verify_spans` routes the rejects).  A stray sub-word
-    tail is a reject (14) unless the chunk already reported, whose report
-    covers those bytes."""
+    table, checksummed segments verified inline, in one native call.  No
+    policy is applied here (:func:`verify_spans` routes the rejects).  A
+    stray sub-word tail is a reject (14) unless the chunk already
+    reported, whose report covers those bytes."""
+    return native.recordio_spans(mv, KMAGIC, verify=True)
+
+
+def scan_chunk_plain(mv: memoryview) -> np.ndarray:
+    """The plain version of :func:`scan_chunk`: the same walk in Python,
+    the same triples."""
     triples, pos, n = [], 0, len(mv)
     any_reject = False
 
@@ -140,8 +154,14 @@ def chunk_spans(mv: memoryview, source: Optional[str] = None,
     """The span table of one chunk with rejects reported under
     ``DMLC_INTEGRITY_POLICY`` and quarantined spans dropped on replay;
     ``source``/``base`` key quarantined spans as (uri, global offset of
-    the record head)."""
-    return verify_spans(mv, scan_chunk(mv), source, base)
+    the record head).  The scan is timed as ``feed.parse_native`` and the
+    routing of rejects and skip-listed spans as ``feed.crc``, the JAX
+    feed's names."""
+    with telemetry.span("feed.parse_native", stage="feed"), \
+            telemetry.timed("feed", "parse_native"):
+        sp = scan_chunk(mv)
+    with telemetry.timed("feed", "crc"):
+        return verify_spans(mv, sp, source, base)
 
 
 def verify_spans(mv: memoryview, sp: np.ndarray, source, base) -> np.ndarray:
@@ -215,13 +235,22 @@ def chunk_record_views(mv: memoryview, sp=None) -> list:
     return out
 
 
-def gather_rows_into(mv: memoryview, sp: np.ndarray, lo: int, hi: int,
-                     max_bytes: int, out_rows: np.ndarray,
-                     out_lens: np.ndarray) -> None:
+def gather_rows_into(mv, sp: np.ndarray, lo: int, hi: int, max_bytes: int,
+                     out_rows: np.ndarray, out_lens: np.ndarray) -> None:
     """Span records ``[lo, hi)`` of one chunk into ``out_rows [hi-lo,
     max_bytes]`` (zero past each length, records over ``max_bytes``
-    truncated) and their lengths into ``out_lens``: one broadcast gather,
-    escaped records reassembled."""
+    truncated) and their lengths into ``out_lens`` (int32): one native
+    pad-pack, escaped records reassembled in place."""
+    g = hi - lo
+    native.pad_pack_rows(mv, sp[lo:hi], KMAGIC, max_bytes, out_rows[:g],
+                         out_lens[:g])
+
+
+def gather_rows_into_plain(mv: memoryview, sp: np.ndarray, lo: int, hi: int,
+                           max_bytes: int, out_rows: np.ndarray,
+                           out_lens: np.ndarray) -> None:
+    """The plain version of :func:`gather_rows_into`: one broadcast numpy
+    gather, escaped records reassembled in Python."""
     g = hi - lo
     arr = np.frombuffer(mv, np.uint8)
     offs = sp[lo:hi, 0].astype(np.int32)   # chunk-local: always < 2^31
@@ -240,10 +269,11 @@ def gather_rows_into(mv: memoryview, sp: np.ndarray, lo: int, hi: int,
     out_lens[:g] = lens
 
 
-def pack_spans(src, offs: np.ndarray, lens: np.ndarray, dst: np.ndarray,
-               dst_pos: int, slots: int, allow_truncate: bool,
-               ends_out: np.ndarray):
-    """Append whole record spans of ``src`` to the packed buffer ``dst``
+def pack_spans_plain(src, offs: np.ndarray, lens: np.ndarray,
+                     dst: np.ndarray, dst_pos: int, slots: int,
+                     allow_truncate: bool, ends_out: np.ndarray):
+    """The plain version of ``native.pack_spans``: append whole record
+    spans of ``src`` to the packed buffer ``dst``
     from ``dst_pos`` until it fills (bytes or ``slots`` records);
     ``ends_out[:consumed]`` receives each record's end offset.  A span that
     would overflow waits for the next batch, except in an empty batch

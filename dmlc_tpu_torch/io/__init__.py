@@ -1,5 +1,6 @@
 """IO layer of the port: URIs, streams, the local filesystem, RecordIO,
-integrity and the byte-range input split (the port of
+integrity and the input splits (text, RecordIO, indexed RecordIO,
+stdin; the prefetching, cached and shuffled wrappers) (the port of
 ``dmlc_tpu/io``)."""
 
 from .stream import (  # noqa: F401
@@ -19,4 +20,11 @@ from .recordio import (  # noqa: F401
     RecordIOWriter,
 )
 from . import input_split  # noqa: F401
-from .input_split import InputSplit, InputSplitBase, RecordIOSplitter  # noqa: F401
+from .input_split import (  # noqa: F401
+    IndexedRecordIOSplitter,
+    InputSplit,
+    InputSplitBase,
+    LineSplitter,
+    RecordIOSplitter,
+    SingleFileSplit,
+)

@@ -39,6 +39,19 @@ class FileSystem(abc.ABC):
     @abc.abstractmethod
     def list_directory(self, path: URI) -> List[FileInfo]: ...
 
+    def list_directory_recursive(self, path: URI) -> List[FileInfo]:
+        """Every file under ``path`` (filesys.h:96-108), through
+        :meth:`list_directory`."""
+        out: List[FileInfo] = []
+        stack = [path]
+        while stack:
+            for info in self.list_directory(stack.pop()):
+                if info.type == "directory":
+                    stack.append(info.path)
+                else:
+                    out.append(info)
+        return out
+
     @abc.abstractmethod
     def open(self, path: URI, mode: str,
              allow_null: bool = False) -> Optional[Stream]: ...

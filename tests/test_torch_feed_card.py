@@ -1,6 +1,7 @@
 """The device feed on a card: batches placed through pinned staging, the
 feed's own stream and its events, held byte-exact against the same feed
-on the CPU over whole epochs while the consumer's stream is kept busy
+on the CPU over whole epochs (RecordIO on its three routes, LibSVM on
+the fused and classic routes) while the consumer's stream is kept busy
 (a missing stream wait or ``record_stream`` shows as a batch that is
 right only sometimes).  Marked ``cuda``: skips without a card.  The
 module imports no jax, so it runs where jax is not installed:
@@ -97,5 +98,46 @@ def test_card_staging_is_pinned(card, shard):
         next(iter(feed))
         assert all(t.is_pinned() for b in feed._built
                    for t in b.tensors.values())
+    finally:
+        feed.close()
+
+
+@pytest.fixture(scope="module")
+def sparse_text(tmp_path_factory):
+    rng = np.random.default_rng(4)
+    path = tmp_path_factory.mktemp("sparse") / "d.libsvm"
+    lines = []
+    for i in range(3001):
+        idx = np.sort(rng.choice(1 << 20, int(rng.integers(0, 40)),
+                                 replace=False))
+        lines.append(" ".join([str(i % 2)] + [
+            f"{j}:{rng.standard_normal():.7g}" for j in idx]))
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["libsvm", "auto"])   # fused, classic
+def test_card_libsvm_feed_byte_exact_over_epochs(card, sparse_text, fmt):
+    from dmlc_tpu_torch.feed import libsvm_feed
+
+    def make(device):
+        return libsvm_feed(sparse_text, batch_size=64, max_nnz=39, fmt=fmt,
+                           num_parts=4, device=device)
+
+    want = _host_epoch(make)
+    feed = make(card)
+    x = torch.randn(1024, 1024, device=card)
+    try:
+        for epoch in range(2):
+            held = []
+            for b in feed:
+                x = _busy(x)
+                held.append(b)
+            torch.cuda.synchronize()
+            assert len(held) == len(want), epoch
+            for i, (got, ref) in enumerate(zip(held, want)):
+                for k, v in ref.items():
+                    assert torch.equal(got[k].cpu(), v), (epoch, i, k)
     finally:
         feed.close()

@@ -108,7 +108,7 @@ def test_partition_spans_and_chunks_match(tmp_path):
     _write(JaxWriter, JaxStream, tmp_path / "a.rec", recs, True)
     uri = str(tmp_path / "a.rec")
     js = jax_split.create(uri, 0, 1, "recordio", threaded=False)
-    ps = input_split.create(uri, 0, 1, "recordio")
+    ps = input_split.create(uri, 0, 1, "recordio", threaded=False)
     try:
         for n in (1, 2, 5, 16):
             assert ps.partition_spans(n) == js.partition_spans(n)
