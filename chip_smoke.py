@@ -104,6 +104,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
             RecordIO routes' MB/s through the native scan and packs
             beside the rates of the numpy route they replaced (one
             ``sparse_recordio`` line)
+   tracker  dmlc-core's tracker, launcher and host collectives, run as
+            ``python -m dmlc_tpu_torch.tracker.submit --cluster local
+            --num-workers 4`` jobs on the sparse phase's files before
+            they are removed: ``train_libsvm`` on the Criteo-shaped file
+            (2 epochs, a [2^20] weight on the card, an 8 MB f64 gradient
+            allreduced every step) — gates: every rank logs both epochs,
+            the mean epoch loss falls, the four final-weight SHA-256s
+            are equal, every gradient allreduce ran on ``hier``; the
+            rendezvous seconds (the tracker's listen to its last rank
+            assigned), steps/s, epoch seconds, allreduce ms p50/p99 and
+            share of the step; the same job on the file's first 32768
+            rows on the card and with ``--device cpu`` — gate: every
+            rank's unrounded epoch losses agree within 1e-5 relative;
+            ``train_csv`` on the HIGGS-shaped CSV (mse falls); the
+            ``allreduce_worker bench 67108864 3`` sweep (tree, ring and
+            hier algbw/busbw, the bucketed-overlap pass's exposed and
+            overlapped seconds, the 16 leaves as CUDA tensors through
+            the GradientBucketer equal to the numpy pass); the repo's
+            ``examples/gbdt_allreduce.c`` built with gcc against the
+            port's ``dmlc_collective`` and run with 4 workers, matching
+            its single-process RMSE.  Beside the numbers: the card's
+            name and power limit, its compute mode, the host's CPU
+            count, the free /dev/shm and the shm group's chunk.  Gates:
+            no launched process and no new ``/dev/shm/dmlc*`` segment
+            left behind
 9. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
             its path (and on the spine's timed steps), max error, times
             and roofline bound
@@ -1765,7 +1790,8 @@ def sparse_phase(smi, rate_doc, spine_first_exact):
     (removed after), fed through ``libsvm_feed`` on both routes, checked
     against the CPU and across routes, then 50 steps of each example's
     loss; the RecordIO routes' MB/s through the native scan beside the
-    numpy route's.
+    numpy route's.  The ``tracker`` phase runs on the same files before
+    they are removed; its line comes back third.
     """
     from dmlc_tpu_torch.feed import libsvm_feed
 
@@ -1818,6 +1844,7 @@ def sparse_phase(smi, rate_doc, spine_first_exact):
         check(routes["csv_classic"]["rows"] == n_csv,
               f"sparse csv: {routes['csv_classic']['rows']} of {n_csv} rows")
         doc["losses"] = sparse_losses(make_svm("libsvm"), make_csv)
+        tracker_doc = tracker_phase(smi, svm, csv)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rec = {"phase": "sparse_recordio", "card": smi,
@@ -1831,7 +1858,242 @@ def sparse_phase(smi, rate_doc, spine_first_exact):
                      "parse_s": rate_doc[name]["stats"]["parse_s"],
                      "consumer_wait_s": rate_doc[name]["stats"]["wait_s"]}
     rec["h2d_pinned_MBps"] = rate_doc["h2d_pinned_MBps"]
-    return doc, rec
+    return doc, rec, tracker_doc
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the tracker, the launcher and the host collectives
+# ---------------------------------------------------------------------------
+
+TRACKER_WORKERS = 4
+GBDT_TOL = 1e-4   # relative: the tree allreduce's fold order vs a local sum
+PARITY_ROWS = 32768   # the head of the Criteo-shaped file, card vs CPU
+PARITY_RTOL = 1e-5    # per-rank epoch losses, card vs --device cpu
+
+
+def _dmlc_shm():
+    return {n for n in os.listdir("/dev/shm") if n.startswith("dmlc")}
+
+
+def _submit(name, argv, timeout, workers=TRACKER_WORKERS):
+    """One ``python -m dmlc_tpu_torch.tracker.submit --cluster local`` job
+    in a session of its own (so a job cut at its timeout is killed whole);
+    its output goes to ``chiprun_out/tracker_<name>.log``.  Fails unless
+    it exits 0 and leaves no process of its session behind."""
+    cmd = [sys.executable, "-m", "dmlc_tpu_torch.tracker.submit",
+           "--cluster", "local", "--num-workers", str(workers),
+           "--max-attempts", "1", "--host-ip", "127.0.0.1", "--", *argv]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+    wall = time.perf_counter() - t0
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"tracker_{name}.log"),
+              "w") as f:
+        f.write(f"$ {' '.join(cmd)}\nexit {proc.returncode}\n"
+                f"--- stdout\n{out}\n--- stderr\n{err}")
+    try:
+        os.killpg(proc.pid, 0)
+        left = True
+    except ProcessLookupError:
+        left = False
+    if left:
+        os.killpg(proc.pid, 9)
+    check(proc.returncode == 0, f"tracker {name}: exit {proc.returncode}: "
+          f"{err[-2000:]}")
+    check(not left, f"tracker {name}: processes left behind")
+    return out, err, wall
+
+
+def _epochs(err, word):
+    """{rank: {epoch: value}} from the examples' epoch lines."""
+    out = {}
+    for m in re.finditer(rf"rank (\d+): epoch (\d+) {word} ([0-9.]+)", err):
+        out.setdefault(int(m.group(1)), {})[int(m.group(2))] = \
+            float(m.group(3))
+    return out
+
+
+def _rendezvous_s(err):
+    """Seconds from the tracker's ``listening`` line to its ``all N
+    workers started`` line (the launcher's log clock): process start,
+    imports and the brokering of every rank."""
+    stamps = {}
+    for key, pat in (("listen", r"INFO tracker listening on"),
+                     ("started", r"INFO @tracker all \d+ workers started")):
+        m = re.search(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) " + pat,
+                      err)
+        check(m is not None, f"tracker log has no {key} line")
+        h, mi, sec = m.group(1).split(" ")[1].replace(",", ".").split(":")
+        stamps[key] = int(h) * 3600 + int(mi) * 60 + float(sec)
+    return (stamps["started"] - stamps["listen"]) % 86400
+
+
+def _finals(err):
+    return {int(m.group(1)): json.loads(m.group(2)) for m in
+            re.finditer(r"final rank (\d+): (\{.*\})", err)}
+
+
+def _job_report(name, err, word, epochs, want_algo):
+    """Gates and numbers of one distributed example run."""
+    per = _epochs(err, word)
+    fin = _finals(err)
+    check(sorted(per) == list(range(TRACKER_WORKERS))
+          and all(sorted(v) == list(range(epochs)) for v in per.values()),
+          f"tracker {name}: epoch lines {per}")
+    check(sorted(fin) == list(range(TRACKER_WORKERS)),
+          f"tracker {name}: final lines for ranks {sorted(fin)}")
+    mean = [sum(per[r][e] for r in per) / len(per) for e in range(epochs)]
+    check(mean[-1] < mean[0], f"tracker {name}: mean epoch {word} did not "
+          f"fall: {mean}")
+    shas = {f["sha256"] for f in fin.values()}
+    check(len(shas) == 1, f"tracker {name}: final weights differ across "
+          f"ranks: {shas}")
+    for r, f in fin.items():
+        check(f["allreduce_algos"] == {want_algo: epochs * f["steps"]},
+              f"tracker {name}: rank {r}'s gradient allreduces ran on "
+              f"{f['allreduce_algos']}, not all on {want_algo}")
+    steps = fin[0]["steps"]
+    return {"epoch_" + word: mean, "per_rank": per, "steps": steps,
+            "rendezvous_s": _rendezvous_s(err),
+            "epoch_s": {r: f["epoch_s"] for r, f in fin.items()},
+            "steps_per_s": {r: epochs * steps / sum(f["epoch_s"])
+                            for r, f in fin.items()},
+            "allreduce_algos": fin[0]["allreduce_algos"],
+            "allreduce_ms_p50": {r: f["allreduce_ms_p50"]
+                                 for r, f in fin.items()},
+            "allreduce_ms_p99": {r: f["allreduce_ms_p99"]
+                                 for r, f in fin.items()},
+            "step_ms_p50": {r: f["step_ms_p50"] for r, f in fin.items()},
+            "allreduce_share": {r: f["allreduce_share"]
+                                for r, f in fin.items()},
+            "sha256": shas.pop()}
+
+
+def _libsvm_parity(svm):
+    """The same 4-worker ``train_libsvm`` job on the head of the
+    Criteo-shaped file, once on the card and once with ``--device cpu``:
+    every rank's unrounded epoch losses agree within ``PARITY_RTOL``, so
+    the card's gradient (the int64 gather and its backward) is the
+    CPU's, not only one that lowers the loss."""
+    head = svm + f".head{PARITY_ROWS}"
+    with open(svm, "rb") as f, open(head, "wb") as g:
+        g.writelines(itertools.islice(f, PARITY_ROWS))
+    argv = [sys.executable, "-m", "dmlc_tpu_torch.examples.train_libsvm",
+            head, "2"]
+    try:
+        card = _finals(_submit("libsvm_head", argv, 300)[1])
+        plain = _finals(_submit("libsvm_head_cpu", argv + ["--device", "cpu"],
+                                300)[1])
+    finally:
+        os.unlink(head)
+    ranks = list(range(TRACKER_WORKERS))
+    check(sorted(card) == sorted(plain) == ranks
+          and all(len(card[r]["losses"]) == len(plain[r]["losses"]) == 2
+                  for r in ranks),
+          f"tracker libsvm parity: final lines {card} vs {plain}")
+    rel = max(abs(a - b) / abs(b) for r in ranks
+              for a, b in zip(card[r]["losses"], plain[r]["losses"]))
+    check(rel <= PARITY_RTOL, f"tracker libsvm parity: card losses "
+          f"{[card[r]['losses'] for r in ranks]} vs CPU "
+          f"{[plain[r]['losses'] for r in ranks]} (max rel {rel})")
+    return {"rows": PARITY_ROWS, "epochs": 2, "rtol": PARITY_RTOL,
+            "max_rel_diff": rel,
+            "losses_card": {r: card[r]["losses"] for r in ranks},
+            "losses_cpu": {r: plain[r]["losses"] for r in ranks},
+            "allreduce_algos_card": card[0]["allreduce_algos"]}
+
+
+def _gbdt(exe, workers):
+    out, _, wall = _submit(f"gbdt_{workers}", [exe], 180, workers=workers)
+    line = next((ln for ln in out.splitlines()
+                 if ln.startswith("gbdt rmse=")), None)
+    check(line is not None, f"gbdt with {workers} workers printed no rmse")
+    return float(line.split("rmse=")[1].split()[0]), wall
+
+
+def tracker_phase(smi, svm, csv):
+    """4-worker jobs through the port's launcher: the distributed LibSVM
+    and CSV examples on the card, the host-collective bench, and the C
+    ABI's GBDT consumer (see the module docstring's ``tracker`` entry)."""
+    from dmlc_tpu_torch.native import shm_collective as shmc
+
+    shm_before = _dmlc_shm()
+    shm_free = shutil.disk_usage("/dev/shm").free
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip()
+    # the hier group's chunk, by the C source's rule: the 4 MB default
+    # capped at half the free /dev/shm over 2 slots a rank, floor 64 KB
+    chunk = max(64 << 10, min(4 << 20, (shm_free // 2 // (TRACKER_WORKERS
+                                                          * 2)) & ~7))
+    doc = {"phase": "tracker", "card": smi, "compute_mode": mode,
+           "host_cpus": os.cpu_count(), "workers": TRACKER_WORKERS,
+           "dev_shm_free_bytes": shm_free, "shm_group_chunk_bytes": chunk}
+
+    _, err, wall = _submit("libsvm", [sys.executable, "-m",
+                                      "dmlc_tpu_torch.examples.train_libsvm",
+                                      svm, "2"], 600)
+    doc["libsvm"] = {"launcher_wall_s": wall, **_job_report(
+        "libsvm", err, "loss", 2, "hier")}
+    doc["libsvm_vs_cpu"] = _libsvm_parity(svm)
+    _, err, wall = _submit("csv", [sys.executable, "-m",
+                                   "dmlc_tpu_torch.examples.train_csv",
+                                   csv, "2"], 300)
+    doc["csv"] = {"launcher_wall_s": wall, **_job_report(
+        "csv", err, "mse", 2, "tree")}
+
+    out, _, wall = _submit("bench", [
+        sys.executable, "-m", "dmlc_tpu_torch.examples.allreduce_worker",
+        "bench",
+        str(64 << 20), "3"], 300)
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    sweep = [d for d in lines if d["op"].startswith("host_allreduce_")
+             and "algbw_MBps" in d]
+    check(sorted({d["op"] for d in sweep}) == [
+        "host_allreduce_hier", "host_allreduce_ring", "host_allreduce_tree"]
+        and len(sweep) == 9, f"tracker bench: sweep lines {sweep}")
+    tensors = next((d for d in lines
+                    if d["op"] == "host_allreduce_overlap_tensors"), None)
+    check(tensors is not None and tensors["equal_to_numpy"]
+          and tensors["device"].startswith("cuda"),
+          f"tracker bench: CUDA leaves through the bucketer: {tensors}")
+    doc["bench"] = {"launcher_wall_s": wall, "sweep": sweep,
+                    "overlap": next(d for d in lines
+                                    if d["op"] == "host_allreduce_overlap"),
+                    "cuda_leaves": tensors}
+
+    lib = shmc.build()
+    exe = os.path.join(ROOT, "build", "gbdt_allreduce")
+    res = subprocess.run(
+        ["gcc", "-O2", "-std=c99", "-I", str(shmc.CSRC),
+         os.path.join(ROOT, "examples", "gbdt_allreduce.c"), str(lib),
+         "-o", exe, "-lm", "-lrt", f"-Wl,-rpath,{lib.parent}"],
+        capture_output=True, text=True, timeout=120)
+    check(res.returncode == 0, f"gcc gbdt_allreduce.c: {res.stderr}")
+    try:
+        single, _ = _gbdt(exe, 1)
+        multi, wall = _gbdt(exe, TRACKER_WORKERS)
+    finally:
+        os.unlink(exe)
+    check(single < 0.3 and abs(multi - single) <= GBDT_TOL * single,
+          f"gbdt: {TRACKER_WORKERS}-worker rmse {multi} vs single {single}")
+    doc["gbdt"] = {"rmse_single": single, "rmse_4": multi,
+                   "launcher_wall_s": wall, "tol_rel": GBDT_TOL}
+
+    left = sorted(_dmlc_shm() - shm_before)
+    check(not left, f"tracker: /dev/shm segments left behind: {left}")
+    doc["dev_shm_left"] = left
+    return doc
 
 
 def main() -> int:
@@ -1934,7 +2196,8 @@ def main() -> int:
         emit(doc)
     spine_launches = spine_docs[0]["launches"]
 
-    # 8. the sparse text path: LibSVM and CSV through libsvm_feed
+    # 8. the sparse text path: LibSVM and CSV through libsvm_feed; then
+    # the tracker phase's 4-worker jobs on the same files
     for doc in sparse_phase(smi, spine_docs[2],
                             spine_docs[0]["first_batch_byte_exact"]):
         emit(doc)

@@ -26,5 +26,13 @@ and ``serving.loadgen``), with the JAX package's metric names; and
 dmlc-core's sparse text path: the LibSVM, CSV and libfm parsers
 (``data``) over the input splits (text, RecordIO, indexed, stdin,
 ``#cachefile``) into ``feed.libsvm_feed``, on a host C++ core
-(``native``) shared with the RecordIO feed's scan and packs.
+(``native``) shared with the RecordIO feed's scan and packs; and
+dmlc-core's communication bootstrap: the rank-rendezvous tracker and the
+job launcher (``tracker``; ``python -m dmlc_tpu_torch.tracker.submit``),
+the host collectives (tree, chunked ring, and hierarchical over the C++
+shm group of ``native/csrc/dmlc_collective.cc``), the gradient bucketer
+(``parallel.overlap``), retry and fault injection (``resilience``), and
+the distributed LibSVM/CSV examples training on the card.
 """
+
+__version__ = "0.1.0"

@@ -46,15 +46,20 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> Path:
+def library_path(sources: Sequence[Path] = SOURCES,
+                 libs: Sequence[str] = ()) -> Path:
+    """The library built from ``sources`` (and the headers among them)
+    with ``CXX_FLAGS`` and ``libs``, named after the last source and a
+    hash of every file and flag."""
     h = hashlib.sha256()
-    for s in SOURCES:
+    for s in sources:
         h.update(s.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"{SOURCES[-1].stem}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join([*CXX_FLAGS, *libs]).encode())
+    return BUILD_DIR / f"{sources[-1].stem}-{h.hexdigest()[:16]}.so"
 
 
-def _build(sources: Union[Path, Sequence[Path]], lib: Path) -> None:
+def _build(sources: Union[Path, Sequence[Path]], lib: Path,
+           libs: Sequence[str] = ()) -> None:
     """Compile under a per-process name and rename into place, so a
     concurrent builder never loads a half-written library."""
     srcs = [sources] if isinstance(sources, Path) else list(sources)
@@ -63,8 +68,8 @@ def _build(sources: Union[Path, Sequence[Path]], lib: Path) -> None:
     names = ", ".join(s.name for s in srcs)
     try:
         res = subprocess.run(["g++", *CXX_FLAGS, *map(str, srcs), "-o",
-                              str(tmp)], capture_output=True, text=True,
-                             timeout=300)
+                              str(tmp), *libs], capture_output=True,
+                             text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as exc:
         raise DMLCError(f"g++ could not build {names}: {exc}") from exc
     if res.returncode != 0:

@@ -19,11 +19,16 @@ generator read either package).
                      multi-window burn rates behind /slo
   * ``goodput``      the serving availability ledger
   * ``tracecontext`` the X-DMLC-Trace header helpers
+  * ``heartbeat``    worker heartbeats over the rendezvous protocol,
+                     the tracker-side aggregator (/metrics, /healthz,
+                     straggler flags) and its HTTP server
+  * ``clock``        NTP-style per-rank clock-offset estimation
+  * ``postmortem``   crash dumps (snapshot + open/last spans + event
+                     tail) that the launcher collects after a failure
 
 Left for later (ROADMAP.md Queue 1 item 9): ``compute`` (cost analysis
-and memory samples), the job goodput ledger, heartbeats, the anomaly
-watchdog, the flight recorder, forensics, postmortems, the clock
-estimator, the decision log and the fleet trace store.
+and memory samples), the job goodput ledger, the anomaly watchdog, the
+flight recorder, forensics, the decision log and the fleet trace store.
 
 Typical use::
 
@@ -36,15 +41,19 @@ Typical use::
 """
 
 from . import (  # noqa: F401
+    clock,
     core,
     events,
     exporters,
     goodput,
+    heartbeat,
+    postmortem,
     requests,
     slo,
     steps,
     tracecontext,
 )
+from .clock import ClockOffsetEstimator, offset_from_timestamps  # noqa: F401
 from .core import (  # noqa: F401
     DEFAULT_BOUNDS,
     Histogram,
@@ -77,6 +86,11 @@ from .exporters import (  # noqa: F401
     to_prometheus_text,
 )
 from .goodput import AvailabilityLedger  # noqa: F401
+from .heartbeat import (  # noqa: F401
+    HeartbeatSender,
+    TelemetryAggregator,
+    TelemetryHTTPServer,
+)
 from .requests import RequestLedger  # noqa: F401
 from .slo import SLOMonitor  # noqa: F401
 from .steps import (  # noqa: F401
@@ -94,11 +108,15 @@ from .steps import (  # noqa: F401
 
 __all__ = [
     "AvailabilityLedger",
+    "ClockOffsetEstimator",
     "DEFAULT_BOUNDS",
+    "HeartbeatSender",
     "Histogram",
     "RequestLedger",
     "SLOMonitor",
     "StepLedger",
+    "TelemetryAggregator",
+    "TelemetryHTTPServer",
     "anchor_epoch",
     "annotate",
     "counters_snapshot",
@@ -113,6 +131,7 @@ __all__ = [
     "ledger",
     "observe",
     "observe_duration",
+    "offset_from_timestamps",
     "open_spans",
     "record_event",
     "record_span",
