@@ -70,6 +70,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
             shard's payload MB/s into HBM on three routes (each route's
             first batch on the card equal to the CPU's) beside the pinned
             H2D rate at the same transfer size
+   options  the flagship's model options (the dense serving model freed
+            first): ``save_flash_mlp`` — the dense flagship train step
+            at B=8 x T=1024 under save_flash and save_flash_mlp, two
+            models from one seed stepped in ABBA order (6 pairs) on one
+            batch: losses equal step by step, step ms, peak memory above
+            the train state, device ms and calls of the in/gate products
+            (torch.profiler); ``moe_serve`` — the routed flagship (top-2
+            of 8 experts, capacity factor 1.25, 5.2B params, bf16)
+            behind the HTTP server: 8 requests at spec_k 0 and 8 at
+            spec_k 3, K1 and K4 launch counts zeroed just before, then a
+            pass with ``moe_debug_overflow`` for the dropped-choice
+            fraction; ``moe_train`` — 4 AdamW steps of it at B=8 x
+            T=1024 through ``make_train_step(grad_norm=True)``: losses
+            finite and falling, finite norms, 16 launches of each of
+            K1-K3 a step; step ms, peak memory, executed against the
+            ledger's FLOPs, and device time by category of a routed
+            prefill, decode step and train step; ``moe_check`` — it at
+            depth 2 in float32, kernels against plain versions: the
+            (token, choice) routes agree (>= 0.999), logits and
+            gradients on the agreeing tokens within 1e-4; ``selfheal`` —
+            the port's LM trainer on the card from a ``make_data`` shard
+            under ``build/selfheal`` (removed after): an oracle run of 30
+            steps (commits every 20), a faulted run (3 poisoned steps at
+            step 21: 2 skips, a rollback, the replay) equal to it, a run
+            with one transient skip and a drift run (that skip, then a
+            rollback) equal to it, having replayed the 21 batches
+            snapshotted at the commit; the ``dmlc_selfheal_*`` counters
    telemetry  the port's ``LoadGenerator`` drives the port's server (the
             flagship, spec_k=3, seed 0): 8 streams x 2 requests, prompts
             of 17..511 tokens, 32 new tokens; gates: /metrics parses as
@@ -130,8 +157,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
             no launched process and no new ``/dev/shm/dmlc*`` segment
             left behind
 9. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
-            its path (and on the spine's timed steps), max error, times
-            and roofline bound
+            its path (and on the spine's timed steps, and in
+            ``path_launches`` on the routed serving and train paths and
+            the self-heal runs), max error, times and roofline bound
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits with code 2 and prints no result.  Details go to
@@ -2096,6 +2124,435 @@ def tracker_phase(smi, svm, csv):
     return doc
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the flagship's model options — save_flash_mlp, routed top-k MoE
+# (serving, training, the float32 check) and the self-healing trainer
+# ---------------------------------------------------------------------------
+
+MOE_EXPERTS, MOE_TOPK, MOE_CF = 8, 2, 1.25   # top-2 of 8 (GShard, Mixtral)
+MOE_TRAIN_STEPS = 4
+ROUTE_AGREE_MIN = 0.999   # f32 (token, choice) routes, kernels vs plain
+MLP_AB_PAIRS = 6
+SELFHEAL_STEPS = 30
+SELFHEAL_RTOL = 1e-6      # where a trajectory is not bit-equal
+
+
+def moe_config(cfg):
+    """The flagship's widths and depth with top-2-of-8 routed experts at a
+    capacity factor of 1.25."""
+    return dataclasses.replace(cfg, n_experts=MOE_EXPERTS, moe_topk=MOE_TOPK,
+                               moe_capacity_factor=MOE_CF)
+
+
+def moe_capacity(cfg, n):
+    """Slots an expert has for ``n`` routed tokens (``topk_ffn``'s rule)."""
+    return max(int(-(-(cfg.moe_topk * n * cfg.moe_capacity_factor)
+                     // cfg.n_experts)), 1)
+
+
+def executed_flops_per_token(cfg, b, t):
+    """Matmul FLOPs a token of a routed train step executes: the ledger's
+    formula (``train_flops_per_token``, which counts every expert) with
+    the expert term at the X·C slots the experts run for B·T tokens, and
+    the gate's product."""
+    e, hd, f, x = (cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff,
+                   cfg.n_experts)
+    n = b * t
+    per_layer = (2 * 4 * e * hd + 2 * t * hd
+                 + 2 * 3 * e * f * x * moe_capacity(cfg, n) / n + 2 * e * x)
+    return 3.0 * (cfg.n_layers * per_layer + 2 * e * cfg.vocab)
+
+
+def mlp_products(fn, cfg, n_tok):
+    """Device ms and calls of the products of the in/gate products' shape
+    (``aten::mm`` of ``[n_tok, E] @ [E, F]``) in one call of ``fn``: the
+    forward's, any recomputation's, and the w_out backward's ``dh``,
+    which has the same shape (L of them).  An ``aten::mm`` under another
+    is the selective checkpoint's dispatch mode re-dispatching the same
+    call, and is not counted again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    want = [[n_tok, cfg.d_model], [cfg.d_model, cfg.d_ff]]
+    ms, calls = 0.0, 0
+    def nested(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == "aten::mm":
+                return True
+            p = p.cpu_parent
+        return False
+
+    for e in prof.events():
+        if (e.name == "aten::mm" and not nested(e)
+                and [list(s) for s in e.input_shapes[:2]] == want):
+            ms += e.device_time_total / 1e3
+            calls += 1
+    return ms, calls
+
+
+def save_flash_mlp_phase(tfm, cfg):
+    """The dense flagship train step at B=8 x T=1024 under ``save_flash``
+    (A) and ``save_flash_mlp`` (B): two models from one seed, stepped in
+    ABBA order on one batch, so their losses must stay equal step by
+    step.  Each step's wall (synchronised), its peak memory above what
+    was allocated before it, and, from one profiled step each, the device
+    ms and calls of the in/gate products."""
+    ids, labels = train_batch(cfg, TRAIN_B, TRAIN_T, 5)
+    steps = {}
+    for pol in ("save_flash", "save_flash_mlp"):
+        m = tfm.init_params(dataclasses.replace(cfg, remat_policy=pol),
+                            torch.Generator("cuda").manual_seed(0), "cuda")
+        steps[pol] = tfm.make_train_step(m, tfm.adamw(m.parameters(), 1e-4),
+                                         ledger=False)
+    walls = {pol: [] for pol in steps}
+    peaks = {pol: [] for pol in steps}
+    losses = {pol: [] for pol in steps}
+    order = ["save_flash", "save_flash_mlp"]
+    for i in range(2 * MLP_AB_PAIRS):
+        pol = order[0] if i % 4 in (0, 3) else order[1]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = steps[pol](ids, labels)
+        torch.cuda.synchronize()
+        walls[pol].append(time.perf_counter() - t0)
+        peaks[pol].append(torch.cuda.max_memory_allocated() - base)
+        losses[pol].append(loss.item())
+    mm = {pol: mlp_products(lambda: steps[pol](ids, labels), cfg,
+                            TRAIN_B * TRAIN_T) for pol in order}
+    a, b = losses[order[0]], losses[order[1]]
+    check(all(math.isfinite(x) for x in a + b), f"losses {losses}")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    check(rel <= 1e-6, f"save_flash_mlp losses {b} vs save_flash {a}")
+    doc = {"phase": "save_flash_mlp", "model": "flagship", "B": TRAIN_B,
+           "T": TRAIN_T, "pairs": MLP_AB_PAIRS, "losses": losses,
+           "losses_bit_equal": a == b, "loss_max_rel_diff": rel}
+    # each model's first step also allocates its AdamW moments
+    for pol in order:
+        doc[pol] = {"step_ms_p50": median(walls[pol][1:]) * 1e3,
+                    "step_ms": [w * 1e3 for w in walls[pol]],
+                    "step_peak_bytes_above_state_p50":
+                        median(peaks[pol][1:]),
+                    "step_peak_bytes_above_state": peaks[pol],
+                    "in_gate_mm_device_ms": mm[pol][0],
+                    "in_gate_mm_calls": mm[pol][1]}
+    del steps
+    return doc
+
+
+def moe_serve_phase(serving, fa, pa, tele, model, prompts, looping):
+    """The routed flagship through the engine behind its HTTP server (K1
+    prefill, K4 decode): after a one-request warm-up, the 8 requests with
+    spec_k 0 and the 8 looping ones with spec_k 3, the launch counts
+    zeroed just before and read just after; then a third pass with
+    ``moe_debug_overflow`` on for the dropped-choice fraction (that pass
+    syncs once a routed call)."""
+    serve_batch(serving, model, [prompts[0][:17]], 0)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    fa.FLASH_FWD.launches = 0
+    pa.PAGED_ATTENTION.launches = 0
+    plain = serve_batch(serving, model, prompts, 0)
+    spec = serve_batch(serving, model, looping, 3)
+    launches = {"flash_fwd": fa.FLASH_FWD.launches,
+                "paged_attention": pa.PAGED_ATTENTION.launches}
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the routed serving path never launched: {launches}")
+    cfg = model.cfg
+    before = [tele.core.counter_value("moe", n) for n in
+              ("overflow_checks", "overflow_fraction_sum")]
+    model.cfg = dataclasses.replace(cfg, moe_debug_overflow=True)
+    try:
+        over = serve_batch(serving, model, prompts, 0)
+    finally:
+        model.cfg = cfg
+    checks, frac_sum = [tele.core.counter_value("moe", n) - b0 for n, b0 in
+                        zip(("overflow_checks", "overflow_fraction_sum"),
+                            before)]
+    check(checks > 0, "moe_debug_overflow recorded nothing")
+    return {"phase": "moe_serve", "model": "flagship_moe_8x2",
+            "plain": plain, "spec": spec, "launches": launches,
+            "overflow_pass": {"tokens_per_s": over["tokens_per_s"],
+                              "ttft_p50_s": over["ttft_p50_s"],
+                              "overflow_checks": checks,
+                              "overflow_fraction": frac_sum / checks},
+            "peak_bytes": torch.cuda.max_memory_allocated()}, launches
+
+
+def moe_train_phase(tfm, fa, tele, model):
+    """4 AdamW steps of the routed flagship at B=8 x T=1024 through
+    ``make_train_step(..., grad_norm=True)`` on one batch, launch counts
+    zeroed just before: losses finite and falling, every norm finite,
+    16 launches of each of K1, K2 and K3 a step; step walls, peak
+    memory, the ledger's MFU and executed against ledger FLOPs."""
+    cfg = model.cfg
+    tele.reset_steps()
+    opt = tfm.adamw(model.parameters(), 1e-4)
+    step = tfm.make_train_step(model, opt, grad_norm=True)
+    ids, labels = train_batch(cfg, TRAIN_B, TRAIN_T, 6)
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
+               "flash_bwd_dq": fa.FLASH_BWD_DQ}
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels.values():
+        kern.launches = 0
+    walls, losses, norms, per_step = [], [], [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        before = [kern.launches for kern in kernels.values()]
+        t0 = time.perf_counter()
+        loss, gnorm = step(ids, labels)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        norms.append(gnorm.item())
+        per_step.append([kern.launches - n0
+                         for kern, n0 in zip(kernels.values(), before)])
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"routed losses {losses}, norms {norms}")
+    check(losses[-1] < losses[0], f"routed loss did not fall: {losses}")
+    check(all(n == [cfg.n_layers] * 3 for n in per_step),
+          f"routed launches per step {per_step}")
+    recs = tele.ledger().records()[-MOE_TRAIN_STEPS:]
+    peak_bytes = torch.cuda.max_memory_allocated()
+    # device time by category: a routed prefill, decode step, train step
+    prof = profile_phase(tfm, model, cfg, {"train": lambda: step(ids,
+                                                                 labels)})
+    ledger_fpt = tfm.train_flops_per_token(cfg, TRAIN_T)
+    exec_fpt = executed_flops_per_token(cfg, TRAIN_B, TRAIN_T)
+    wall = median(walls[1:])
+    tok_s = TRAIN_B * TRAIN_T / wall
+    peak = PEAK_FLOPS[torch.bfloat16]
+    del opt, step
+    return {"phase": "moe_train", "model": "flagship_moe_8x2",
+            "params": tfm.count_params(cfg), "B": TRAIN_B, "T": TRAIN_T,
+            "capacity": moe_capacity(cfg, TRAIN_B * TRAIN_T),
+            "lr": 1e-4, "losses": losses, "grad_norms": norms,
+            "launches_per_step": dict(zip(kernels, per_step[0])),
+            "step_ms_p50": wall * 1e3, "step_ms": [w * 1e3 for w in walls],
+            "tokens_per_s": tok_s, "peak_bytes": peak_bytes,
+            "ledger_flops_per_token": ledger_fpt,
+            "executed_flops_per_token": exec_fpt,
+            "ledger_mfu": pctl([r["mfu"] for r in recs], 50),
+            "mfu_executed": exec_fpt * tok_s / peak,
+            "mfu_ledger_formula": ledger_fpt * tok_s / peak,
+            "profile": {k: v for k, v in prof.items() if k != "phase"}
+            }, launches
+
+
+def moe_check_phase(tfm, cfg):
+    """The routed flagship at depth 2 in float32 on the card (B=2,
+    T=1024), kernels against plain versions: the (token, choice) routes
+    of every layer agree (each layer's gate top-k recorded on both
+    paths), and on the tokens whose routes agree in every layer the
+    logits and every gradient of the mean loss over them hold within
+    the gradient check's tolerance.  In bf16 one rounding can flip a
+    top-k choice, so the check runs in float32."""
+    from dmlc_tpu_torch.ops.core import embed_lookup, rms_norm, softmax_xent
+
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    model = tfm.init_params(cfg32, torch.Generator("cuda").manual_seed(7),
+                            "cuda")
+    ids, labels = train_batch(cfg32, 2, TRAIN_T, 8)
+    positions = torch.arange(TRAIN_T, device="cuda")
+
+    def forward(impl):
+        routes = []
+        for layer in model.layers:
+            def record(x, c, route_tokens=None, layer=layer):
+                probs = torch.softmax(
+                    (x.reshape(-1, x.shape[-1]) @ layer.gate).float(), -1)
+                routes.append(torch.topk(probs, c.moe_topk, dim=-1)
+                              .indices.sort(dim=-1).values)
+                return type(layer).moe_ffn(layer, x, c, route_tokens)
+            layer.moe_ffn = record
+        try:
+            x = embed_lookup(model.embed, ids)
+            for layer in model.layers:
+                x = layer(x, positions, cfg32, impl)
+        finally:
+            for layer in model.layers:
+                del layer.moe_ffn
+        return rms_norm(x, model.ln_f) @ model.unembed, routes
+
+    out = {impl: forward(impl) for impl in (None, "torch")}
+    same = torch.stack([a == b for a, b in zip(out[None][1],
+                                               out["torch"][1])])
+    agree = same.float().mean().item()
+    mask = same.all(dim=-1).all(dim=0).reshape(ids.shape)   # [B, T]
+    check(agree >= ROUTE_AGREE_MIN, f"f32 routes agree {agree}")
+
+    def grads(logits):
+        model.zero_grad(set_to_none=True)
+        xent = softmax_xent(logits, labels)
+        (xent * mask).sum().div(mask.sum()).backward()
+        return [p.grad.float().clone() for p in model.parameters()]
+
+    g = {impl: grads(out[impl][0]) for impl in out}
+    rows = mask.reshape(-1)
+    lk = out[None][0].detach().reshape(-1, cfg32.vocab)[rows]
+    lp = out["torch"][0].detach().reshape(-1, cfg32.vocab)[rows]
+    grad_err = max(rel_norm(a, b) if b.norm() > 0 else a.norm().item()
+                   for a, b in zip(g[None], g["torch"]))
+    doc = {"phase": "moe_check", "n_layers": 2, "dtype": "float32", "B": 2,
+           "T": TRAIN_T, "route_agreement": agree,
+           "tokens_agreeing": int(mask.sum()), "tokens": mask.numel(),
+           "logits_rel_err": rel_norm(lk, lp), "grad_rel_err": grad_err,
+           "tol": TRAIN_GRAD_TOL}
+    check(doc["logits_rel_err"] <= TRAIN_GRAD_TOL,
+          f"routed logits rel err {doc['logits_rel_err']}")
+    check(grad_err <= TRAIN_GRAD_TOL, f"routed grads rel err {grad_err}")
+    del model, out, g
+    return doc
+
+
+def _same_trajectory(got, want):
+    """``(bit_equal, max relative difference)`` of two loss lists."""
+    if len(got) != len(want):
+        return False, math.inf
+    rel = max((abs(a - b) / abs(b) for a, b in zip(got, want)), default=0.0)
+    return got == want, rel
+
+
+def selfheal_phase(fa):
+    """The port's trainer (``examples/train_lm_recordio.run``, its example
+    model in bf16) on the card from a shard ``make_data`` writes under
+    ``build/selfheal`` (removed after), 30 steps with commits every 20,
+    ``DMLC_SELFHEAL_MAX_SKIPS=2`` (the integrity smoke's phase B): an
+    oracle run; a faulted run (3 poisoned steps at step 21: 2 skips, a
+    rollback to step 20, the replay) equal to the oracle; a run with
+    one transient skip at step 15, and a drift run with it and 3
+    poisoned steps at step 25, whose rollback replays the 21 batches
+    snapshotted at the step-20 commit and so equals the transient run.
+    Trajectories are held bit-equal where they are, else within 1e-6
+    relative; the ``dmlc_selfheal_*`` counters are read per run."""
+    from dmlc_tpu_torch import telemetry as tele
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+    from dmlc_tpu_torch.resilience import (install_injector, reset_injector,
+                                           reset_selfheal)
+    import contextlib
+    import io
+
+    root = os.path.join(ROOT, "build", "selfheal")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    data = os.path.join(root, "d.rec")
+    ex.make_data(data)
+    names = ("skips", "rollbacks", "nonfinite_steps")
+    kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ)
+    os.environ["DMLC_SELFHEAL_MAX_SKIPS"] = "2"
+
+    def run(tag, spec):
+        reset_injector()
+        reset_selfheal()
+        if spec:
+            install_injector(spec)
+        c0 = [tele.core.counter_value("selfheal", n) for n in names]
+        k0 = [k.launches for k in kernels]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                losses = ex.run(data, SELFHEAL_STEPS,
+                                os.path.join(root, f"ck_{tag}"),
+                                device="cuda")
+        finally:
+            reset_injector()
+        return {"losses": losses, "out": buf.getvalue(),
+                "wall_s": time.perf_counter() - t0,
+                "counters": {n: tele.core.counter_value("selfheal", n) - c
+                             for n, c in zip(names, c0)},
+                "launches": [k.launches - n for k, n in zip(kernels, k0)]}
+
+    try:
+        runs = {"oracle": run("oracle", None),
+                "faulted": run("faulted",
+                               "selfheal.loss@step:21=corrupt::3"),
+                "transient": run("transient",
+                                 "selfheal.loss@step:15=corrupt::1"),
+                "drift": run("drift", "selfheal.loss@step:15=corrupt::1;"
+                                      "selfheal.loss@step:25=corrupt::3")}
+    finally:
+        os.environ.pop("DMLC_SELFHEAL_MAX_SKIPS", None)
+        shutil.rmtree(root, ignore_errors=True)
+    o, f, t, d = (runs[k] for k in ("oracle", "faulted", "transient",
+                                    "drift"))
+    check(len(o["losses"]) == SELFHEAL_STEPS
+          and all(math.isfinite(x) for x in o["losses"])
+          and o["losses"][-1] < o["losses"][0],
+          f"oracle losses {o['losses']}")
+    check("rolled back to committed step 20; replaying 20 batches"
+          in f["out"], f"faulted run: {f['out'][-2000:]}")
+    check("rolled back to committed step 20; replaying 21 batches"
+          in d["out"], f"drift run: {d['out'][-2000:]}")
+    want = {"faulted": {"skips": 2, "rollbacks": 1, "nonfinite_steps": 3},
+            "transient": {"skips": 1, "rollbacks": 0, "nonfinite_steps": 1},
+            "drift": {"skips": 3, "rollbacks": 1, "nonfinite_steps": 4}}
+    for tag, counts in want.items():
+        check(runs[tag]["counters"] == counts,
+              f"{tag} counters {runs[tag]['counters']}, want {counts}")
+    doc = {"phase": "selfheal", "steps": SELFHEAL_STEPS,
+           "oracle_losses": o["losses"]}
+    for tag, ref in (("faulted", o), ("drift", t)):
+        bits, rel = _same_trajectory(runs[tag]["losses"], ref["losses"])
+        check(bits or rel <= SELFHEAL_RTOL,
+              f"{tag} trajectory off by {rel}: {runs[tag]['losses']}")
+        doc[f"{tag}_bit_equal"] = bits
+        doc[f"{tag}_max_rel_diff"] = rel
+    for tag, r in runs.items():
+        check(all(n > 0 for n in r["launches"]),
+              f"{tag}: K1-K3 launches {r['launches']}")
+        doc[tag] = {"wall_s": r["wall_s"], "counters": r["counters"],
+                    "launches": dict(zip(("flash_fwd", "flash_bwd_dkv",
+                                          "flash_bwd_dq"), r["launches"]))}
+    launches = {name: sum(r["launches"][i] for r in runs.values())
+                for i, name in enumerate(("flash_fwd", "flash_bwd_dkv",
+                                          "flash_bwd_dq"))}
+    return doc, launches
+
+
+def model_options_phase(tfm, serving, fa, pa, tele, cfg, prompts, looping):
+    """Phase 9 in order, each model freed before the next: the
+    save_flash_mlp A/B on the dense flagship, the routed flagship served
+    and trained, its float32 check at depth 2, the self-heal runs.
+    Returns the routed and self-heal paths' launches."""
+    emit(save_flash_mlp_phase(tfm, cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = moe_config(cfg)
+    t0 = time.perf_counter()
+    model = tfm.init_params(mcfg, torch.Generator("cuda").manual_seed(0),
+                            "cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "moe_model", "model": "flagship_moe_8x2",
+          "params": tfm.count_params(mcfg),
+          "bytes": sum(p.numel() * p.element_size()
+                       for p in model.parameters()),
+          "init_s": time.perf_counter() - t0, "n_experts": mcfg.n_experts,
+          "moe_topk": mcfg.moe_topk,
+          "moe_capacity_factor": mcfg.moe_capacity_factor})
+    serve_doc, serve_launches = moe_serve_phase(serving, fa, pa, tele, model,
+                                                prompts, looping)
+    emit(serve_doc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_doc, train_launches = moe_train_phase(tfm, fa, tele, model)
+    emit(train_doc)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(moe_check_phase(tfm, mcfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    heal_doc, heal_launches = selfheal_phase(fa)
+    emit(heal_doc)
+    return {"moe_serve": serve_launches, "moe_train": train_launches,
+            "selfheal": heal_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -2196,6 +2653,15 @@ def main() -> int:
         emit(doc)
     spine_launches = spine_docs[0]["launches"]
 
+    # 7b. the model options: save_flash_mlp, routed top-k MoE (served,
+    # trained, checked in f32), the self-healing trainer; the dense
+    # serving model is freed first (the routed train state takes ~50 GB)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    option_launches = model_options_phase(tfm, serving, fa, pa, tele, cfg,
+                                          prompts, looping)
+
     # 8. the sparse text path: LibSVM and CSV through libsvm_feed; then
     # the tracker phase's 4-worker jobs on the same files
     for doc in sparse_phase(smi, spine_docs[2],
@@ -2204,7 +2670,9 @@ def main() -> int:
     emit({"phase": "telemetry", "card": smi, **TELEMETRY})
 
     # 9. the kernels line: each kernel's launches on its own path (K1 and
-    # K4 serving, K2 and K3 training; K1 also runs 16 times per train step)
+    # K4 serving, K2 and K3 training; K1 also runs 16 times per train
+    # step), and on the spine's, the routed flagship's and the self-heal
+    # runs' paths, each counted from 0 just before it
     kernels = []
     for kname, src, replaces, row, err, path, counts in (
             ("flash_fwd", "dmlc_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -2225,6 +2693,9 @@ def main() -> int:
                         "replaces": replaces, "path": path,
                         "launches": counts[kname],
                         "spine_launches": spine_launches.get(kname, 0),
+                        "path_launches": {
+                            path_name: counts_.get(kname, 0)
+                            for path_name, counts_ in option_launches.items()},
                         "max_abs_err": err, "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

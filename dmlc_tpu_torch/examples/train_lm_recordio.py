@@ -1,7 +1,8 @@
 """Train the transformer LM from RecordIO token shards: the data spine of
 the port in one module (the port of ``examples/train_lm_recordio.py``,
 its non-elastic loop) — input split → device feed → model → checkpoint
-and resume.
+and resume, with the self-healing guard (``resilience.selfheal``) on
+every step.
 
     python -m dmlc_tpu_torch.examples.train_lm_recordio --make-data out.rec
     python -m dmlc_tpu_torch.examples.train_lm_recordio out.rec [steps] \\
@@ -13,7 +14,11 @@ card (``--device cpu`` runs the plain versions on the CPU); the loop
 drops an epoch's last short batch, and with a checkpoint directory it
 resumes from the newest committed step — params, AdamW moments and
 count, and the stream position (batches consumed), fast-forwarding a
-fresh feed to it — and saves every 20 steps and at the end.
+fresh feed to it — and saves every 20 steps and at the end.  A
+non-finite or spiking step is skipped, repeated ones roll back to the
+last commit and replay the stream position saved with it
+(``DMLC_SELFHEAL_*`` knobs; ``DMLC_FAULT_SPEC='selfheal.loss@step:21=
+corrupt::3'`` injects poisoned steps).
 """
 
 from __future__ import annotations
@@ -100,21 +105,34 @@ def restore(manager, model, optimizer):
 def run(uri: str, steps: int, ckpt_dir: Optional[str] = None, *,
         device=None, model=None) -> List[float]:
     """Train ``steps`` new steps from the shards at ``uri``; returns their
-    losses.  ``model`` is trained in place when given, else built by
-    ``init_params`` from seed 0 in :func:`example_config`.  With
-    ``ckpt_dir``, resume from its newest committed step and save every
-    SAVE_EVERY steps and at the end."""
+    losses (after a self-heal rollback, the replayed steps' losses in
+    place of the rolled-back ones).  ``model`` is trained in place when
+    given, else built by ``init_params`` from seed 0 in
+    :func:`example_config`.  With ``ckpt_dir``, resume from its newest
+    committed step and save every SAVE_EVERY steps and at the end.
+
+    Every step's loss and gradient norm pass through a
+    :class:`~dmlc_tpu_torch.resilience.SelfHealGuard` before the update
+    is applied: a poisoned step is skipped (its update declined, its
+    batch dropped), ``DMLC_SELFHEAL_MAX_SKIPS`` consecutive skips roll
+    back to the newest committed checkpoint and replay the stream from
+    the position snapshotted at that commit (quarantined spans
+    skip-listed by the readers), and exhausted rollbacks abort with a
+    postmortem (:class:`SelfHealAbort`).  Without ``ckpt_dir`` the
+    ladder is skip → abort."""
     from ..base import DMLCError, resolve_device
     from ..checkpoint import CheckpointManager
     from ..feed import recordio_feed
+    from ..models.convert import train_state_from_jax, train_state_to_jax
     from ..models.transformer import adamw, init_params, make_train_step
+    from ..resilience import SelfHealGuard
 
     device = resolve_device(device)
     if model is None:
         model = init_params(example_config(device),
                             torch.Generator(device).manual_seed(0), device)
     optimizer = adamw(model.parameters(), LR)
-    step_fn = make_train_step(model, optimizer)
+    step_fn = make_train_step(model, optimizer, grad_norm=True)
     manager = start_at = pos = None
     if ckpt_dir:
         manager = CheckpointManager(ckpt_dir, max_to_keep=2)
@@ -127,10 +145,52 @@ def run(uri: str, steps: int, ckpt_dir: Optional[str] = None, *,
     skip = base if pos is None else pos
     feed = recordio_feed(uri, batch_records=PER_PART,
                          max_bytes=(SEQ + 1) * 4, device=device)
+    # without a checkpoint there is nothing to roll back to
+    guard = SelfHealGuard(**({} if manager is not None
+                             else {"max_rollbacks": 0}))
+    # the rollback target before the first commit: the state training
+    # started from, a host copy (the update is in place, so no reference
+    # can stand in for it), dropped at the first commit
+    genesis = ((train_state_to_jax(model, optimizer), skip)
+               if manager is not None else None)
+    # batches consumed at each commit (step -> count): a skip consumes a
+    # batch without a step, so a rollback replays this, not the step
+    ckpt_consumed = {}
+
+    def rollback_and_replay(base: int):
+        """``(done, skip, base)`` after restoring the newest committed
+        checkpoint (the genesis state before the first): the new step
+        count, the batches a fresh stream must fast-forward, the base."""
+        restored_step, stream_pos = restore(manager, model, optimizer)
+        feed.close()  # abandon the in-flight epoch
+        if restored_step is None:
+            if genesis is None:
+                raise DMLCError("selfheal: no committed checkpoint and no "
+                                "genesis state to roll back to")
+            train_state_from_jax(genesis[0], model, optimizer)
+            print("selfheal: no committed checkpoint; rolling back to "
+                  "the genesis state", flush=True)
+            return 0, genesis[1], base
+        base = min(base, restored_step)
+        replay = ckpt_consumed.get(restored_step)
+        if replay is None:
+            replay = restored_step if stream_pos is None else stream_pos
+        print(f"selfheal: rolled back to committed step {restored_step}; "
+              f"replaying {replay} batches", flush=True)
+        return restored_step - base, replay, base
+
     losses: List[float] = []
     consumed = 0
     done = 0
     full_in_epoch = 0
+    verdict = [None]
+
+    def accept(loss, gnorm) -> bool:
+        # asked between the gradients and the update: only "ok" applies it
+        verdict[0] = guard.observe(float(loss), grad_norm=float(gnorm),
+                                   step=done + 1)
+        return verdict[0] == "ok"
+
     try:
         it = iter(feed)
         while done < steps:
@@ -152,14 +212,29 @@ def run(uri: str, steps: int, ckpt_dir: Optional[str] = None, *,
                 skip -= 1
                 continue
             ids, labels = batch_tokens(batch)
-            loss = float(step_fn(ids, labels))
+            loss, _ = step_fn(ids, labels, accept=accept)
+            if verdict[0] == "skip":
+                continue
+            if verdict[0] == "rollback":
+                # the reference enters the goodput ledger's
+                # rollback_replay state here (ROADMAP.md Queue 1 item 9)
+                done, skip, base = rollback_and_replay(base)
+                del losses[done:]
+                it = iter(feed)
+                consumed = full_in_epoch = 0  # the replay re-counts
+                continue
+            if verdict[0] == "abort":
+                guard.raise_abort(done + 1)
+            loss = float(loss)
             losses.append(loss)
             done += 1
             if done % 10 == 0 or done == 1:
                 print(f"step {base + done}: loss {loss:.4f}", flush=True)
             if manager is not None and done % SAVE_EVERY == 0:
+                ckpt_consumed[base + done] = consumed
                 manager.save(base + done,
                              train_state(model, optimizer, consumed))
+                genesis = None  # a committed checkpoint outranks it
     finally:
         feed.close()
     if manager is not None and done % SAVE_EVERY != 0:

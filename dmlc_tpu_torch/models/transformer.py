@@ -3,15 +3,16 @@
 Port of the single-device half of ``dmlc_tpu/models/transformer.py``:
 ``TransformerConfig``/``flagship_config``/``count_params``/FLOP counts
 (:49-126, :420-428), ``init_params`` (:128-155), the dense soft-gated
-MoE FFN (:205-227), the block and its per-block remat (:313-353), the
-loss ``unsharded_loss`` (``forward_local`` with ``ShardAxes()``,
-:356-409), a train step with AdamW as ``make_train_step`` builds it with
-``optax.adamw`` (:761-850), and the serving forwards
-``forward_prefill`` / ``forward_prefill_last`` (:504-558) and
-``forward_decode_paged`` (:690-758).  The train step drives the step
-ledger as the reference's does (:855-887).  The sharded paths, the
-train step's mesh and overlap, routed top-k MoE and the gather decode
-path come in later slices.
+MoE FFN (:205-227) and the routed top-k one (:230-310), the block and
+its per-block remat under the three policies (:313-353), the loss
+``unsharded_loss`` (``forward_local`` with ``ShardAxes()``, :356-409), a
+train step with AdamW as ``make_train_step`` builds it with
+``optax.adamw``, with or without the global gradient norm (:761-850),
+and the serving forwards ``forward_prefill`` / ``forward_prefill_last``
+(:504-558) and ``forward_decode_paged`` (:690-758).  The train step
+drives the step ledger as the reference's does (:855-887).  The sharded
+paths, the train step's mesh and overlap and the gather decode path
+come in later slices.
 
 Each layer module keeps the JAX weight layouts (``wq [E, H, D]``,
 ``wo [H, D, E]``, ``w_in [X, E, F]``, ...) so weights convert one to one
@@ -35,6 +36,7 @@ import functools
 from typing import Callable, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -53,7 +55,7 @@ __all__ = ["TransformerConfig", "flagship_config", "count_params",
            "forward_decode_paged"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_REMAT_POLICIES = ("full", "save_flash")
+_REMAT_POLICIES = ("full", "save_flash", "save_flash_mlp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,14 +71,16 @@ class TransformerConfig:
     remat: bool = False        # checkpoint each block in the train step
     # "full" recomputes the whole block in the backward; "save_flash"
     # keeps the flash forward's (o, lse), so the backward recomputes the
-    # projections but never re-runs the attention kernel
+    # projections but never re-runs the attention kernel; "save_flash_mlp"
+    # also keeps SwiGLU's hidden activation (the op ``mlp_act``)
     remat_policy: str = "save_flash"
+    moe_topk: int = 0          # 0 = dense soft gating; k > 0 = routed top-k
+    moe_capacity_factor: float = 1.25  # slots per expert vs perfect balance
+    # count the dropped-choice fraction in the ``moe`` telemetry stage:
+    # one device-to-host read per routed layer call, so off by default
+    moe_debug_overflow: bool = False
 
     def __post_init__(self):
-        if self.remat_policy == "save_flash_mlp":
-            raise ValueError(
-                "remat_policy 'save_flash_mlp' is not ported yet (ROADMAP.md "
-                "Queue 1 item 4: the model options left out)")
         if self.remat_policy not in _REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
                              f"expected one of {_REMAT_POLICIES}")
@@ -84,6 +88,11 @@ class TransformerConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    @property
+    def routed(self) -> bool:
+        """Routed top-k MoE (``_moe_ffn`` :307-310)."""
+        return self.moe_topk > 0 and self.n_experts > 1
 
 
 def flagship_config() -> TransformerConfig:
@@ -104,7 +113,9 @@ def count_params(cfg: TransformerConfig) -> int:
 def train_flops_per_token(cfg: TransformerConfig, t: int,
                           causal: bool = True) -> float:
     """Matmul FLOPs per token of one train step (fwd + bwd ≈ 3× fwd),
-    attention halved under ``causal``."""
+    attention halved under ``causal``.  The FFN term counts every expert,
+    routed or not, as the reference's formula does, so the ledger's MFU
+    reads the same in both packages."""
     e, hd, f, x = (cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff,
                    cfg.n_experts)
     attn = (2 if causal else 4) * t * hd
@@ -157,12 +168,26 @@ class Block(nn.Module):
         return self.attn_out(o), k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cfg: TransformerConfig,
                 impl: Optional[str] = None) -> torch.Tensor:
         """One decoder layer on the residual stream (``_block`` :313)."""
         x = x + self.attention(rms_norm(x, self.ln1), positions, impl)[0]
-        return x + self.moe_ffn(rms_norm(x, self.ln2))
+        return x + self.moe_ffn(rms_norm(x, self.ln2), cfg)
 
-    def moe_ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def moe_ffn(self, x: torch.Tensor, cfg: TransformerConfig,
+                route_tokens: Optional[int] = None) -> torch.Tensor:
+        """The FFN under ``cfg`` (``_moe_ffn`` :307): routed top-k when
+        ``cfg.routed``, else dense soft gating.  ``route_tokens`` is the
+        token count the routed capacity is computed from where the
+        reference's call holds more tokens than ``x``: the dead rows it
+        pads a decode batch with, which come after the live ones.  (The
+        overflow counter then counts the live tokens' choices only; the
+        reference's counts the dead rows' too.)"""
+        if cfg.routed:
+            return self.topk_ffn(x, cfg, route_tokens)
+        return self.dense_ffn(x)
+
+    def dense_ffn(self, x: torch.Tensor) -> torch.Tensor:
         """Dense soft-gated MoE (``_moe_dense_ffn``): every expert sees
         every token; the gate softmax is float32 and the combine casts
         the probabilities to the activations' dtype.  With one expert
@@ -173,6 +198,57 @@ class Block(nn.Module):
                                      self.w_out[i])
                           for i in range(self.w_in.shape[0])])
         return torch.einsum("xbte,btx->bte", ys, probs.to(ys.dtype))
+
+    def topk_ffn(self, x: torch.Tensor, cfg: TransformerConfig,
+                 route_tokens: Optional[int] = None) -> torch.Tensor:
+        """Routed top-k MoE with capacity dispatch (``_moe_topk_ffn``
+        :230-298 on one card, where every expert is local).  Each token's
+        ``k`` choices, renormalised, take slots token-major in ``[X, C,
+        E]``, ``C = ceil(k·n·capacity_factor / X)``; a choice past its
+        expert's capacity is dropped and adds nothing.  The experts'
+        SwiGLUs run on their slots as batched products, and the combine
+        gathers and weights each kept choice's output."""
+        b, t, e = x.shape
+        n = b * t
+        k = cfg.moe_topk
+        xf = x.reshape(n, e)
+        probs = torch.softmax((xf @ self.gate).float(), dim=-1)
+        n_expert = probs.shape[-1]
+        topv, topi = torch.topk(probs, k, dim=-1)            # [n, k]
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+        # in Python floats, exactly as the reference (:255-256)
+        n_cap = n if route_tokens is None else int(route_tokens)
+        capacity = -(-(k * n_cap * cfg.moe_capacity_factor) // n_expert)
+        capacity = max(int(capacity), 1)
+        flat_e = topi.reshape(-1)                            # token-major
+        # each choice's slot in its expert: the count of earlier choices
+        # of that expert, scanned along [X, n·k]'s inner dim (down the
+        # rows of [n·k, X], the card's scan takes ~3 ms a call)
+        oh = F.one_hot(flat_e, n_expert).t().contiguous()
+        pos = oh.cumsum(dim=1).gather(0, flat_e[None])[0] - 1
+        keep = pos < capacity
+        pos_c = pos.clamp(max=capacity - 1)
+        if cfg.moe_debug_overflow:
+            _record_moe_overflow(keep)
+        xk = xf.repeat_interleave(k, dim=0) * keep[:, None].to(xf.dtype)
+        buf = xf.new_zeros((n_expert, capacity, e)).index_put_(
+            (flat_e, pos_c), xk, accumulate=True)
+        out = swiglu_ffn(buf, self.w_in, self.w_gate, self.w_out)
+        picked = out[flat_e, pos_c]                          # [n·k, E]
+        w = (topv.reshape(-1) * keep.float()).to(picked.dtype)
+        y = (picked * w[:, None]).reshape(n, k, e).sum(dim=1)
+        return y.reshape(b, t, e).to(x.dtype)
+
+
+def _record_moe_overflow(keep: torch.Tensor) -> None:
+    """The dropped-choice fraction of one routed call into the ``moe``
+    stage (``_record_moe_overflow`` :300-304).  One count a call: a
+    rematerialised block counts again in its backward, as the reference's
+    ``debug.callback`` does."""
+    n_choices = float(keep.numel())
+    frac = (n_choices - keep.float().sum()) / max(n_choices, 1.0)
+    telemetry.inc("moe", "overflow_checks")
+    telemetry.inc("moe", "overflow_fraction_sum", float(frac))
 
 
 class Transformer(nn.Module):
@@ -226,26 +302,38 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 # training
 # ---------------------------------------------------------------------------
 
-def _save_flash(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy ``save_flash``: keep the flash
-    forward's ``(o, lse)`` and recompute everything else, as
-    ``save_only_these_names("flash_o", "flash_lse")`` (:333-335)."""
-    if op == torch.ops.dmlc_tpu_torch.flash_attn_fwd.default:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
+def _save_ops(*ops) -> Callable:
+    """A selective-checkpoint policy that keeps the outputs of ``ops`` and
+    recomputes everything else, as ``save_only_these_names`` (:333-340):
+    ``save_flash`` keeps the flash forward's ``(o, lse)``,
+    ``save_flash_mlp`` SwiGLU's ``mlp_act`` as well."""
+    def policy(ctx, op, *args, **kwargs):
+        if op in ops:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def _remat_policy(name: str) -> Optional[Callable]:
+    ops = torch.ops.dmlc_tpu_torch
+    return {"full": None,
+            "save_flash": _save_ops(ops.flash_attn_fwd.default),
+            "save_flash_mlp": _save_ops(ops.flash_attn_fwd.default,
+                                        ops.mlp_act.default)}[name]
 
 
 def _block_runner(cfg: TransformerConfig) -> Callable:
-    """``(layer, x, positions, impl) -> x``: the layer as it is, or
+    """``(layer, x, positions, cfg, impl) -> x``: the layer as it is, or
     checkpointed under the config's remat policy (``_stage_fn``
     :324-347).  ``use_reentrant=False`` is what ``context_fn`` needs; the
     model has no dropout, so no RNG state is kept."""
     if not cfg.remat:
         return lambda layer, *a: layer(*a)
     kw = {}
-    if cfg.remat_policy == "save_flash":
+    policy = _remat_policy(cfg.remat_policy)
+    if policy is not None:
         kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _save_flash)
+            create_selective_checkpoint_contexts, policy)
     return lambda layer, *a: checkpoint(layer, *a, use_reentrant=False,
                                         preserve_rng_state=False, **kw)
 
@@ -261,7 +349,7 @@ def unsharded_loss(model: Transformer, ids: torch.Tensor,
     x = embed_lookup(model.embed, ids).to(cfg.torch_dtype)
     run = _block_runner(cfg)
     for layer in model.layers:
-        x = run(layer, x, positions, impl)
+        x = run(layer, x, positions, cfg, impl)
     logits = rms_norm(x, model.ln_f) @ model.unembed
     return softmax_xent(logits, labels).mean()
 
@@ -274,49 +362,78 @@ def adamw(params, lr: float) -> torch.optim.AdamW:
                              weight_decay=1e-4)
 
 
-def make_train_step(model: Transformer, optimizer=None, ledger: bool = True):
+def _global_norm(tensors) -> torch.Tensor:
+    """The L2 norm of all ``tensors`` together, in float32 (the gradient
+    norm ``optax.global_norm`` gives the reference's step, :848-849)."""
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]))
+
+
+def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
+                    grad_norm: bool = False):
     """``train_step(ids, labels) -> loss``: one AdamW update of ``model``
     in place (the ``train_step`` body of ``make_train_step`` :844-850 on
     one card).  The step's gradients stay in ``p.grad`` until the next
     step.  The default optimizer is ``adamw(model.parameters(), 1e-3)``,
     as the reference's ``optax.adamw(1e-3)``.
 
+    With ``grad_norm`` the step is ``train_step(ids, labels, accept=None)
+    -> (loss, gnorm)``, ``gnorm`` the global L2 norm of the gradients
+    (:790-794).  It runs in two halves: the gradients and their norm,
+    then ``optimizer.step()``.  ``accept(loss, gnorm) -> bool``, when
+    given, is asked between the two, and False declines the update: the
+    parameters and the optimizer's state stay as they were, untouched
+    and uncopied.  This is the reference caller's skip (it keeps its old
+    immutable references) for a step that updates in place.
+
     With ``ledger`` (default) every call drives the process step ledger
     (``telemetry.steps``) as the reference's does (:865-887): the first
     call declares the model's train FLOPs per token at the batch's
     sequence length and its dtype, and each step is ``step_begin`` →
-    step → ``step_end(tokens=B·T)``.  On a card ``step_end`` waits on an
-    event recorded after the optimizer's kernels, so the record's
+    step → ``step_end(tokens=B·T)``; a declined step is left open, and
+    the next ``step_begin`` abandons it.  On a card ``step_end`` waits on
+    an event recorded after the optimizer's kernels, so the record's
     ``wall_s`` is the step and ``host_issue_s`` its enqueue.
     ``ledger=False`` returns the bare step (for a caller that brackets
     the step itself, e.g. around its feed's wait)."""
     if optimizer is None:
         optimizer = adamw(model.parameters(), 1e-3)
 
-    def train_step(ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    def gradients(ids: torch.Tensor, labels: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)
         loss = unsharded_loss(model, ids, labels)
         loss.backward()
-        optimizer.step()
-        return loss.detach()
+        if not grad_norm:
+            return loss.detach(), None
+        return loss.detach(), _global_norm(
+            p.grad for p in model.parameters() if p.grad is not None)
+
+    def train_step(ids: torch.Tensor, labels: torch.Tensor, accept=None):
+        loss, gnorm = gradients(ids, labels)
+        applied = accept is None or bool(accept(loss, gnorm))
+        if applied:
+            optimizer.step()
+        return (loss if gnorm is None else (loss, gnorm)), applied
 
     if not ledger:
-        return train_step
+        return lambda ids, labels, accept=None: train_step(ids, labels,
+                                                           accept)[0]
     cfg = model.cfg
     declared = []
 
-    def stepped(ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    def stepped(ids: torch.Tensor, labels: torch.Tensor, accept=None):
         if not declared:
             telemetry.declare_flops_per_token(
                 train_flops_per_token(cfg, int(ids.shape[-1])))
             telemetry.declare_dtype(cfg.dtype)
             declared.append(True)
         telemetry.step_begin()
-        # a raising step leaves the ledger's step open; the next
-        # step_begin abandons it instead of recording a garbage wall
-        loss = train_step(ids, labels)
-        telemetry.step_end(tokens=float(ids.numel()))
-        return loss
+        # a raising or declined step leaves the ledger's step open; the
+        # next step_begin abandons it instead of recording a garbage wall
+        out, applied = train_step(ids, labels, accept)
+        if applied:
+            telemetry.step_end(tokens=float(ids.numel()))
+        return out
 
     return stepped
 
@@ -339,7 +456,7 @@ def _prefill_trunk(model: Transformer, ids: torch.Tensor,
     for layer in model.layers:
         y, k, v = layer.attention(rms_norm(x, layer.ln1), positions, impl)
         x = x + y
-        x = x + layer.moe_ffn(rms_norm(x, layer.ln2))
+        x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, model.ln_f)
@@ -395,7 +512,8 @@ def forward_decode_paged(model: Transformer, ids: torch.Tensor,
                          positions: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, block_tables: torch.Tensor,
                          lengths: torch.Tensor,
-                         impl: Optional[str] = None) -> torch.Tensor:
+                         impl: Optional[str] = None,
+                         route_tokens: Optional[int] = None) -> torch.Tensor:
     """Decode window step attending the paged KV pool in place.
 
     ids / positions ``[B, S]`` (S=1 plain decode, S=k+1 speculative
@@ -407,7 +525,12 @@ def forward_decode_paged(model: Transformer, ids: torch.Tensor,
     Unlike the reference, which returns new pools, this writes the pools
     IN PLACE (they live only on the device; window slots past what the
     caller commits hold garbage the mask hides until overwritten) and
-    returns only ``logits [B, S, V]``."""
+    returns only ``logits [B, S, V]``.
+
+    ``route_tokens`` is the token count a routed config's expert capacity
+    is computed from (``Block.moe_ffn``): the reference's engine pads
+    the window to ``max_active`` rows after the live ones, so its
+    capacity counts ``max_active · S`` tokens.  None counts ``B · S``."""
     cfg = model.cfg
     s_w = ids.shape[1]
     live, wb, ws = _window_addresses(lengths, block_tables, s_w,
@@ -422,6 +545,6 @@ def forward_decode_paged(model: Transformer, ids: torch.Tensor,
         o = paged_attention(q, k_pool[li], v_pool[li], block_tables, lengths,
                             impl=impl)
         x = x + layer.attn_out(o)
-        x = x + layer.moe_ffn(rms_norm(x, layer.ln2))
+        x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, route_tokens)
     x = rms_norm(x, model.ln_f)
     return x @ model.unembed

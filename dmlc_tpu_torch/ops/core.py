@@ -5,6 +5,14 @@ The JAX module threads a ``ShardAxes`` through every op and adds a
 only the unsharded branches exist here.  Precision follows the JAX ops
 exactly: statistics in float32, results cast back to the input's dtype
 at the same points.
+
+SwiGLU's hidden activation ``h = a * silu(b)`` is the custom op
+``dmlc_tpu_torch::mlp_act``, so that a selective-checkpoint policy can
+name it (the ``save_flash_mlp`` remat policy of ``models/transformer.py``)
+as the reference's ``checkpoint_name(h, "mlp_act")`` does; a bare
+``aten.mul`` could not be told apart from the block's other products.
+Its forward and backward run the same aten calls autograd ran before,
+so the numbers are those of the plain expression.
 """
 
 from __future__ import annotations
@@ -12,7 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "embed_lookup", "softmax_xent", "swiglu_ffn"]
+__all__ = ["rms_norm", "rope", "embed_lookup", "softmax_xent", "swiglu_ffn",
+           "mlp_act"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -69,8 +78,33 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return lse - correct
 
 
+@torch.library.custom_op("dmlc_tpu_torch::mlp_act", mutates_args=())
+def mlp_act(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SwiGLU's hidden activation ``a * silu(b)`` (the reference's
+    ``mlp_act``)."""
+    return a * F.silu(b)
+
+
+@mlp_act.register_fake
+def _mlp_act_fake(a, b):
+    return torch.empty_like(a)
+
+
+def _mlp_act_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _mlp_act_backward(ctx, g):
+    # MulBackward's and SiluBackward's own products, in their order
+    a, b = ctx.saved_tensors
+    return g * F.silu(b), torch.ops.aten.silu_backward(g * a, b)
+
+
+mlp_act.register_autograd(_mlp_act_backward, setup_context=_mlp_act_setup)
+
+
 def swiglu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
                w_out: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN.  w_in/w_gate: [E, F]; w_out: [F, E]."""
-    h = (x @ w_in) * F.silu(x @ w_gate)
-    return h @ w_out
+    """SwiGLU FFN.  w_in/w_gate: [E, F]; w_out: [F, E] (or a leading
+    expert dim on all four: ``[X, C, E]`` against ``[X, E, F]``)."""
+    return mlp_act(x @ w_in, x @ w_gate) @ w_out

@@ -13,9 +13,11 @@ injection (the port of ``dmlc_tpu/resilience``, same knobs and counters).
                  delay a response, kill the process at a named barrier)
                  or :func:`maybe_corrupt` (corrupt a storage response).
                  Free when unset.
-
-Not ported yet: ``selfheal`` (the self-healing training loop's
-``SelfHealGuard``, ROADMAP.md Queue 1 item 8).
+  * ``selfheal`` — :class:`SelfHealGuard`: the self-healing training
+                 loop's skip → rollback-and-replay → abort ladder over
+                 each step's loss and gradient norm, with the
+                 ``dmlc_selfheal_*`` counters and the status doc the
+                 heartbeat ships.
 
 Typical use::
 
@@ -41,16 +43,24 @@ from .retry import (  # noqa: F401
     RetryPolicy,
     default_retryable,
 )
+from .selfheal import (  # noqa: F401
+    SelfHealAbort,
+    SelfHealGuard,
+    reset_selfheal,
+)
 
 __all__ = [
     "FaultInjected",
     "FaultInjector",
     "RetryPolicy",
+    "SelfHealAbort",
+    "SelfHealGuard",
     "TRANSIENT_HTTP",
     "default_retryable",
     "fault_point",
     "get_injector",
     "install_injector",
     "maybe_corrupt",
+    "reset_selfheal",
     "reset_injector",
 ]

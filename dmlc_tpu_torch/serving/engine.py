@@ -28,7 +28,8 @@ generations finish.
 
 Differences from the reference: no jit (PyTorch runs eagerly, so there
 are no shape buckets to pin and the decode batch is the live rows only,
-with no dead padding rows); the pools live only on the device; and the
+with no dead padding rows, though a routed config's expert capacity
+counts them); the pools live only on the device; and the
 compute telemetry (cost analysis, memory samples) is ROADMAP.md Queue 1
 item 9.  ``stats()`` also keeps plain integer counters and the kernels'
 launch counts.
@@ -653,9 +654,13 @@ class InferenceEngine:
         base_lens = [self.cache.length(r.id) for r in active]
         base = torch.tensor(base_lens, dtype=torch.long)
         positions = base[:, None] + torch.arange(s_w)
+        # a routed config's expert capacity counts the reference's padded
+        # batch (max_active rows, the dead ones after the live): the live
+        # tokens then route exactly as they do there
         logits = forward_decode_paged(
             self.model, ids.to(self.device), positions.to(self.device),
-            self.cache.k_pool, self.cache.v_pool, tables, lengths)
+            self.cache.k_pool, self.cache.v_pool, tables, lengths,
+            route_tokens=self.max_active * s_w)
         amax = logits.argmax(dim=-1)                              # [B, S]
         fin = torch.isfinite(torch.gather(logits, 2, amax[..., None]))[..., 0]
         amax, fin = amax.cpu().tolist(), fin.cpu().tolist()

@@ -504,9 +504,17 @@ class HeartbeatSender:
 
     def send_once(self) -> None:
         doc = exporters.export_json(include_buckets=True)
-        # the JAX worker's beat also carries `selfheal` (the self-heal
-        # guard, ROADMAP.md Queue 1 item 8), `compute` and the job
-        # `goodput` ledger (item 9); the port has none of those yet
+        # self-heal remediation status (resilience.selfheal): a few
+        # scalar fields riding every beat once a guard has acted, so
+        # the tracker watchdog can show WHAT the worker did about a
+        # flagged step (the /anomalies `remediation` field).  The JAX
+        # worker's beat also carries `compute` and the job `goodput`
+        # ledger (ROADMAP.md Queue 1 item 9); the port has neither yet
+        from ..resilience import selfheal
+
+        sh = selfheal.status()
+        if sh:
+            doc["selfheal"] = sh
         # serving SLO status (telemetry.slo): a serving replica's
         # active violations + burn rates ride every beat, so the
         # tracker watchdog surfaces them on /anomalies next to the

@@ -149,7 +149,7 @@ def test_remat_on_and_off_give_the_same_loss_and_gradients():
     batch = _torch_batch(*_batch(np.random.default_rng(4)))
     results = []
     for remat, policy in ((False, "save_flash"), (True, "full"),
-                          (True, "save_flash")):
+                          (True, "save_flash"), (True, "save_flash_mlp")):
         model = _model(tree)
         model.cfg = dataclasses.replace(model.cfg, remat=remat,
                                         remat_policy=policy)
@@ -199,8 +199,8 @@ def test_params_to_jax_inverts_params_from_jax_bit_for_bit(dtype):
 
 
 def test_remat_policy_is_checked():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ttfm.TransformerConfig(remat_policy="save_flash_mlp")
+    assert ttfm.TransformerConfig(
+        remat_policy="save_flash_mlp").remat_policy == "save_flash_mlp"
     with pytest.raises(ValueError, match="unknown remat_policy"):
         ttfm.TransformerConfig(remat_policy="everything")
     assert ttfm.flagship_config().remat
@@ -212,3 +212,68 @@ def test_adamw_has_optax_defaults():
     group = opt.param_groups[0]
     assert (group["lr"], group["betas"], group["eps"],
             group["weight_decay"]) == (1e-4, (0.9, 0.999), 1e-8, 1e-4)
+
+
+def test_grad_norm_matches_optax_global_norm():
+    """make_train_step(grad_norm=True) returns (loss, gnorm), gnorm within
+    1e-6 relative of optax.global_norm of the same gradients."""
+    tree, jcfg = _weights()
+    ids, labels = _batch(np.random.default_rng(11))
+    jloss, g = jax.value_and_grad(_jax_loss(jcfg))(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(ids),
+        jnp.asarray(labels))
+    want = float(optax.global_norm(g))
+    loss, gnorm = ttfm.make_train_step(_model(tree), grad_norm=True)(
+        *_torch_batch(ids, labels))
+    assert abs(float(gnorm) - want) <= 1e-6 * want
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+
+
+@pytest.mark.parametrize("ledger", [False, True])
+def test_declined_step_leaves_params_and_adamw_state_bit_equal(ledger):
+    """accept() sees (loss, gnorm) before optimizer.step(); False leaves
+    the parameters and AdamW's exp_avg, exp_avg_sq and step bit-equal,
+    and the next accepted step goes on from there (as optax from the
+    kept references).  A declined step records nothing in the ledger."""
+    from dmlc_tpu_torch import telemetry
+
+    tree, _ = _weights()
+    model = _model(tree)
+    opt = ttfm.adamw(model.parameters(), 1e-3)
+    telemetry.reset_steps()
+    step = ttfm.make_train_step(model, opt, ledger=ledger, grad_norm=True)
+    rng = np.random.default_rng(12)
+    step(*_torch_batch(*_batch(rng)))           # the moments exist now
+
+    def snap():
+        return ([p.detach().clone() for p in model.parameters()],
+                [{k: v.clone() for k, v in opt.state[p].items()}
+                 for p in model.parameters()])
+
+    before = snap()
+    seen = []
+    bad = _torch_batch(*_batch(rng))
+    loss, gnorm = step(*bad, accept=lambda l, g: seen.append((l, g)) or False)
+    assert len(seen) == 1 and torch.equal(seen[0][1], gnorm)
+    after = snap()
+    for a, b in zip(before[0], after[0]):
+        assert torch.equal(a, b)
+    for sa, sb in zip(before[1], after[1]):
+        assert sa.keys() == sb.keys() == {"step", "exp_avg", "exp_avg_sq"}
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k
+    if ledger:
+        assert len(telemetry.ledger().records()) == 1
+    # accepted: the same update a fresh copy of the pre-skip state makes
+    twin = _model(tree)
+    twin.load_state_dict(model.state_dict())
+    topt = ttfm.adamw(twin.parameters(), 1e-3)
+    # load_state_dict keeps the moment tensors it is given: copy them
+    topt.load_state_dict(copy.deepcopy(opt.state_dict()))
+    nxt = _torch_batch(*_batch(rng))
+    step(*nxt, accept=lambda l, g: True)
+    ttfm.make_train_step(twin, topt, ledger=False)(*nxt)
+    for a, b in zip(model.parameters(), twin.parameters()):
+        assert torch.equal(a, b)
+    if ledger:
+        assert len(telemetry.ledger().records()) == 2
