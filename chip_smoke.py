@@ -20,9 +20,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
             calls at non-zero offsets in both dtypes; kernel, plain and
             ``F.scaled_dot_product_attention`` (yardstick only) times
    flash_bwd  kernels K2 (dK/dV) and K3 (dQ) against the plain backward
-            at the same shapes, then at the two train shapes (B=8 x
-            T=1024 and B=1 x T=8192, H=16, D=128, bf16, causal), where
-            K1's output is held against the plain forward too; at both
+            at the same shapes, then at the elastic phase's shape (B=8
+            x T=128) and the two train shapes (B=8 x T=1024 and B=1 x
+            T=8192; H=16, D=128, bf16, causal), where K1's output is
+            held against the plain forward too; at the two
             train shapes each of K1, K2, K3 timed alone (with its
             TFLOP/s and share of its bound) and two launches of each held
             bit-identical, beside the plain versions and SDPA's forward
@@ -97,6 +98,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
             with one transient skip and a drift run (that skip, then a
             rollback) equal to it, having replayed the 21 batches
             snapshotted at the commit; the ``dmlc_selfheal_*`` counters
+   elastic  the port's elastic LM trainer under ``build/elastic``
+            (removed after): the flagship's widths at depth 2 (243M
+            params, bf16, ``save_flash``, seed 0) on ``make_data``'s
+            shard, 3 workers of ``python -m dmlc_tpu_torch.tracker.submit
+            --cluster local --num-workers 3`` with ``DMLC_ELASTIC=1``
+            sharing the card (each an entry of this script,
+            ``--elastic-worker``, calling ``train_lm_recordio.run``); one
+            SIGKILLed after the step-20 commit, the survivors shrink to
+            2, ``POST /resize {"world": 3}`` and a fresh worker (started
+            at the kill, entering the job after the request) grow the
+            world back, 40 steps in all.  Gates: both resizes on every
+            survivor (resynced at step 20, then at world 3), /metrics
+            ``dmlc_elastic_resizes_total`` >= 2, every step's loss one
+            value on every rank, finite and falling, equal final-param
+            SHA-256s, ``n_layers`` launches of each of K1-K3 per loss
+            evaluation on every rank, /goodput's per-rank and cluster
+            buckets summing to wall within 2% with ``resize`` and
+            ``checkpoint_restore`` non-zero and ``unattributed`` under
+            10%, no process or ``/dev/shm/dmlc*`` segment left.  Numbers:
+            step p50 at world 3, 2 and 3, the ledger's collective and
+            feed-wait shares, kill → first step after the resync and
+            /resize → first step at world 3, each state broadcast's
+            bytes and seconds and rank 0's restore, every goodput
+            bucket's fraction per rank; job logs in
+            ``chiprun_out/elastic_*.log``
    telemetry  the port's ``LoadGenerator`` drives the port's server (the
             flagship, spec_k=3, seed 0): 8 streams x 2 requests, prompts
             of 17..511 tokens, 32 new tokens; gates: /metrics parses as
@@ -158,8 +184,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
             left behind
 9. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
             its path (and on the spine's timed steps, and in
-            ``path_launches`` on the routed serving and train paths and
-            the self-heal runs), max error, times and roofline bound
+            ``path_launches`` on the routed serving and train paths, the
+            self-heal runs and the elastic job), max error, times and
+            roofline bound
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits with code 2 and prints no result.  Details go to
@@ -196,6 +223,7 @@ LOGIT_TOL = 2e-2          # max |kernel - plain| / std(logits), f32 model
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 TRAIN_GRAD_TOL = 1e-4     # max over params of |dg| / |g_plain|, f32 model
 TRAIN_B, TRAIN_T = 8, 1024   # bench.py's train shapes
+ELASTIC_T = 128   # the LM example's SEQ, the elastic phase's T
 LONG_T = 8192
 
 RESULTS = {}
@@ -490,9 +518,9 @@ def bwd_timing(fa, args, b, t, h, d):
 
 def flash_bwd_phase(fa):
     """K2/K3 against the plain backward at B=1 (T 512, 1000, causal or
-    not, bf16 and f32), then at the two train shapes (bf16, causal), where
-    K1's forward is held against the plain one too and each kernel is
-    timed alone (:func:`fwd_timing`, :func:`bwd_timing`).  Returns the
+    not, bf16 and f32), then at the elastic trainer's shape and the two
+    train shapes (bf16, causal), where K1's forward is held against the
+    plain one too; at the train shapes each kernel is also timed alone (:func:`fwd_timing`, :func:`bwd_timing`).  Returns the
     K2/K3 timing rows at B=8 x T=1024, each one's max abs error there,
     and K1's timing rows by (B, T)."""
     gen = torch.Generator("cuda").manual_seed(5)
@@ -505,6 +533,15 @@ def flash_bwd_phase(fa):
                           {"phase": "flash_bwd",
                            "dtype": str(dtype).split(".")[1], "B": 1, "T": t,
                            "H": h, "D": d, "causal": causal})
+    # the elastic trainer's shape, B=8 x T=128: one tile of a sequence,
+    # held but not timed (its step is host-bound)
+    args = bwd_inputs(gen, TRAIN_B, ELASTIC_T, h, d, torch.bfloat16, True)
+    fwd_mx, fwd_mean = fwd_check(fa, *args[:4])
+    bwd_check(fa, args, {"phase": "flash_bwd", "dtype": "bfloat16",
+                         "B": TRAIN_B, "T": ELASTIC_T, "H": h, "D": d,
+                         "causal": True, "fwd_max_abs_err": fwd_mx,
+                         "fwd_mean_abs_err": fwd_mean})
+    del args
     # the train step's shapes: B=1 x T=8192 and B=8 x T=1024 (the plain
     # versions' T x T f32 tensors, ~4.3 GB each at T=8192, fit on the card)
     for b, t in ((1, LONG_T), (TRAIN_B, TRAIN_T)):
@@ -2553,6 +2590,348 @@ def model_options_phase(tfm, serving, fa, pa, tele, cfg, prompts, looping):
             "selfheal": heal_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the elastic trainer — a worker lost and the world grown back
+# ---------------------------------------------------------------------------
+
+ELASTIC_WORKERS = 3
+ELASTIC_STEPS = 40
+ELASTIC_KILL_AT = 21     # a worker is SIGKILLed once this step is seen
+ELASTIC_GROW_AT = 23     # the world grows once world 2 has reached it
+ELASTIC_LAYERS = 2       # the flagship's widths at depth 2 (see the phase)
+ELASTIC_TIMEOUT_S = 420  # bound on the whole job
+# a SIGKILLed same-host peer cannot poison the shm group its gang-mates
+# wait in: they wake at DMLC_COLL_SHM_TIMEOUT_S.  It sits above any
+# legitimate wait there (the others wait ~6 s in a state broadcast while
+# rank 0 restores and flattens; rank 0's 1.5 GB save ~2 s) and below the
+# tracker's miss window, so the survivors re-enter rendezvous before the
+# death is declared and never beat under a stale rank
+ELASTIC_ENV = {"DMLC_ELASTIC": "1", "DMLC_TRACKER_MISS_WINDOW_S": "14",
+               "DMLC_ELASTIC_GRACE_S": "1", "DMLC_COLL_SHM_TIMEOUT_S": "12",
+               "DMLC_CLIENT_OP_TIMEOUT_S": "180", "OMP_NUM_THREADS": "2"}
+
+
+def elastic_config():
+    from dmlc_tpu_torch.models import transformer as tfm
+
+    return dataclasses.replace(tfm.flagship_config(), n_layers=ELASTIC_LAYERS)
+
+
+def elastic_worker(argv) -> int:
+    """One worker of the elastic job: the flagship at depth 2 from seed
+    0 through the port's ``train_lm_recordio.run`` (elastic under the
+    launcher's ``DMLC_ELASTIC=1``).  Writes its pid, each state broadcast
+    and its progress as they happen, and at the end its K1-K3 launches
+    against its loss evaluations, the losses the guard saw by step, the
+    step ledger's records, its goodput document and its parameters'
+    SHA-256."""
+    import hashlib
+
+    sys.path.insert(0, ROOT)
+    from dmlc_tpu_torch import resilience
+    from dmlc_tpu_torch import telemetry as tele
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+    from dmlc_tpu_torch.models import transformer as tfm
+    from dmlc_tpu_torch.ops import flash_attention as fa
+    from dmlc_tpu_torch.telemetry import goodput
+
+    shard, steps, ckpt, out = argv[0], int(argv[1]), argv[2], argv[3]
+    # a joiner is started early, so that its start overlaps the world-2
+    # steps, and enters the job once this file exists
+    go = argv[4] if len(argv) > 4 else None
+    task = os.environ["DMLC_TASK_ID"]
+
+    def note(name, doc, mode="a"):
+        with open(os.path.join(out, f"{name}.{task}"), mode) as f:
+            f.write(json.dumps(doc) + "\n")
+
+    note("pid", {"pid": os.getpid(), "port": os.environ["DMLC_TRACKER_PORT"]},
+         "w")
+    syncs = []
+    broadcast = ex._ElasticTrainer._broadcast_state
+
+    def hooked(self, done):
+        done = broadcast(self, done)
+        syncs.append(dict(self.last_sync, done=done, rank=self.client.rank,
+                          world=self.client.world_size, t=time.time()))
+        note("syncs", syncs[-1])
+        return done
+
+    ex._ElasticTrainer._broadcast_state = hooked
+    observed = {}   # step -> (loss, verdict), the last observation wins
+
+    class Guard(resilience.SelfHealGuard):
+        def observe(self, loss, grad_norm=None, step=None):
+            verdict = super().observe(loss, grad_norm=grad_norm, step=step)
+            observed[step] = (float(loss), verdict)
+            note("progress", {"step": step, "t": time.time()}, "w")
+            return verdict
+
+    resilience.SelfHealGuard = Guard
+    calls = [0]
+    loss_fn = tfm.unsharded_loss
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return loss_fn(*a, **kw)
+
+    tfm.unsharded_loss = counted
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
+               "flash_bwd_dq": fa.FLASH_BWD_DQ}
+    model = tfm.init_params(elastic_config(),
+                            torch.Generator("cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+    while go is not None and not os.path.exists(go):
+        check(time.monotonic() < deadline, "elastic: the joiner never went")
+        time.sleep(0.1)
+    for kern in kernels.values():
+        kern.launches = 0
+    ex.run(shard, steps, ckpt, model=model)
+    h = hashlib.sha256()
+    for prm in model.parameters():
+        h.update(prm.detach().float().cpu().numpy().tobytes())
+    recs = [{k: r[k] for k in ("t_wall", "wall_s", "feed_wait_s",
+                               "collective_s", "collective_overlapped_s",
+                               "tokens")}
+            for r in tele.ledger().records()]
+    note("out", {"task": task, "syncs": syncs,
+                 "observed": {str(k): v for k, v in observed.items()},
+                 "loss_calls": calls[0],
+                 "launches": {n: k.launches for n, k in kernels.items()},
+                 "records": recs, "ledger": tele.ledger().summary(),
+                 "goodput": goodput.status(), "sha256": h.hexdigest()}, "w")
+    return 0
+
+
+def _jsonl(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _poll(cond, what, deadline, job):
+    while not cond():
+        check(job.poll() is None,
+              f"elastic: the job ended ({job.returncode}) before {what} "
+              f"(chiprun_out/elastic_job.log)")
+        check(time.monotonic() < deadline, f"elastic: timed out: {what}")
+        time.sleep(0.2)
+
+
+def elastic_phase(smi):
+    """The port's elastic trainer on the card (see the module docstring):
+    3 workers under the port's launcher, one SIGKILLed after the first
+    commit, the survivors' shrink, ``POST /resize`` and a fresh worker's
+    grow back to 3, 40 steps.  Returns the phase's line and the K1-K3
+    launches summed over the workers."""
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+    from dmlc_tpu_torch.models import transformer as tfm
+    from dmlc_tpu_torch.tracker.rendezvous import free_port
+
+    root = os.path.join(ROOT, "build", "elastic")
+    shutil.rmtree(root, ignore_errors=True)
+    out = os.path.join(root, "out")
+    os.makedirs(out)
+    shard, ckpt = os.path.join(root, "d.rec"), os.path.join(root, "ck")
+    ex.make_data(shard)
+    cfg = elastic_config()
+    check((ex.PER_PART, ex.SEQ) == (TRAIN_B, ELASTIC_T),
+          "elastic: flash_bwd_phase holds K1-K3 at another shape")
+    logs = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(logs, exist_ok=True)
+    shm0 = _dmlc_shm()
+    mport = free_port()
+    env = dict(os.environ, **ELASTIC_ENV,
+               DMLC_TRACKER_METRICS_PORT=str(mport))
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    wargs = [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--elastic-worker", shard, str(ELASTIC_STEPS), ckpt, out]
+    base = f"http://127.0.0.1:{mport}"
+    t_start = time.time()
+    deadline = time.monotonic() + ELASTIC_TIMEOUT_S
+    job_log = open(os.path.join(logs, "elastic_job.log"), "w")
+    joiner_log = open(os.path.join(logs, "elastic_joiner.log"), "w")
+    job = subprocess.Popen(
+        [sys.executable, "-m", "dmlc_tpu_torch.tracker.submit", "--cluster",
+         "local", "--num-workers", str(ELASTIC_WORKERS), "--max-attempts",
+         "1", "--host-ip", "127.0.0.1", "--", *wargs],
+        cwd=ROOT, env=env, stdout=job_log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    joiner = None
+    polls = {}
+    try:
+        def progress(task, after=0.0):
+            doc = _jsonl(os.path.join(out, f"progress.{task}"))
+            return doc[-1]["step"] if doc and doc[-1]["t"] > after else 0
+
+        def synced(task, world):
+            return [s["t"] for s in _jsonl(os.path.join(out, f"syncs.{task}"))
+                    if s["world"] == world]
+
+        _poll(lambda: progress(2) >= ELASTIC_KILL_AT
+              and os.path.exists(os.path.join(ckpt, "step_00000020",
+                                              "manifest.json")),
+              "the first commit and the kill step", deadline, job)
+        victim = _jsonl(os.path.join(out, "pid.2"))[0]
+        os.kill(victim["pid"], 9)
+        t_kill = time.time()
+        # the joiner reaches the card while the survivors shrink and
+        # train at world 2; it enters the job after the /resize
+        go = os.path.join(out, "go")
+        joiner = subprocess.Popen(
+            wargs + [go], cwd=ROOT, stdout=joiner_log,
+            stderr=subprocess.STDOUT,
+            env=dict(env, DMLC_TASK_ID="3", DMLC_TRACKER_URI="127.0.0.1",
+                     DMLC_TRACKER_PORT=victim["port"], DMLC_ROLE="worker"),
+            start_new_session=True)
+        _poll(lambda: synced(0, 2) and synced(1, 2), "the shrink", deadline,
+              job)
+        t_shrunk = time.time()
+        _poll(lambda: progress(0, synced(0, 2)[0]) >= ELASTIC_GROW_AT,
+              "steps at world 2", deadline, job)
+        req = urllib.request.Request(
+            base + "/resize", data=json.dumps({"world": 3}).encode(),
+            headers={"Content-Type": "application/json"})
+        check(json.loads(urllib.request.urlopen(req, timeout=30).read())
+              .get("requested"), "elastic: /resize refused")
+        t_grow = time.time()
+        open(go, "w").close()
+        while job.poll() is None or joiner.poll() is None:
+            check(time.monotonic() < deadline, "elastic: the job timed out")
+            check(joiner.poll() in (None, 0),
+                  f"elastic: the joiner exited {joiner.returncode} "
+                  f"(chiprun_out/elastic_joiner.log)")
+            try:
+                polls["metrics"] = urllib.request.urlopen(
+                    base + "/metrics", timeout=10).read().decode()
+                polls["goodput"] = json.loads(urllib.request.urlopen(
+                    base + "/goodput", timeout=10).read())
+            except (OSError, ValueError):
+                pass   # the tracker closes with the job's end
+            time.sleep(1.0)
+    finally:
+        for proc in (job, joiner):
+            if proc is not None and proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        job_log.close()
+        joiner_log.close()
+    wall = time.time() - t_start
+    check(job.returncode == 0 and joiner.returncode == 0,
+          f"elastic: job exit {job.returncode}, joiner {joiner.returncode}"
+          f" (chiprun_out/elastic_job.log)")
+    docs = {t: _jsonl(os.path.join(out, f"out.{t}"))[0] for t in (0, 1, 3)}
+    pids = [_jsonl(os.path.join(out, f"pid.{t}"))[0]["pid"]
+            for t in range(4)]
+    left = []
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            left.append(pid)
+        except ProcessLookupError:
+            pass
+    check(not left, f"elastic: processes left behind {left}")
+    check(_dmlc_shm() <= shm0,
+          f"elastic: shm segments left {_dmlc_shm() - shm0}")
+    # both resizes on every survivor, the joiner's one sync at world 3
+    for t in (0, 1):
+        worlds = [s["world"] for s in docs[t]["syncs"]]
+        check(worlds == [3, 2, 3], f"elastic: task {t} syncs {worlds}")
+        check(docs[t]["syncs"][1]["done"] == 20,
+              f"elastic: shrink resynced at {docs[t]['syncs'][1]['done']}")
+    check([s["world"] for s in docs[3]["syncs"]] == [3],
+          f"elastic: joiner syncs {docs[3]['syncs']}")
+    m = re.search(r'^dmlc_elastic_resizes_total\{rank="tracker"\} '
+                  r'([0-9.eE+-]+)$', polls.get("metrics", ""), re.MULTILINE)
+    check(m is not None and float(m.group(1)) >= 2,
+          f"elastic: /metrics resizes {m and m.group(1)}")
+    # every step's loss is one allreduced value on every rank that took it
+    by_step = {}
+    for d in docs.values():
+        for step, (loss, verdict) in d["observed"].items():
+            if verdict == "ok":
+                by_step.setdefault(int(step), set()).add(loss)
+    check(sorted(by_step) == list(range(1, ELASTIC_STEPS + 1))
+          and all(len(v) == 1 for v in by_step.values()),
+          f"elastic: losses disagree {by_step}")
+    losses = [by_step[s].pop() for s in range(1, ELASTIC_STEPS + 1)]
+    check(all(math.isfinite(x) for x in losses)
+          and np.mean(losses[-10:]) < np.mean(losses[:10]),
+          f"elastic: losses {losses}")
+    check(len({d["sha256"] for d in docs.values()}) == 1,
+          "elastic: final parameters differ between ranks")
+    for t, d in docs.items():
+        want = cfg.n_layers * d["loss_calls"]
+        check(all(n == want for n in d["launches"].values()),
+              f"elastic: task {t} launches {d['launches']} for "
+              f"{d['loss_calls']} loss evaluations")
+    # goodput: every second named, the episode attributed
+    good = polls.get("goodput") or {}
+    cl = good.get("cluster", {})
+    check(good.get("per_rank"), f"elastic: /goodput empty {good}")
+    for doc in list(good["per_rank"].values()) + [cl]:
+        check(abs(sum(doc["buckets"].values()) - doc["wall_s"])
+              <= 0.02 * doc["wall_s"], f"elastic: goodput sums {doc}")
+    check(cl["buckets"]["resize"] > 0
+          and cl["buckets"]["checkpoint_restore"] > 0,
+          f"elastic: unattributed episode {cl['buckets']}")
+    check(cl["buckets"]["unattributed"] < 0.10 * cl["wall_s"],
+          f"elastic: unattributed {cl['buckets']}")
+
+    # the numbers: step p50 in each world from the survivors' ledgers,
+    # the step that holds a resync left out
+    def p50(lo, hi):
+        walls = [r["wall_s"] for t in (0, 1) for r in docs[t]["records"]
+                 if lo < r["t_wall"] <= hi]
+        return median(walls) * 1e3 if walls else None
+
+    shrink_done = max(docs[t]["syncs"][1]["t"] for t in (0, 1))
+    grow_done = max(d["syncs"][-1]["t"] for d in docs.values())
+    first_after = {
+        name: min(r["t_wall"] for t in (0, 1) for r in docs[t]["records"]
+                  if r["t_wall"] > at)
+        for name, at in (("shrink", shrink_done), ("grow", grow_done))}
+    restores = [s for d in docs.values() for s in d["syncs"]
+                if s["rank"] == 0]
+    led = docs[0]["ledger"]
+    doc = {"phase": "elastic", "card": smi, "model": "flagship",
+           "n_layers": cfg.n_layers, "params": tfm.count_params(cfg),
+           "reduced": "depth 16 -> 2: each rank holds a full replica and "
+                      "three share one card and the host; a resync "
+                      "broadcasts params and both AdamW moments in "
+                      "float64 (5.8 GB a rank at depth 2, 24 GB at 16)",
+           "workers": ELASTIC_WORKERS, "steps": ELASTIC_STEPS,
+           "B": ex.PER_PART, "T": ex.SEQ, "env": ELASTIC_ENV,
+           "step_p50_ms": {"world3": p50(0, t_kill),
+                           "world2": p50(first_after["shrink"], t_grow),
+                           "world3_again": p50(first_after["grow"],
+                                               float("inf"))},
+           "collective_exposed_fraction":
+               led["collective_exposed_fraction"],
+           "collective_overlapped_fraction":
+               led["collective_overlapped_fraction"],
+           "feed_wait_fraction": led["feed_wait_fraction"],
+           "kill_to_first_step_s": first_after["shrink"] - t_kill,
+           "shrink_settled_s": t_shrunk - t_kill,
+           "resize_to_first_step_s": first_after["grow"] - t_grow,
+           "syncs_rank0": [{k: s[k] for k in ("world", "done", "bytes",
+                                               "restore_s", "broadcast_s")}
+                           for s in restores],
+           "goodput_fractions": {
+               r: {b: v / d["wall_s"] for b, v in d["buckets"].items()}
+               for r, d in good["per_rank"].items()},
+           "goodput_cluster_fractions": cl["fractions"],
+           "losses_first_last": [losses[0], losses[-1]],
+           "launches": {n: sum(d["launches"][n] for d in docs.values())
+                        for n in docs[0]["launches"]},
+           "loss_calls": {t: d["loss_calls"] for t, d in docs.items()},
+           "wall_s": wall}
+    shutil.rmtree(root, ignore_errors=True)
+    return doc, doc["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -2662,6 +3041,14 @@ def main() -> int:
     option_launches = model_options_phase(tfm, serving, fa, pa, tele, cfg,
                                           prompts, looping)
 
+    # 7c. the elastic trainer: 3 workers share the card, one is lost, the
+    # world shrinks and grows back (the kernels are built already, so the
+    # workers load them)
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic_doc, option_launches["elastic"] = elastic_phase(smi)
+    emit(elastic_doc)
+
     # 8. the sparse text path: LibSVM and CSV through libsvm_feed; then
     # the tracker phase's 4-worker jobs on the same files
     for doc in sparse_phase(smi, spine_docs[2],
@@ -2716,4 +3103,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(elastic_worker(sys.argv[2:]))
     sys.exit(main())

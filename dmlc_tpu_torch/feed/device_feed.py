@@ -42,6 +42,13 @@ step ledger bills only spans on the stepping thread, so ``feed.wait`` is
 a step's feed-wait share while the producers' spans overlap it.
 ``stats()`` keeps the feed's own totals beside them.
 
+Across processes (``world=(rank, world_size)``) a feed reads its global
+partitions of the byte-range split; :meth:`DeviceFeed.resize` rebuilds
+them in place for a new world (the elastic trainer's repartition).  With
+``DMLC_FEED_AUTOTUNE=1`` the feed re-sizes its workers and depth at each
+epoch boundary from the step ledger's feed-wait share
+(:class:`~.autotune.FeedAutotuner`, the ``feed.autotune_*`` gauges).
+
 Batch-borrowing contract: a partition iterator's yielded dict is read
 only between the yield and the next ``next()`` on that iterator (it is
 copied into staging at once), so iterators reuse one output buffer.
@@ -258,6 +265,26 @@ class DeviceFeed:
                        else max(1, get_env("DMLC_FEED_DEPTH", 2)))
         self._workers = max(1, min(num_parts, num_workers or get_env(
             "DMLC_FEED_WORKERS", min(4, os.cpu_count() or 2))))
+        # ledger-driven auto-tuning (DMLC_FEED_AUTOTUNE=1): the controller
+        # watches the step ledger's feed-wait fraction and re-sizes
+        # workers/depth within bounds at every epoch boundary (worker →
+        # partition assignment is w mod W, so W may only change between
+        # epochs without breaking per-partition batch order).  The signal
+        # is the TRAINING STEP's feed wait, so enable it for the one feed
+        # the ledgered loop consumes
+        self._autotuner = None
+        if get_env("DMLC_FEED_AUTOTUNE", False):
+            from .autotune import FeedAutotuner
+
+            wmax = get_env("DMLC_FEED_WORKERS_MAX", 0) or \
+                (os.cpu_count() or 2)
+            self._autotuner = FeedAutotuner(
+                workers=self._workers, depth=self._depth,
+                min_workers=max(1, get_env("DMLC_FEED_WORKERS_MIN", 1)),
+                max_workers=max(1, min(num_parts, wmax)),
+                max_depth=max(self._depth,
+                              get_env("DMLC_FEED_DEPTH_MAX", 4)))
+            self._ledger_seen_seq = 0
         self._on_card = self.device.type == "cuda"
         self._stream = (torch.cuda.Stream(self.device) if self._on_card
                         else None)
@@ -572,6 +599,7 @@ class DeviceFeed:
                 "DeviceFeed built from plain iterators is single-epoch: pass "
                 "iterator factories (callables) for multi-epoch use")
         self._epochs_started += 1
+        self._apply_autotune()
         self._part_iters = [s() if callable(s) else s for s in self._sources]
         self._part_done = [False] * self._n_parts
         self._n_dead = 0
@@ -654,6 +682,38 @@ class DeviceFeed:
             _logger.warning("DeviceFeed.close(): a pipeline thread is still "
                             "alive after 5 s; leaving it (daemon)")
 
+    # ---- ledger-driven auto-tuning --------------------------------------
+    def _apply_autotune(self) -> None:
+        """Epoch-boundary controller step: feed the step ledger's recent
+        feed-wait fraction to the FeedAutotuner and apply its (workers,
+        depth) decision before the pipeline threads start.  A worker
+        count change re-maps partitions (w mod W) for the fresh epoch
+        only; a depth change re-sizes the staging pool, which is rebuilt
+        every epoch (from the buffers already built)."""
+        if self._autotuner is None:
+            return
+        recs, last = telemetry.ledger().records_since(self._ledger_seen_seq)
+        walls = sum(r["wall_s"] for r in recs)
+        if len(recs) < self._autotuner.window or walls <= 0:
+            # too thin to decide: the seen-seq stays, so short epochs
+            # (fewer steps than the window) pool their evidence
+            telemetry.set_gauge("feed", "autotune_workers", self._workers)
+            telemetry.set_gauge("feed", "autotune_depth", self._depth)
+            return
+        self._ledger_seen_seq = last
+        fw = sum(r["feed_wait_s"] for r in recs) / walls
+        workers, depth = self._autotuner.observe(fw)
+        workers = max(1, min(self._n_parts, workers))
+        if workers != self._workers or depth != self._depth:
+            _logger.info("feed autotune: feed-wait %.2f over %d steps -> "
+                         "workers %d->%d, depth %d->%d", fw, len(recs),
+                         self._workers, workers, self._depth, depth)
+            telemetry.inc("feed", "autotune_adjustments")
+            self._workers = workers
+            self._depth = depth
+        telemetry.set_gauge("feed", "autotune_workers", self._workers)
+        telemetry.set_gauge("feed", "autotune_depth", self._depth)
+
     # ---- partitions across processes ------------------------------------
     @staticmethod
     def _check_world(world) -> tuple:
@@ -672,6 +732,31 @@ class DeviceFeed:
     @property
     def world(self) -> tuple:
         return self._world
+
+    def resize(self, world) -> None:
+        """Elastic repartition: rebuild the per-partition iterators for a
+        new ``(rank, world_size)`` in place.
+
+        The in-flight epoch is abandoned (on a resize the trainer
+        restores from the last checkpoint anyway); the next iteration
+        starts a FRESH epoch whose partitions tile the dataset exactly
+        once under the new byte-range split.  The local layout (batch
+        shapes, staging buffers, the stream) is untouched: only the
+        global partition ids change."""
+        check(self._source_builder is not None,
+              "this feed was built from explicit part_sources; elastic "
+              "resize needs a source_builder (the recordio_/libsvm_ "
+              "feed factories provide one)")
+        world = self._check_world(world)
+        old = self._world
+        self.close()
+        self._world = world
+        self._sources = self._build_sources()
+        self._multi_epoch = True
+        telemetry.inc("feed", "resizes")
+        telemetry.record_event("feed_resized", old_world=list(old),
+                               world=list(world),
+                               local_parts=self._n_parts)
 
 
 # ---------------------------------------------------------------------------

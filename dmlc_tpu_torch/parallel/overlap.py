@@ -226,6 +226,12 @@ class GradientBucketer:
             return out
 
         def guarded():
+            if self._failed is not None:
+                # a bucket of this reduction already failed, so none of
+                # its results is used: a queued bucket does not start a
+                # collective of its own (against a dead peer each would
+                # wait out a setup or shm timeout)
+                raise self._failed
             try:
                 return run()
             except BaseException as e:  # noqa: BLE001 - flag + transport

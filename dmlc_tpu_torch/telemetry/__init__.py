@@ -17,7 +17,10 @@ generator read either package).
                      (queue / prefill / TTFT / TBT / preempt / finish)
   * ``slo``          declarative serving SLOs (DMLC_SLO_*) as
                      multi-window burn rates behind /slo
-  * ``goodput``      the serving availability ledger
+  * ``goodput``      the job goodput/badput ledger (every rank's wall
+                     clock in one bucket per instant, shipped with
+                     heartbeats), its tracker-side aggregator behind
+                     /goodput, and the serving availability ledger
   * ``tracecontext`` the X-DMLC-Trace header helpers
   * ``heartbeat``    worker heartbeats over the rendezvous protocol,
                      the tracker-side aggregator (/metrics, /healthz,
@@ -27,8 +30,8 @@ generator read either package).
                      tail) that the launcher collects after a failure
 
 Left for later (ROADMAP.md Queue 1 item 9): ``compute`` (cost analysis
-and memory samples), the job goodput ledger, the anomaly watchdog, the
-flight recorder, forensics, the decision log and the fleet trace store.
+and memory samples), the anomaly watchdog, the flight recorder,
+forensics, the decision log and the fleet trace store.
 
 Typical use::
 
@@ -85,7 +88,12 @@ from .exporters import (  # noqa: F401
     to_chrome_trace_json,
     to_prometheus_text,
 )
-from .goodput import AvailabilityLedger  # noqa: F401
+from .goodput import (  # noqa: F401
+    AvailabilityLedger,
+    GoodputAggregator,
+    GoodputLedger,
+    reset_goodput,
+)
 from .heartbeat import (  # noqa: F401
     HeartbeatSender,
     TelemetryAggregator,
@@ -110,6 +118,8 @@ __all__ = [
     "AvailabilityLedger",
     "ClockOffsetEstimator",
     "DEFAULT_BOUNDS",
+    "GoodputAggregator",
+    "GoodputLedger",
     "HeartbeatSender",
     "Histogram",
     "RequestLedger",
@@ -137,6 +147,7 @@ __all__ = [
     "record_span",
     "reset",
     "reset_events",
+    "reset_goodput",
     "reset_steps",
     "set_gauge",
     "snapshot",

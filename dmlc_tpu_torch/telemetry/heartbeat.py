@@ -353,18 +353,21 @@ class TelemetryAggregator:
 
 
 class TelemetryHTTPServer:
-    """Lightweight /metrics + /healthz (+ POST /resize) surface.
+    """Lightweight /metrics + /healthz (+ /goodput, POST /resize) surface.
 
     ``resize_handler`` (a callable taking the parsed JSON body, returning
     a JSON-able dict) enables ``POST /resize`` — the elastic tracker's
     operator scale-up endpoint; a ``ValueError`` from the handler maps to
-    400, a ``RuntimeError`` (e.g. tracker not elastic) to 409.  The JAX
-    server's ``/trace``, ``/anomalies``, ``/compute``, ``/goodput`` and
-    ``/incidents`` wait for their sources (ROADMAP.md Queue 1 item 9)."""
+    400, a ``RuntimeError`` (e.g. tracker not elastic) to 409.
+    ``goodput_source`` (zero-arg callable, e.g.
+    ``GoodputAggregator.report``) enables ``GET /goodput``: the cluster
+    wall-clock decomposition.  The JAX server's ``/trace``,
+    ``/anomalies``, ``/compute`` and ``/incidents`` wait for their
+    sources (ROADMAP.md Queue 1 items 9a-9b)."""
 
     def __init__(self, aggregator: TelemetryAggregator,
                  host: str = "127.0.0.1", port: int = 0,
-                 resize_handler=None):
+                 resize_handler=None, goodput_source=None):
         agg = aggregator
 
         class Handler(BaseHTTPRequestHandler):
@@ -384,6 +387,15 @@ class TelemetryHTTPServer:
                 elif path == "/healthz":
                     self._send(200, "application/json",
                                json.dumps(agg.healthz()).encode())
+                elif path == "/goodput" and goodput_source is not None:
+                    try:
+                        body = json.dumps(goodput_source()).encode()
+                    except Exception as e:  # noqa: BLE001 - no 500s
+                        logger.warning("/goodput render failed: %r", e)
+                        self._send(503, "text/plain",
+                                   b"goodput render failed\n")
+                        return
+                    self._send(200, "application/json", body)
                 else:
                     self._send(404, "text/plain", b"not found\n")
 
@@ -508,8 +520,8 @@ class HeartbeatSender:
         # scalar fields riding every beat once a guard has acted, so
         # the tracker watchdog can show WHAT the worker did about a
         # flagged step (the /anomalies `remediation` field).  The JAX
-        # worker's beat also carries `compute` and the job `goodput`
-        # ledger (ROADMAP.md Queue 1 item 9); the port has neither yet
+        # worker's beat also carries `compute` (ROADMAP.md Queue 1 item
+        # 9b); the port has none yet
         from ..resilience import selfheal
 
         sh = selfheal.status()
@@ -524,6 +536,15 @@ class HeartbeatSender:
         slo_doc = slo_mod.status()
         if slo_doc:
             doc["slo"] = slo_doc
+        # goodput ledger status (telemetry.goodput): the wall-clock
+        # decomposition, cumulative per-bucket seconds re-shipped fully
+        # every beat (self-correcting across drops/remaps), the recent
+        # badput intervals, and the windowed effective-vs-in-step rates
+        from . import goodput as goodput_mod
+
+        goodput_doc = goodput_mod.status()
+        if goodput_doc:
+            doc["goodput"] = goodput_doc
         if self.ship_trace:
             doc["trace"] = self._trace_doc()
             payload = self._capped_payload(doc)

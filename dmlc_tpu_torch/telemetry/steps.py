@@ -327,7 +327,7 @@ class StepLedger:
         when no step was open).  ``tokens``/``flops``/``bytes_fed``
         default to declared-FLOPs × tokens and the feed-counter delta.
         ``bytes_accessed`` (bytes the step moves, from a cost analysis;
-        the port's callers have none yet, ROADMAP.md Queue 1 item 9)
+        the port's callers have none yet, ROADMAP.md Queue 1 item 9b)
         adds the bandwidth half of the roofline: ``membw_util`` and the
         ``bound`` verdict.
         ``tokens_per_step`` (committed tokens per batch row — > 1 only
@@ -513,8 +513,14 @@ class StepLedger:
         if rec.get("spec_accept_rate") is not None:
             core.set_gauge("step", "spec_accept_rate_pct",
                            100.0 * rec["spec_accept_rate"])
-        # the reference also feeds the job-level GoodputLedger here
-        # (goodput.on_step); that ledger is ROADMAP.md Queue 1 item 9
+        # feed the job-level goodput ledger (lazy: a no-op unless the
+        # process opted in by creating one; goodput never imports steps)
+        try:
+            from . import goodput as _goodput
+            _goodput.on_step(tokens=rec.get("tokens") or 0.0,
+                             step_s=rec["wall_s"])
+        except Exception:  # noqa: BLE001 - accounting must not fail steps
+            pass
 
     # ---- views ----------------------------------------------------------
     def records(self) -> List[StepRecord]:

@@ -207,11 +207,13 @@ class RabitTracker:
     (Prometheus text) + ``/healthz`` (+ ``POST /resize``), with
     straggler ranks flagged via ``logging.warning``.  The heartbeats'
     clock samples feed a :class:`ClockOffsetEstimator` (``/healthz``
-    ``clock_offsets``).  The JAX tracker's flight recorder, anomaly
-    watchdog, goodput aggregator and incident reporter (``/trace``,
-    ``/anomalies``, ``/compute``, ``/goodput``, ``/incidents``) are not
-    ported yet (ROADMAP.md Queue 1 item 9): the heartbeat fields they
-    read are accepted and ignored.
+    ``clock_offsets``).  The beats' ``goodput`` sub-docs feed a
+    :class:`GoodputAggregator`: the cluster wall-clock decomposition on
+    ``GET /goodput`` and the ``dmlc_goodput_*`` families on /metrics.
+    The JAX tracker's flight recorder, anomaly watchdog and incident
+    reporter (``/trace``, ``/anomalies``, ``/compute``, ``/incidents``)
+    are not ported yet (ROADMAP.md Queue 1 item 9a): the heartbeat fields
+    they read are accepted and ignored.
 
     Failure detection: with a positive ``miss_window_s`` (or
     ``DMLC_TRACKER_MISS_WINDOW_S``; default 0 = disabled) a monitor
@@ -320,8 +322,8 @@ class RabitTracker:
         # dmlc-check: unguarded(start/close control-thread lifecycle)
         self._monitor: Optional[threading.Thread] = None
         self._monitor_stop = threading.Event()
-        from ..telemetry import ClockOffsetEstimator, TelemetryAggregator, \
-            exporters
+        from ..telemetry import ClockOffsetEstimator, GoodputAggregator, \
+            TelemetryAggregator, exporters
 
         # local_snapshot: the tracker process IS the launcher for local
         # jobs — its own registry carries restart/retry counters that no
@@ -337,6 +339,11 @@ class RabitTracker:
         # per-rank clock offsets from the samples each heartbeat's trace
         # sub-document carries (TrackerClient.clock_ping)
         self.clock = ClockOffsetEstimator()
+        # goodput aggregator: consumes the heartbeat ``goodput`` sub-docs
+        # into the cluster wall-clock decomposition (/goodput,
+        # dmlc_goodput_* gauges on /metrics)
+        self.goodput = GoodputAggregator()
+        self.telemetry.extra_text = self.goodput.prometheus_text
         # dmlc-check: unguarded(built pre-start; closed by the control thread)
         self.metrics_server = None
         self.metrics_port: Optional[int] = None
@@ -347,10 +354,11 @@ class RabitTracker:
 
             self.metrics_server = TelemetryHTTPServer(
                 self.telemetry, host=host_ip, port=metrics_port,
-                resize_handler=self._http_resize)
+                resize_handler=self._http_resize,
+                goodput_source=self.goodput.report)
             self.metrics_port = self.metrics_server.port
-            logger.info("tracker /metrics + /healthz + /resize on %s:%d",
-                        host_ip, self.metrics_port)
+            logger.info("tracker /metrics + /healthz + /goodput + /resize "
+                        "on %s:%d", host_ip, self.metrics_port)
         logger.info("tracker listening on %s:%d", host_ip, self.port)
 
     def worker_envs(self) -> Dict[str, str]:
@@ -573,6 +581,12 @@ class RabitTracker:
         self.telemetry.remap_ranks(rank_map)
         # clock relations move with the surviving process too
         self.clock.remap_ranks(rank_map)
+        # goodput docs are cumulative and re-shipped fully every beat,
+        # so the remap is self-correcting — but moving them now keeps
+        # /goodput truthful between the renumbering and the next beat.
+        # The remap drops every rank it does not map (the removed ones);
+        # a drop by OLD number after it would hit a survivor's new one
+        self.goodput.remap_ranks(rank_map)
         telemetry.inc("elastic", "resizes_total")
         telemetry.inc("elastic", "shrinks_total"
                       if target < old_world else "grows_total")
@@ -679,10 +693,14 @@ class RabitTracker:
                     if doc is None:
                         continue
                     self.telemetry.update(w.rank, doc)
-                    # the selfheal/compute/goodput fields and the trace's
-                    # spans and steps feed consumers not ported yet
-                    # (ROADMAP.md Queue 1 items 8-9); its clock sample
-                    # feeds the offset estimator
+                    gd = doc.get("goodput")
+                    if isinstance(gd, dict):
+                        # goodput decomposition: /goodput aggregation
+                        self.goodput.ingest(w.rank, gd)
+                    # the selfheal/compute fields and the trace's spans
+                    # and steps feed consumers not ported yet (ROADMAP.md
+                    # Queue 1 item 9a); its clock sample feeds the
+                    # offset estimator
                     trace = doc.get("trace")
                     clk = trace.get("clock") if isinstance(trace, dict) \
                         else None
@@ -893,6 +911,10 @@ class RabitTracker:
             entry.sock.close()  # usually already closed by the worker
         if self._registry is not None:
             self._registry.drop(rank)
+        # goodput: the dead rank's wall keeps running as ``preempted``
+        # until a relaunched process reports under this rank (or the
+        # rank is evicted by a shrink, which drops it)
+        self.goodput.mark_dead(rank)
 
     def _monitor_loop(self) -> None:
         interval = max(0.1, min(1.0, self.miss_window_s / 4))
