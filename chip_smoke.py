@@ -123,6 +123,38 @@ Phases, each printing one JSON line (any failure exits non-zero):
             bytes and seconds and rank 0's restore, every goodput
             bucket's fraction per rank; job logs in
             ``chiprun_out/elastic_*.log``
+   mesh     the sharded flagship over ``torch.distributed`` (under
+            ``build/mesh``, removed after): first K1 alone at the mesh
+            train step's ring-step shape (B=2, T_local=2048, 8 heads,
+            D=128, bf16) at a diagonal and a fully visible block's
+            offsets, held against its plain version and timed beside it
+            and SDPA; then ``dmlc_tpu_torch.examples.psum_worker`` as a
+            4-worker job (each rank's all-reduce of rank+1 equal to
+            10), beside two ranks of ``chip_smoke.py --gloo-probe``
+            that hand gloo each op on a CUDA tensor (gate: all but
+            point-to-point taken and right; every verdict goes on the
+            line and into ``chiprun_out/gloo_probe.log``); then 4
+            workers of ``python -m dmlc_tpu_torch.tracker.submit
+            --cluster local --num-workers 4`` sharing the card (each
+            ``chip_smoke.py --mesh-worker``: ``initialize_distributed()``,
+            which picks gloo for ranks that share a card, and
+            ``build_mesh(dp=1, sp=2, tp=2)``).  Gates: ring attention
+            alone on q/k/v [1, 8192, 16, 128] bf16, causal, output and
+            q/k/v gradients against ``flash_attention`` on the gathered
+            sequence (bf16 tolerances) with sp launches
+            of K1 a call; Ulysses with ``attn_fn=flash_attention`` the
+            same; the flagship's widths at depth 2 in float32, B=2 x
+            T=2048: the sharded loss within 2e-5 relative of one
+            process's ``unsharded_loss`` and every gathered gradient
+            within 1e-4 of its max; 5 bf16 AdamW steps of
+            ``make_train_step(model, mesh=mesh)`` at global B=2 x
+            T=4096 (remat ``save_flash``, seed 0): one loss per step on
+            all ranks, falling, and each leaf's SHA-256 equal on the
+            ranks that hold the same shard.  Numbers: the backend, step
+            p50 per rank, K1 launches per ring call and per step, bytes
+            per step by collective and the ring's K/V shifts staged
+            through host memory, the ring's and Ulysses' forward ms,
+            the card's name and power limit
    telemetry  the port's ``LoadGenerator`` drives the port's server (the
             flagship, spec_k=3, seed 0): 8 streams x 2 requests, prompts
             of 17..511 tokens, 32 new tokens; gates: /metrics parses as
@@ -185,8 +217,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
 9. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
             its path (and on the spine's timed steps, and in
             ``path_launches`` on the routed serving and train paths, the
-            self-heal runs and the elastic job), max error, times and
-            roofline bound
+            self-heal runs, the elastic job and the mesh phase's ring,
+            Ulysses and train runs), max error, times and roofline
+            bound; K1's ``ring_step`` rows
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits with code 2 and prints no result.  Details go to
@@ -2399,12 +2432,12 @@ def moe_check_phase(tfm, cfg):
     def forward(impl):
         routes = []
         for layer in model.layers:
-            def record(x, c, route_tokens=None, layer=layer):
+            def record(x, c, route_tokens=None, layer=layer, **kw):
                 probs = torch.softmax(
                     (x.reshape(-1, x.shape[-1]) @ layer.gate).float(), -1)
                 routes.append(torch.topk(probs, c.moe_topk, dim=-1)
                               .indices.sort(dim=-1).values)
-                return type(layer).moe_ffn(layer, x, c, route_tokens)
+                return type(layer).moe_ffn(layer, x, c, route_tokens, **kw)
             layer.moe_ffn = record
         try:
             x = embed_lookup(model.embed, ids)
@@ -2932,6 +2965,572 @@ def elastic_phase(smi):
     return doc, doc["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 7d: the sharded flagship on a dp x sp x tp mesh
+# ---------------------------------------------------------------------------
+
+MESH_WORKERS = 4
+MESH_SHAPE = {"dp": 1, "sp": 2, "tp": 2}
+MESH_LAYERS = 2          # the flagship's widths at depth 2 (see the phase)
+MESH_B, MESH_T = 2, 4096             # the train steps' global batch
+MESH_CHECK_B, MESH_CHECK_T = 2, 2048  # the f32 gradient check's
+MESH_RING = (1, 8192, 16, 128)       # ring attention alone: B, T, H, D
+MESH_STEPS = 5
+MESH_TIMEOUT_S = 420
+MESH_LOSS_RTOL = 2e-5    # f32 sharded loss vs one process: sum order
+MESH_GRAD_TOL = 1e-4     # max |g - g_ref| / max |g_ref| per leaf, f32
+MESH_ENV = {"OMP_NUM_THREADS": "2"}
+MESH_OPS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast",
+            "ppermute", "all_to_all")
+
+
+GLOO_PROBE_OPS = ("all_reduce", "all_gather_into_tensor",
+                  "reduce_scatter_tensor", "all_to_all_single", "broadcast",
+                  "batch_isend_irecv")
+
+
+def gloo_probe_worker(argv) -> int:
+    """One of two ranks that share the card over gloo: each op the mesh
+    hands gloo, once on a CUDA tensor and held to its closed form,
+    point-to-point last (a refusal there closes the pair).  Writes
+    ``{op: "ok" | "wrong" | "refused: ..."}`` to ``<out>/gloo.<rank>.json``
+    after each op."""
+    import datetime
+    import torch.distributed as dist
+
+    rank, port, out_dir = int(argv[0]), argv[1], argv[2]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    dev = torch.device("cuda", 0)
+    x = torch.full((4, 3), float(rank + 1), device=dev)
+    rows = torch.arange(4.0, device=dev)[:, None].repeat(1, 3)
+
+    def run(op):
+        if op == "all_reduce":
+            y = x.clone()
+            dist.all_reduce(y)
+            return y, torch.full_like(x, 3.0)
+        if op == "all_gather_into_tensor":
+            y = x.new_empty((8, 3))
+            dist.all_gather_into_tensor(y, x)
+            return y, torch.cat([torch.full_like(x, 1.0),
+                                 torch.full_like(x, 2.0)])
+        if op == "reduce_scatter_tensor":
+            y = x.new_empty((2, 3))
+            dist.reduce_scatter_tensor(y, x)
+            return y, torch.full_like(y, 3.0)
+        if op == "all_to_all_single":
+            y = torch.empty_like(rows)
+            dist.all_to_all_single(y, rows + 10 * rank)
+            mine = rows[2 * rank:2 * rank + 2]
+            return y, torch.cat([mine, mine + 10])
+        if op == "broadcast":
+            y = x.clone()
+            dist.broadcast(y, 1)
+            return y, torch.full_like(x, 2.0)
+        y = torch.empty_like(x)
+        for req in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x, 1 - rank),
+                 dist.P2POp(dist.irecv, y, 1 - rank)]):
+            req.wait()
+        return y, torch.full_like(x, 2.0 - rank)
+
+    doc = {}
+    for op in GLOO_PROBE_OPS:
+        try:
+            got, want = run(op)
+            torch.cuda.synchronize()
+            doc[op] = "ok" if torch.equal(got, want) else "wrong"
+        except Exception as e:  # noqa: BLE001 - the refusal is the result
+            doc[op] = f"refused: {type(e).__name__}: " \
+                      f"{str(e).splitlines()[0][:200]}"
+        with open(os.path.join(out_dir, f"gloo.{rank}.json"), "w") as f:
+            json.dump(doc, f)
+    sys.stdout.flush()
+    os._exit(0)   # a refused pair can hang the group's teardown
+
+
+def gloo_probe_start(root):
+    """Start the two ranks of :func:`gloo_probe_worker` in a session of
+    their own; returns them for :func:`gloo_probe_finish`."""
+    import socket
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--gloo-probe",
+         str(r), str(port), root], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        start_new_session=True) for r in range(2)]
+
+
+def gloo_probe_finish(procs, root):
+    """Wait for the probe's ranks (killed at 120 s), log them to
+    ``chiprun_out/gloo_probe.log`` and return each op's verdict: "ok"
+    on both ranks, else the first rank's refusal, or what ended a rank
+    that died in the op (gloo aborts the process from its transport
+    thread)."""
+    outs, docs = [], []
+    for r, proc in enumerate(procs):
+        try:
+            out, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            out, _ = proc.communicate()
+        outs.append(f"exit {proc.returncode}\n{out}")
+        path = os.path.join(root, f"gloo.{r}.json")
+        doc = json.load(open(path)) if os.path.exists(path) else {}
+        what = [ln.split("what():", 1)[1].strip()
+                for ln in out.splitlines() if "what():" in ln]
+        died = next((op for op in GLOO_PROBE_OPS if op not in doc), None)
+        if died is not None:
+            doc[died] = (f"aborted (exit {proc.returncode}): "
+                         f"{what[0] if what else out.strip()[-200:]}")
+        docs.append(doc)
+    shutil.rmtree(root, ignore_errors=True)
+    verdict = {}
+    for op in GLOO_PROBE_OPS:
+        bad = [d.get(op, "no answer") for d in docs
+               if d.get(op) != "ok"]
+        verdict[op] = "ok" if not bad else next(
+            (b for b in bad if not b.startswith("no answer")), bad[0])
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "gloo_probe.log"), "w") as f:
+        f.write(json.dumps({"torch": torch.__version__, "ranks": docs,
+                            "verdict": verdict}, indent=1) + "\n")
+        f.write("\n".join(outs))
+    return verdict
+
+
+def mesh_config_():
+    from dmlc_tpu_torch.models import transformer as tfm
+
+    return dataclasses.replace(tfm.flagship_config(), n_layers=MESH_LAYERS)
+
+
+def ring_step_rows(fa):
+    """K1 at the mesh train step's ring-step shape (B=2, T_local=2048, 8
+    local heads, D=128, bf16) at rank 1's offsets: its own block (the
+    diagonal, causal) and rank 0's block (fully visible).  Held against
+    the plain version (pv, m, l; o = pv / l within the bf16 tolerances),
+    timed beside the plain version and SDPA on the same q/k/v (causal /
+    not; normalised output, a yardstick)."""
+    cfg = mesh_config_()
+    gen = torch.Generator("cuda").manual_seed(9)
+    b, t = MESH_B, MESH_T // MESH_SHAPE["sp"]
+    h, d = cfg.n_heads // MESH_SHAPE["tp"], cfg.head_dim
+    q, k, v = (torch.randn((b, t, h, d), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    rows = {}
+    for name, kv_off, pairs in (("diagonal", t, t * (t + 1) // 2),
+                                ("visible", 0, t * t)):
+        kw = dict(scale=d ** -0.5, causal=True, q_offset=t, kv_offset=kv_off)
+        pv, m, l = fa.block_attend(q, k, v, **kw)
+        pv_r, m_r, l_r = fa.block_attend(q, k, v, impl="torch", **kw)
+        torch.cuda.synchronize()
+        o = pv / l.transpose(1, 2)[..., None]
+        o_r = pv_r / l_r.transpose(1, 2)[..., None]
+        mx, mean = errors(o, o_r)
+        e_ml = max(errors(m, m_r)[0],
+                   ((l - l_r).abs() / l_r.clamp_min(1.0)).max().item())
+        check(mx <= BF16_TOL[0] and mean <= BF16_TOL[1] and e_ml <= F32_TOL,
+              f"ring step {name}: {mx} {mean} {e_ml}")
+        del pv, m, l, pv_r, m_r, l_r, o, o_r
+        flops = 4.0 * d * b * h * pairs
+        # q, k, v read (bf16); pv (f32), m and l (f32) written once
+        nbytes = 3 * q.numel() * 2 + q.numel() * 4 + 2 * b * h * t * 4
+        bnd, by = bound_ms(flops, nbytes, torch.bfloat16)
+        causal = name == "diagonal"
+        rows[name] = {
+            "B": b, "T_local": t, "H_local": h, "D": d, "dtype": "bfloat16",
+            "q_offset": t, "kv_offset": kv_off, "max_abs_err": mx,
+            "mean_abs_err": mean, "m_l_err": e_ml,
+            "ms": time_ms(lambda: fa.block_attend(q, k, v, **kw)),
+            "plain_ms": time_ms(lambda: fa.block_attend(q, k, v,
+                                                        impl="torch", **kw),
+                                iters=5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)),
+            "library": f"SDPA {'causal' if causal else 'non-causal'} "
+                       "(normalised output)",
+            "bound_ms": bnd, "bound_by": by}
+        rows[name]["bound_share"] = bnd / rows[name]["ms"]
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _leaf_sha(model, mesh):
+    """{leaf name: (shard key, SHA-256)}: the shard key names which ranks
+    hold the same values (replicated leaves: every rank)."""
+    import hashlib
+
+    from dmlc_tpu_torch.models.transformer import PARAM_SPECS
+
+    out = {}
+    for name, prm in model.named_parameters():
+        spec = PARAM_SPECS[name.rsplit(".", 1)[-1]]
+        key = [mesh.axis_rank(a) for _, a in spec if mesh.axis_size(a) > 1]
+        out[name] = (key, hashlib.sha256(
+            prm.detach().float().cpu().numpy().tobytes()).hexdigest())
+    return out
+
+
+def mesh_collective_checks(mesh):
+    """Every named collective once on CUDA tensors over the sp and tp
+    axes, held to its closed form (the gate for the ops gloo runs on the
+    card directly and for the staged ppermute); returns the ops' names."""
+    from dmlc_tpu_torch.parallel import collectives as coll
+
+    done = []
+    for axis in ("sp", "tp"):
+        n, i = mesh.axis_size(axis), mesh.axis_rank(axis)
+        base = torch.arange(4 * n, dtype=torch.float32,
+                            device=mesh.device).reshape(n, 4)
+        x = base + 100 * i            # rank r of the axis holds base + 100 r
+        total = n * base + 100 * sum(range(n))
+        want = {
+            "all_reduce": total,
+            "all_reduce_max": base + 100 * (n - 1),
+            "all_gather": torch.cat([base + 100 * r for r in range(n)]),
+            "reduce_scatter": total[i:i + 1],
+            "broadcast": base + 100 * (n - 1),
+            "ppermute": base + 100 * ((i - 1) % n),
+            "all_to_all": torch.cat([(base + 100 * r)[i:i + 1]
+                                     for r in range(n)]),
+        }
+        got = {
+            "all_reduce": coll.all_reduce(x, axis, mesh=mesh),
+            "all_reduce_max": coll.all_reduce(x, axis, "max", mesh=mesh),
+            "all_gather": coll.all_gather(x, axis, mesh=mesh),
+            "reduce_scatter": coll.reduce_scatter(x, axis, mesh=mesh),
+            "broadcast": coll.broadcast(x, axis, n - 1, mesh=mesh),
+            "ppermute": coll.ppermute_ring(x, axis, mesh=mesh),
+            "all_to_all": coll.all_to_all(x, axis, split_axis=0,
+                                          concat_axis=0, mesh=mesh),
+        }
+        for op, g in got.items():
+            check(g.device == mesh.device and torch.equal(g, want[op]),
+                  f"mesh: {op} over {axis}: {g} != {want[op]}")
+        check(coll.barrier_sum(axis, mesh=mesh) == n, f"barrier_sum {axis}")
+        done = sorted(got) + ["barrier_sum"]
+    return done
+
+
+def mesh_worker(argv) -> int:
+    """One rank of the mesh phase (under the port's launcher): tracker
+    rendezvous, ``initialize_distributed()``, ``build_mesh(dp=1, sp=2,
+    tp=2)``; then ring attention alone, Ulysses, the f32 gradient check
+    and the bf16 train steps, each held to its reference.  Writes its
+    numbers to ``<out>/mesh.<rank>.json``."""
+    sys.path.insert(0, ROOT)
+    from dmlc_tpu_torch import telemetry as tele
+    from dmlc_tpu_torch.models import transformer as tfm
+    from dmlc_tpu_torch.models.convert import (gather_params,
+                                               shard_params_from_jax)
+    from dmlc_tpu_torch.ops import flash_attention as fa
+    from dmlc_tpu_torch.ops import paged_attention as pa
+    from dmlc_tpu_torch.parallel import build_mesh, initialize_distributed
+    from dmlc_tpu_torch.parallel.ring_attention import \
+        make_sharded_ring_attention
+    from dmlc_tpu_torch.parallel.ulysses import ulysses_attention
+    from dmlc_tpu_torch.tracker.client import TrackerClient
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = argv[0]
+    with open(os.path.join(out_dir, "config.json")) as f:
+        conf = json.load(f)
+    client = TrackerClient()
+    client.start()
+    t0 = time.perf_counter()
+    backend = initialize_distributed(timeout_s=MESH_TIMEOUT_S)
+    mesh = build_mesh(**conf["mesh"])
+    rank = mesh.rank
+    doc = {"rank": rank, "coords": mesh.coords, "backend": backend,
+           "device": str(mesh.device), "init_s": time.perf_counter() - t0}
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
+               "flash_bwd_dq": fa.FLASH_BWD_DQ,
+               "paged_attention": pa.PAGED_ATTENTION}
+
+    def zero():
+        for kern in kernels.values():
+            kern.launches = 0
+
+    def counts():
+        return {n: kern.launches for n, kern in kernels.items()}
+
+    doc["collectives"] = mesh_collective_checks(mesh)
+    sp, tp = mesh.axis_size("sp"), mesh.axis_size("tp")
+    si, ti = mesh.axis_rank("sp"), mesh.axis_rank("tp")
+
+    def block(x):   # this rank's (sp sequence, tp heads) block
+        return x.chunk(sp, dim=1)[si].chunk(tp, dim=2)[ti]
+
+    def heads(x):
+        return x.chunk(tp, dim=2)[ti]
+
+    def seq(x):
+        return x.chunk(sp, dim=1)[si]
+
+    # 2. ring attention alone, 3. Ulysses: against flash_attention on the
+    # gathered sequence (this rank's heads), output and q/k/v gradients
+    gen = torch.Generator("cuda").manual_seed(11)
+    q, k, v, w = (torch.randn(conf["ring"], generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    ref = [heads(x).detach().clone().requires_grad_(True) for x in (q, k, v)]
+    o_ref = fa.flash_attention(*ref, causal=True)
+    (o_ref.float() * heads(w).float()).sum().backward()
+    ref_out = {"o": seq(o_ref.detach()),
+               **{f"d{n}": seq(t.grad) for n, t in zip("qkv", ref)}}
+    del ref, o_ref
+    ring = make_sharded_ring_attention(mesh, causal=True)
+
+    def attn_case(name, run):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        dist.barrier()
+        zero()
+        o = run(*leaves)
+        torch.cuda.synchronize()
+        fwd = counts()
+        (o.float() * block(w).float()).sum().backward()
+        torch.cuda.synchronize()
+        total = counts()
+        errs = {"o": errors(o, ref_out["o"])}
+        for n, t in zip("qkv", leaves):
+            errs[f"d{n}"] = rel_norm(block(t.grad), ref_out[f"d{n}"])
+        check(errs["o"][0] <= BF16_TOL[0] and errs["o"][1] <= BF16_TOL[1],
+              f"mesh {name}: output error {errs['o']}")
+        for n in ("dq", "dk", "dv"):
+            check(errs[n] <= GRAD_TOL[torch.bfloat16],
+                  f"mesh {name}: {n} rel err {errs[n]}")
+        walls = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            with torch.no_grad():
+                run(*leaves)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - ts) * 1e3)
+        return {"errors": errs, "fwd_launches": fwd, "launches": total,
+                "fwd_ms_p50": median(walls), "fwd_ms": walls}
+
+    doc["ring"] = attn_case("ring", ring)
+    check(doc["ring"]["fwd_launches"]["flash_fwd"] == sp,
+          f"ring: K1 launches {doc['ring']['fwd_launches']} != sp={sp}")
+    doc["ulysses"] = attn_case("ulysses", lambda a, b, c: ulysses_attention(
+        block(a), block(b), block(c), mesh=mesh, causal=True,
+        attn_fn=lambda q_, k_, v_, causal: fa.flash_attention(
+            q_, k_, v_, causal=causal)))
+    del q, k, v, w, ref_out
+    torch.cuda.empty_cache()
+
+    # 4. f32 at depth 2: sharded loss and every gathered gradient against
+    # one process's unsharded_loss on the same weights
+    cfg = tfm.TransformerConfig(**conf["model"])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg32.vocab, (
+        conf["check_B"], conf["check_T"] + 1))).cuda()
+    x_ids, y_ids = ids[:, :-1], ids[:, 1:]
+    glob = tfm.init_params(cfg32, torch.Generator("cuda").manual_seed(0),
+                           "cuda")
+    model = shard_params_from_jax(gather_params(glob), cfg32, mesh)
+    dp = mesh.axis_size("dp")
+
+    def local(x):
+        return (x.chunk(dp, 0)[mesh.axis_rank("dp")].chunk(sp, 1)[si])
+
+    zero()
+    loss = tfm.forward_local(model, local(x_ids), local(y_ids), cfg32,
+                             tfm.SHARDED_AXES, mesh)
+    loss.backward()
+    tfm.sync_gradients(model, mesh)
+    doc["check_launches"] = counts()
+    grads = gather_params(model, mesh, grads=True)
+    del model
+    ref_loss = tfm.unsharded_loss(glob, x_ids, y_ids)
+    ref_loss.backward()
+    ref_grads = gather_params(glob, grads=True)
+    rel_loss = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    flat = {**grads["blocks"], **{n: grads[n] for n in
+                                   ("embed", "unembed", "ln_f")}}
+    flat_ref = {**ref_grads["blocks"], **{n: ref_grads[n] for n in
+                                          ("embed", "unembed", "ln_f")}}
+    # max |g - g_ref| over max |g_ref| (one expert's gate: both exactly 0)
+    worst = {n: ((g - flat_ref[n]).abs().max()
+                 / flat_ref[n].abs().max().clamp_min(1e-30)).item()
+             for n, g in flat.items()}
+    check(rel_loss <= MESH_LOSS_RTOL, f"mesh f32 loss: rel {rel_loss}")
+    check(max(worst.values()) <= MESH_GRAD_TOL,
+          f"mesh f32 gradients: {worst}")
+    doc["f32"] = {"loss": float(loss), "ref_loss": float(ref_loss),
+                  "loss_rel_err": rel_loss, "grad_rel_max_err": worst}
+    del glob, grads, ref_grads, loss, ref_loss
+    torch.cuda.empty_cache()
+
+    # 5. bf16 AdamW steps through make_train_step(mesh=...)
+    glob = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           "cuda")
+    model = shard_params_from_jax(gather_params(glob), cfg, mesh)
+    del glob
+    torch.cuda.empty_cache()
+    doc["params_local"] = sum(p.numel() for p in model.parameters())
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (conf["B"], conf["T"] + 1))).cuda()
+    step = tfm.make_train_step(model, tfm.adamw(model.parameters(), 1e-4),
+                               ledger=False, mesh=mesh)
+    tele.reset()
+    losses, walls = [float(step(ids[:, :-1], ids[:, 1:]))], []  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(conf["steps"]):
+        ts = time.perf_counter()
+        losses.append(float(step(ids[:, :-1], ids[:, 1:])))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - ts) * 1e3)
+    doc["train"] = {
+        "losses": losses, "step_ms": walls, "step_p50_ms": median(walls),
+        "launches": counts(), "peak_gb": torch.cuda.max_memory_allocated()
+        / 1e9,
+        "staged_bytes_per_step": {"ppermute": tele.core.counter_value(
+            "collective", "ppermute_staged_bytes") / (conf["steps"] + 1)},
+        "bytes_per_step": {
+            op: tele.core.counter_value("collective", f"{op}_bytes")
+            / (conf["steps"] + 1) for op in MESH_OPS},
+        "ring_bytes_rotated_per_step": tele.core.counter_value(
+            "ring_attention", "bytes_rotated") / (conf["steps"] + 1)}
+    doc["sha256"] = _leaf_sha(model, mesh)
+    doc["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"mesh.{rank}.json"), "w") as f:
+        json.dump(doc, f)
+    client.log(f"rank {rank}: mesh phase done")
+    dist.destroy_process_group()
+    client.shutdown()
+    return 0
+
+
+def mesh_phase(smi, fa):
+    """The sharded flagship (see the module docstring): the psum worker,
+    then 4 mesh workers under the port's launcher sharing the card.
+    Returns the phase's line, the K1 ring-step rows and the kernels'
+    launches summed over the ranks' ring, Ulysses and train runs."""
+    t_start = time.time()
+    rows = ring_step_rows(fa)
+    probe_root = os.path.join(ROOT, "build", "gloo_probe")
+    probe = gloo_probe_start(probe_root)
+    try:
+        out, err, psum_s = _submit(
+            "mesh_psum", [sys.executable, "-m",
+                          "dmlc_tpu_torch.examples.psum_worker"], 300,
+            workers=MESH_WORKERS)
+    finally:
+        gloo_cuda = gloo_probe_finish(probe, probe_root)
+    # every op the port hands gloo on a CUDA tensor as it is: all but
+    # point-to-point, which collectives._shift stages through host memory
+    for op in GLOO_PROBE_OPS[:-1]:
+        check(gloo_cuda[op] == "ok", f"mesh: gloo on a CUDA tensor, {op}: "
+              f"{gloo_cuda[op]} (chiprun_out/gloo_probe.log)")
+    want = MESH_WORKERS * (MESH_WORKERS + 1) / 2
+    for r in range(MESH_WORKERS):
+        check(f"rank {r}/{MESH_WORKERS}: torch psum OK -> {want}"
+              in out + err, f"mesh: psum rank {r} (tracker_mesh_psum.log)")
+    root = os.path.join(ROOT, "build", "mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg = mesh_config_()
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump({"mesh": MESH_SHAPE, "ring": MESH_RING,
+                   "model": dataclasses.asdict(cfg), "B": MESH_B,
+                   "T": MESH_T, "check_B": MESH_CHECK_B,
+                   "check_T": MESH_CHECK_T, "steps": MESH_STEPS}, f)
+    env_old = {k: os.environ.get(k) for k in MESH_ENV}
+    os.environ.update(MESH_ENV)
+    try:
+        _, err, job_s = _submit(
+            "mesh", [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                     "--mesh-worker", root], MESH_TIMEOUT_S,
+            workers=MESH_WORKERS)
+    finally:
+        for k, v in env_old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    docs = [json.load(open(os.path.join(root, f"mesh.{r}.json")))
+            for r in range(MESH_WORKERS)]
+    shutil.rmtree(root, ignore_errors=True)
+    backends = {d["backend"] for d in docs}
+    check(len(backends) == 1, f"mesh: backends {backends}")
+    losses = [d["train"]["losses"] for d in docs]
+    check(all(ls == losses[0] for ls in losses),
+          f"mesh: ranks disagree on the losses {losses}")
+    check(all(math.isfinite(x) for x in losses[0])
+          and losses[0][-1] < losses[0][0], f"mesh: losses {losses[0]}")
+    for name in docs[0]["sha256"]:
+        held = {}
+        for d in docs:
+            key, sha = d["sha256"][name]
+            held.setdefault(tuple(key), set()).add(sha)
+        check(all(len(v) == 1 for v in held.values()),
+              f"mesh: {name} differs between ranks that hold it")
+    per_step = [{n: c / MESH_STEPS
+                 for n, c in d["train"]["launches"].items()}
+                for d in docs]
+    launches = {n: sum(d[part]["launches"][n]
+                       for d in docs for part in ("ring", "ulysses", "train"))
+                for n in docs[0]["train"]["launches"]}
+    line = {
+        "phase": "mesh", "card": smi, "backend": docs[0]["backend"],
+        "gloo_cuda": {"torch": torch.__version__, **gloo_cuda},
+        "mesh": MESH_SHAPE, "workers": MESH_WORKERS, "model": "flagship",
+        "n_layers": cfg.n_layers,
+        "reduced": "depth 16 -> 2: four ranks share one card and the host, "
+                   "and every tp activation and (dp, sp) gradient crosses "
+                   "gloo through host memory",
+        "B": MESH_B, "T": MESH_T, "T_local": MESH_T // MESH_SHAPE["sp"],
+        "params_local": [d["params_local"] for d in docs],
+        "init_s": [d["init_s"] for d in docs],
+        "collectives_checked": docs[0]["collectives"],
+        "ring": {"shape": MESH_RING,
+                 "fwd_ms_p50": [d["ring"]["fwd_ms_p50"] for d in docs],
+                 "k1_launches_per_call": docs[0]["ring"]["fwd_launches"][
+                     "flash_fwd"],
+                 "errors": [d["ring"]["errors"] for d in docs]},
+        "ulysses": {"fwd_ms_p50": [d["ulysses"]["fwd_ms_p50"] for d in docs],
+                    "launches": [d["ulysses"]["launches"] for d in docs],
+                    "errors": [d["ulysses"]["errors"] for d in docs]},
+        "f32_check": [d["f32"] for d in docs],
+        "losses": losses[0],
+        "step_p50_ms": [d["train"]["step_p50_ms"] for d in docs],
+        "step_ms": [d["train"]["step_ms"] for d in docs],
+        "peak_gb": [d["train"]["peak_gb"] for d in docs],
+        "launches_per_step_per_rank": per_step,
+        "staged_bytes_per_step": docs[0]["train"]["staged_bytes_per_step"],
+        "collective_bytes_per_step": docs[0]["train"]["bytes_per_step"],
+        "ring_bytes_rotated_per_step": docs[0]["train"][
+            "ring_bytes_rotated_per_step"],
+        "ring_step_k1": rows, "psum_s": psum_s, "job_s": job_s,
+        "wall_s": time.time() - t_start}
+    check(all(c["flash_fwd"] > 0 for c in per_step),
+          f"mesh: K1 never ran on a step {per_step}")
+    return line, rows, launches
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -3049,6 +3648,13 @@ def main() -> int:
     elastic_doc, option_launches["elastic"] = elastic_phase(smi)
     emit(elastic_doc)
 
+    # 7d. the sharded flagship: 4 ranks of a dp1 x sp2 x tp2 mesh share
+    # the card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_doc, ring_rows, option_launches["mesh"] = mesh_phase(smi, fa)
+    emit(mesh_doc)
+
     # 8. the sparse text path: LibSVM and CSV through libsvm_feed; then
     # the tracker phase's 4-worker jobs on the same files
     for doc in sparse_phase(smi, spine_docs[2],
@@ -3091,6 +3697,8 @@ def main() -> int:
     # K1 timed alone at the train step's shapes besides its serving row
     kernels[0]["train_ms"] = {f"B{b}xT{t}": r["ms"]
                               for (b, t), r in k1_train.items()}
+    # K1 at the mesh train step's ring-step shape, at both offsets
+    kernels[0]["ring_step"] = ring_rows
     emit({"kernels": kernels})
     RESULTS["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3105,4 +3713,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--elastic-worker"]:
         sys.exit(elastic_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--gloo-probe"]:
+        sys.exit(gloo_probe_worker(sys.argv[2:]))
     sys.exit(main())

@@ -32,7 +32,11 @@ job launcher (``tracker``; ``python -m dmlc_tpu_torch.tracker.submit``),
 the host collectives (tree, chunked ring, and hierarchical over the C++
 shm group of ``native/csrc/dmlc_collective.cc``), the gradient bucketer
 (``parallel.overlap``), retry and fault injection (``resilience``), and
-the distributed LibSVM/CSV examples training on the card.
+the distributed LibSVM/CSV examples training on the card; and the
+sharded flagship: a dp × sp × tp mesh over ``torch.distributed``
+(``parallel``: the mesh, named collectives, ring attention through the
+flash forward kernel at global offsets, Ulysses) and the model's
+tensor- and sequence-parallel train step.
 """
 
 __version__ = "0.1.0"

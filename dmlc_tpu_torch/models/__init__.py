@@ -1,1 +1,23 @@
-"""Models of the port: the flagship decoder LM's serving forwards."""
+"""Models of the port: the flagship decoder LM, trained on one card or on
+a dp × sp × tp mesh (``transformer``), and served; weights to and from
+the JAX package's trees (``convert``).  The pipeline, expert
+parallelism and the device gradient overlap are not ported yet
+(ROADMAP.md Queue 1 item 8c)."""
+
+from .transformer import (  # noqa: F401
+    PARAM_SPECS,
+    SHARDED_AXES,
+    Transformer,
+    TransformerConfig,
+    adamw,
+    count_params,
+    flagship_config,
+    forward_local,
+    init_params,
+    make_train_step,
+    sharded_grad_norm,
+    sync_gradients,
+    train_flops_per_token,
+    train_step_flops,
+    unsharded_loss,
+)

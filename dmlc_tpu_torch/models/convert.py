@@ -3,7 +3,10 @@
 ``params_from_jax`` takes the tree ``dmlc_tpu.models.transformer.
 init_params`` builds (after ``jax.tree.map(np.asarray, ...)``): blocks
 stacked ``[S, L/S, ...]``, every leaf a numpy array.  ``params_to_jax``
-is its inverse.  Neither needs jax nor the JAX package.  bfloat16
+is its inverse.  ``shard_params_from_jax`` slices the same global tree
+to one rank's shards on a mesh (``PARAM_SPECS``; ``params_from_jax`` is
+its world-1 case), and ``gather_params`` rebuilds a mesh model's global
+parameters (or gradients) in that tree's layout.  Neither needs jax nor the JAX package.  bfloat16
 leaves are ``ml_dtypes``' bfloat16 on the numpy side, which
 ``torch.from_numpy`` refuses; they go through their uint16 bits instead,
 so both directions are bit-exact.
@@ -20,15 +23,18 @@ format.
 from __future__ import annotations
 
 from collections import namedtuple
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from ..base import DMLCError
-from .transformer import Transformer, TransformerConfig
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import Mesh
+from .transformer import PARAM_SPECS, Transformer, TransformerConfig
 
-__all__ = ["params_from_jax", "params_to_jax", "tensor_from_numpy",
+__all__ = ["params_from_jax", "params_to_jax", "shard_params_from_jax",
+           "gather_params", "tensor_from_numpy",
            "ScaleByAdamState", "train_state_to_jax", "train_state_from_jax"]
 
 #: optax's ``ScaleByAdamState`` as a named tuple: its fields are the
@@ -57,31 +63,75 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
+def _shard(t: torch.Tensor, name: str, mesh: Optional[Mesh]) -> torch.Tensor:
+    """This rank's block of the global leaf ``t`` by ``PARAM_SPECS``."""
+    for dim, axis in PARAM_SPECS[name] if mesh is not None else ():
+        t = t.chunk(mesh.axis_size(axis), dim=dim)[mesh.axis_rank(axis)]
+    return t
+
+
 @torch.no_grad()
+def shard_params_from_jax(tree: Mapping, cfg: TransformerConfig,
+                          mesh: Optional[Mesh], device=None) -> Transformer:
+    """A :class:`Transformer` on ``mesh`` holding this rank's shards of
+    the JAX tree's global weights (numpy or torch leaves), in the
+    config's dtype, on ``device`` (default: the mesh's device, else the
+    CUDA card; no card raises).  ``mesh=None`` loads every weight whole."""
+    model = Transformer(cfg, device=device, mesh=mesh)
+
+    def as_tensor(x) -> torch.Tensor:
+        return x if isinstance(x, torch.Tensor) else tensor_from_numpy(x)
+
+    def put(dst: torch.Tensor, src, name: str) -> None:
+        t = _shard(as_tensor(src), name, mesh)
+        if tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(t.to(dst.dtype))
+
+    for name in ("embed", "unembed", "ln_f"):
+        put(getattr(model, name), tree[name], name)
+    blocks = tree["blocks"]
+    for name in _BLOCK_LEAVES:
+        stacked = blocks[name]
+        flat = stacked.reshape((cfg.n_layers,) + tuple(stacked.shape[2:]))
+        for li, layer in enumerate(model.layers):
+            put(getattr(layer, name), flat[li], name)
+    return model
+
+
 def params_from_jax(tree: Mapping, cfg: TransformerConfig,
                     device=None) -> Transformer:
     """A :class:`Transformer` holding the JAX tree's weights, in the
     config's dtype, on ``device`` (default: the CUDA card; no card
-    raises)."""
-    model = Transformer(cfg, device=device)
+    raises): :func:`shard_params_from_jax` at world 1."""
+    return shard_params_from_jax(tree, cfg, None, device)
 
-    def put(dst: torch.Tensor, src) -> None:
-        t = tensor_from_numpy(src)
-        if tuple(t.shape) != tuple(dst.shape):
-            raise ValueError(f"shape {tuple(t.shape)} != {tuple(dst.shape)}")
-        dst.copy_(t.to(dst.dtype))
 
-    put(model.embed, tree["embed"])
-    put(model.unembed, tree["unembed"])
-    put(model.ln_f, tree["ln_f"])
-    blocks = tree["blocks"]
-    n_layers = cfg.n_layers
-    for name in _BLOCK_LEAVES:
-        stacked = np.asarray(blocks[name])
-        flat = stacked.reshape((n_layers,) + stacked.shape[2:])
-        for li, layer in enumerate(model.layers):
-            put(getattr(layer, name), flat[li])
-    return model
+@torch.no_grad()
+def gather_params(model: Transformer, mesh: Optional[Mesh] = None,
+                  grads: bool = False) -> Dict:
+    """The global parameters (``grads``: their gradients) of a mesh
+    model, in the JAX tree's layout with blocks stacked ``[1, L, ...]``,
+    every leaf a tensor on the model's device; the tp shards are
+    gathered over their axis.  Every rank of the mesh calls it (the
+    gathers are collective)."""
+    mesh = mesh if mesh is not None else model.mesh
+
+    def whole(p: torch.Tensor, name: str) -> torch.Tensor:
+        t = p.grad if grads else p
+        if t is None:
+            raise DMLCError(f"{name} has no gradient")
+        for dim, axis in PARAM_SPECS[name] if mesh is not None else ():
+            t = all_gather(t, axis, mesh=mesh, gather_axis=dim)
+        return t.detach()
+
+    out = {name: whole(getattr(model, name), name)
+           for name in ("embed", "unembed", "ln_f")}
+    out["blocks"] = {name: torch.stack([whole(getattr(layer, name), name)
+                                        for layer in model.layers])[None]
+                     for name in _BLOCK_LEAVES}
+    return out
 
 
 def params_to_jax(model: Transformer, n_stages: int = 1) -> Dict:

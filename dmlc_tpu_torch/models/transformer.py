@@ -1,18 +1,36 @@
-"""Flagship decoder-only transformer LM on one card: training and serving.
+"""Flagship decoder-only transformer LM: training, on one card or a
+dp × sp × tp mesh, and serving.
 
-Port of the single-device half of ``dmlc_tpu/models/transformer.py``:
-``TransformerConfig``/``flagship_config``/``count_params``/FLOP counts
-(:49-126, :420-428), ``init_params`` (:128-155), the dense soft-gated
-MoE FFN (:205-227) and the routed top-k one (:230-310), the block and
-its per-block remat under the three policies (:313-353), the loss
-``unsharded_loss`` (``forward_local`` with ``ShardAxes()``, :356-409), a
-train step with AdamW as ``make_train_step`` builds it with
-``optax.adamw``, with or without the global gradient norm (:761-850),
-and the serving forwards ``forward_prefill`` / ``forward_prefill_last``
-(:504-558) and ``forward_decode_paged`` (:690-758).  The train step
-drives the step ledger as the reference's does (:855-887).  The sharded
-paths, the train step's mesh and overlap and the gather decode path
-come in later slices.
+Port of ``dmlc_tpu/models/transformer.py``: ``TransformerConfig``/
+``flagship_config``/``count_params``/FLOP counts (:49-126, :420-428),
+``init_params`` (:128-155) and ``param_specs`` (:158-177, as the table
+``PARAM_SPECS``), attention with its sp branch (ring attention) and tp
+reduction (:180-202), the dense soft-gated MoE FFN (:205-227) with its
+tp reduction and the routed top-k one (:230-310, unsharded), the block
+and its per-block remat under the three policies (:313-353),
+``forward_local`` (:356-404: positions from the sp rank, the loss
+meaned over (dp, sp)) and ``unsharded_loss`` (:407, ``forward_local``
+with ``ShardAxes()``), a train step with AdamW as ``make_train_step``
+builds it with ``optax.adamw``, on one card or on a mesh, with or
+without the global gradient norm (:761-850), and the serving forwards
+``forward_prefill`` / ``forward_prefill_last`` (:504-558) and
+``forward_decode_paged`` (:690-758).  The train step drives the step
+ledger as the reference's does (:855-887).  The pipeline (pp), expert
+parallelism (ep), the routed FFN under tp > 1, ``overlap="device"`` and
+the gather decode path come in a later slice (ROADMAP.md Queue 1 item
+8c).
+
+On a mesh (``Transformer(cfg, device, mesh)``) each rank holds the
+shards ``PARAM_SPECS`` gives its coordinate: heads over tp in
+``wq``/``wk``/``wv``/``wo``, ``d_ff`` over tp in ``w_in``/``w_gate``/
+``w_out``, vocab over tp in ``embed``/``unembed``, norms and ``gate``
+replicated.  The collectives are explicit (``parallel.collectives``):
+``copy_to`` where a replicated activation meets a tp shard (the qkv
+projection, the FFN input and its combine weights, the unembedding),
+``reduce_from`` where tp partial sums meet (attention out, the FFN out,
+the embedding, the cross entropy's sums), the ring's ``ppermute`` over
+sp, and ``mean_from`` over (dp, sp) for the loss; the train step then
+sums every gradient over (dp, sp) in one fused all-reduce.
 
 Each layer module keeps the JAX weight layouts (``wq [E, H, D]``,
 ``wo [H, D, E]``, ``w_in [X, E, F]``, ...) so weights convert one to one
@@ -42,17 +60,41 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import telemetry
-from ..base import resolve_device
-from ..ops.core import embed_lookup, rms_norm, rope, rope_angles, rotate, \
-    softmax_xent, swiglu_ffn
+from ..base import DMLCError, get_env, resolve_device
+from ..ops.core import ShardAxes, embed_lookup, rms_norm, rope, \
+    rope_angles, rotate, softmax_xent, swiglu_ffn
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
+from ..parallel.collectives import all_reduce, copy_to, mean_from, \
+    reduce_from
+from ..parallel.mesh import (AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP,
+                             DATA_AXES, Mesh)
+from ..parallel.ring_attention import ring_attention
 
 __all__ = ["TransformerConfig", "flagship_config", "count_params",
-           "train_flops_per_token", "decode_flops_per_token", "Block",
-           "Transformer", "init_params", "unsharded_loss", "adamw",
-           "make_train_step", "forward_prefill", "forward_prefill_last",
-           "forward_decode_paged"]
+           "train_flops_per_token", "train_step_flops",
+           "decode_flops_per_token", "PARAM_SPECS", "SHARDED_AXES",
+           "Block", "Transformer", "init_params", "forward_local",
+           "unsharded_loss", "adamw", "sync_gradients", "sharded_grad_norm",
+           "make_train_step", "forward_prefill",
+           "forward_prefill_last", "forward_decode_paged"]
+
+SHARDED_AXES = ShardAxes(tp=AXIS_TP, sp=AXIS_SP, ep=AXIS_EP, pp=AXIS_PP,
+                         dp=AXIS_DP)
+
+#: ``param_specs`` (:158-177) per leaf of the port's per-layer layout
+#: (the reference's leaves without their ``[S, L/S]`` stage dims): the
+#: ``(dimension, axis)`` pairs each leaf is sharded by; replicated
+#: leaves have none
+PARAM_SPECS = {
+    "embed": ((0, AXIS_TP),), "unembed": ((1, AXIS_TP),), "ln_f": (),
+    "ln1": (), "ln2": (), "gate": (),
+    "wq": ((1, AXIS_TP),), "wk": ((1, AXIS_TP),), "wv": ((1, AXIS_TP),),
+    "wo": ((0, AXIS_TP),),
+    "w_in": ((0, AXIS_EP), (2, AXIS_TP)),
+    "w_gate": ((0, AXIS_EP), (2, AXIS_TP)),
+    "w_out": ((0, AXIS_EP), (1, AXIS_TP)),
+}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _REMAT_POLICIES = ("full", "save_flash", "save_flash_mlp")
@@ -124,18 +166,38 @@ def train_flops_per_token(cfg: TransformerConfig, t: int,
     return 3.0 * fwd
 
 
+def train_step_flops(cfg: TransformerConfig, batch: int, t: int,
+                     causal: bool = True) -> float:
+    """Executed FLOPs of ONE train step of a ``[batch, t]`` input
+    (:120)."""
+    return train_flops_per_token(cfg, t, causal) * batch * t
+
+
 def decode_flops_per_token(cfg: TransformerConfig, ctx: int) -> float:
     """Forward FLOPs of one generated token attending ``ctx`` tokens."""
     return train_flops_per_token(cfg, ctx, causal=False) / 3.0
 
 
-class Block(nn.Module):
-    """One decoder layer's weights, in the JAX layouts."""
+def _local(n: int, axis: str, mesh: Optional[Mesh], what: str) -> int:
+    """This rank's share of ``n`` along ``axis`` (all of it without a
+    mesh)."""
+    parts = 1 if mesh is None else mesh.axis_size(axis)
+    if n % parts:
+        raise DMLCError(f"{what}={n} does not split over {axis}={parts}")
+    return n // parts
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+
+class Block(nn.Module):
+    """One decoder layer's weights, in the JAX layouts; on a mesh, this
+    rank's shards of them (``PARAM_SPECS``)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
-        e, h, d, f, x = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff,
-                         cfg.n_experts)
+        e, d = cfg.d_model, cfg.head_dim
+        h = _local(cfg.n_heads, AXIS_TP, mesh, "n_heads")
+        f = _local(cfg.d_ff, AXIS_TP, mesh, "d_ff")
+        x = _local(cfg.n_experts, AXIS_EP, mesh, "n_experts")
 
         def p(*shape):
             return nn.Parameter(torch.empty(shape, dtype=cfg.torch_dtype,
@@ -144,7 +206,7 @@ class Block(nn.Module):
         self.ln1, self.ln2 = p(e), p(e)
         self.wq, self.wk, self.wv = p(e, h, d), p(e, h, d), p(e, h, d)
         self.wo = p(h, d, e)
-        self.gate = p(e, x)
+        self.gate = p(e, cfg.n_experts)
         self.w_in, self.w_gate = p(x, e, f), p(x, e, f)
         self.w_out = p(x, f, e)
 
@@ -157,47 +219,80 @@ class Block(nn.Module):
         return torch.einsum("bthd,hde->bte", o, self.wo)
 
     def attention(self, xn: torch.Tensor, positions: torch.Tensor,
-                  impl: Optional[str] = None):
+                  impl: Optional[str] = None,
+                  axes: ShardAxes = ShardAxes(),
+                  mesh: Optional[Mesh] = None):
         """Causal self-attention of the normed input over positions
-        ``[T]`` (``_attention`` :180-202, single device): ``(y, k, v)``
-        with the post-rope keys and values."""
+        ``[T]`` (``_attention`` :180-202): ``(y, k, v)`` with the
+        post-rope keys and values.  Under ``axes.sp`` the sequence is
+        this rank's block and attention is the ring; under ``axes.tp``
+        the heads are this rank's and ``y`` is summed over tp."""
+        if axes.tp is not None:
+            xn = copy_to(xn, axes.tp, mesh=mesh)
         q, k, v = self.qkv(xn)
         q = rope(q, positions)
         k = rope(k, positions)
-        o = flash_attention(q, k, v, causal=True, impl=impl)
-        return self.attn_out(o), k, v
+        if axes.sp is not None:
+            o = ring_attention(q, k, v, mesh=mesh, axis_name=axes.sp,
+                               causal=True, impl=impl)
+        else:
+            o = flash_attention(q, k, v, causal=True, impl=impl)
+        y = self.attn_out(o)
+        if axes.tp is not None:
+            y = reduce_from(y, axes.tp, mesh=mesh)
+        return y, k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cfg: TransformerConfig,
-                impl: Optional[str] = None) -> torch.Tensor:
+                cfg: TransformerConfig, impl: Optional[str] = None,
+                axes: ShardAxes = ShardAxes(),
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
         """One decoder layer on the residual stream (``_block`` :313)."""
-        x = x + self.attention(rms_norm(x, self.ln1), positions, impl)[0]
-        return x + self.moe_ffn(rms_norm(x, self.ln2), cfg)
+        x = x + self.attention(rms_norm(x, self.ln1), positions, impl,
+                               axes, mesh)[0]
+        return x + self.moe_ffn(rms_norm(x, self.ln2), cfg, axes=axes,
+                                mesh=mesh)
 
     def moe_ffn(self, x: torch.Tensor, cfg: TransformerConfig,
-                route_tokens: Optional[int] = None) -> torch.Tensor:
+                route_tokens: Optional[int] = None,
+                axes: ShardAxes = ShardAxes(),
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
         """The FFN under ``cfg`` (``_moe_ffn`` :307): routed top-k when
         ``cfg.routed``, else dense soft gating.  ``route_tokens`` is the
         token count the routed capacity is computed from where the
         reference's call holds more tokens than ``x``: the dead rows it
         pads a decode batch with, which come after the live ones.  (The
         overflow counter then counts the live tokens' choices only; the
-        reference's counts the dead rows' too.)"""
+        reference's counts the dead rows' too.)  The routed FFN runs
+        unsharded: under tp > 1 it raises (item 8c)."""
         if cfg.routed:
+            if axes.tp is not None and mesh.axis_size(axes.tp) > 1:
+                raise DMLCError(
+                    "the routed top-k FFN under tensor parallelism is not "
+                    "ported yet (ROADMAP.md Queue 1 item 8c)")
             return self.topk_ffn(x, cfg, route_tokens)
-        return self.dense_ffn(x)
+        return self.dense_ffn(x, axes, mesh)
 
-    def dense_ffn(self, x: torch.Tensor) -> torch.Tensor:
+    def dense_ffn(self, x: torch.Tensor, axes: ShardAxes = ShardAxes(),
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
         """Dense soft-gated MoE (``_moe_dense_ffn``): every expert sees
         every token; the gate softmax is float32 and the combine casts
         the probabilities to the activations' dtype.  With one expert
-        the gate is exactly 1.0 and is kept for parity."""
+        the gate is exactly 1.0 and is kept for parity.  Under
+        ``axes.tp`` each expert's output is this rank's partial sum, and
+        one ``reduce_from`` combines them all."""
         gate_logits = torch.einsum("bte,ex->btx", x, self.gate)
         probs = torch.softmax(gate_logits.float(), dim=-1)
+        if axes.tp is not None:
+            x = copy_to(x, axes.tp, mesh=mesh)
         ys = torch.stack([swiglu_ffn(x, self.w_in[i], self.w_gate[i],
-                                     self.w_out[i])
+                                     self.w_out[i], reduce=False)
                           for i in range(self.w_in.shape[0])])
-        return torch.einsum("xbte,btx->bte", ys, probs.to(ys.dtype))
+        probs = probs.to(ys.dtype)
+        if axes.tp is None:
+            return torch.einsum("xbte,btx->bte", ys, probs)
+        probs = copy_to(probs, axes.tp, mesh=mesh)
+        return reduce_from(torch.einsum("xbte,btx->bte", ys, probs),
+                           axes.tp, mesh=mesh)
 
     def topk_ffn(self, x: torch.Tensor, cfg: TransformerConfig,
                  route_tokens: Optional[int] = None) -> torch.Tensor:
@@ -253,21 +348,29 @@ def _record_moe_overflow(keep: torch.Tensor) -> None:
 
 class Transformer(nn.Module):
     """Embedding, ``n_layers`` :class:`Block` s, final norm, unembedding,
-    on ``device`` (default: the CUDA card; no card raises)."""
+    on ``device`` (default: the mesh's device, else the CUDA card; no
+    card raises).  On a ``mesh`` the parameters are this rank's shards
+    (``PARAM_SPECS``); ``models.convert.shard_params_from_jax`` fills
+    them."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         device = resolve_device(device)
+        v = _local(cfg.vocab, AXIS_TP, mesh, "vocab")
 
         def p(*shape):
             return nn.Parameter(torch.empty(shape, dtype=cfg.torch_dtype,
                                             device=device))
 
-        self.embed = p(cfg.vocab, cfg.d_model)
-        self.unembed = p(cfg.d_model, cfg.vocab)
+        self.embed = p(v, cfg.d_model)
+        self.unembed = p(cfg.d_model, v)
         self.ln_f = p(cfg.d_model)
-        self.layers = nn.ModuleList(Block(cfg, device)
+        self.layers = nn.ModuleList(Block(cfg, device, mesh)
                                     for _ in range(cfg.n_layers))
 
     @property
@@ -338,20 +441,44 @@ def _block_runner(cfg: TransformerConfig) -> Callable:
                                         preserve_rng_state=False, **kw)
 
 
+def forward_local(model: Transformer, ids: torch.Tensor,
+                  labels: torch.Tensor, cfg: Optional[TransformerConfig] = None,
+                  axes: ShardAxes = ShardAxes(), mesh: Optional[Mesh] = None,
+                  reduce_loss: bool = True,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """This rank's loss (``forward_local`` :356-404).  ids/labels
+    ``[B_local, T_local]``: its (dp, sp) block of the batch, at global
+    positions ``sp_rank·T_local + arange(T_local)``.  The mean float32
+    cross entropy, meaned over (dp, sp) unless ``reduce_loss=False``
+    (then this rank's mean).  With ``ShardAxes()`` (the default) it is
+    the one-card loss.  ``mesh`` defaults to the model's."""
+    cfg = cfg or model.cfg
+    mesh = mesh if mesh is not None else model.mesh
+    t_local = ids.shape[1]
+    sp_rank = mesh.axis_rank(axes.sp) if axes.sp is not None else 0
+    positions = sp_rank * t_local + torch.arange(t_local, device=ids.device)
+    x = embed_lookup(model.embed, ids, axes, mesh).to(cfg.torch_dtype)
+    run = _block_runner(cfg)
+    for layer in model.layers:
+        x = run(layer, x, positions, cfg, impl, axes, mesh)
+    x = rms_norm(x, model.ln_f)
+    if axes.tp is not None:
+        x = copy_to(x, axes.tp, mesh=mesh)
+    loss = softmax_xent(x @ model.unembed, labels, axes, mesh).mean()
+    data = tuple(a for a in (axes.dp, axes.sp) if a is not None)
+    if data and reduce_loss:
+        loss = mean_from(loss, data, mesh=mesh)
+    return loss
+
+
 def unsharded_loss(model: Transformer, ids: torch.Tensor,
                    labels: torch.Tensor,
                    impl: Optional[str] = None) -> torch.Tensor:
     """Mean float32 cross entropy over ``ids``/``labels [B, T]`` at
     positions ``arange(T)`` (``unsharded_loss`` :407, i.e.
-    ``forward_local`` :356 with ``ShardAxes()``)."""
-    cfg = model.cfg
-    positions = torch.arange(ids.shape[1], device=ids.device)
-    x = embed_lookup(model.embed, ids).to(cfg.torch_dtype)
-    run = _block_runner(cfg)
-    for layer in model.layers:
-        x = run(layer, x, positions, cfg, impl)
-    logits = rms_norm(x, model.ln_f) @ model.unembed
-    return softmax_xent(logits, labels).mean()
+    ``forward_local`` with ``ShardAxes()``)."""
+    return forward_local(model, ids, labels, model.cfg, ShardAxes(), None,
+                         impl=impl)
 
 
 def adamw(params, lr: float) -> torch.optim.AdamW:
@@ -369,42 +496,116 @@ def _global_norm(tensors) -> torch.Tensor:
         [torch.linalg.vector_norm(t, dtype=torch.float32) for t in tensors]))
 
 
+def _local_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's ``P(dp, sp)`` block of a global ``[B, T]`` array."""
+    dp, sp = mesh.axis_size(AXIS_DP), mesh.axis_size(AXIS_SP)
+    if x.shape[0] % dp or x.shape[1] % sp:
+        raise DMLCError(f"batch {tuple(x.shape)} does not split over "
+                        f"dp={dp} x sp={sp}")
+    return (x.chunk(dp, dim=0)[mesh.axis_rank(AXIS_DP)]
+            .chunk(sp, dim=1)[mesh.axis_rank(AXIS_SP)])
+
+
+def _tp_sharded(name: str, mesh: Mesh) -> bool:
+    return mesh.axis_size(AXIS_TP) > 1 and any(
+        axis == AXIS_TP for _, axis in PARAM_SPECS[name.rsplit(".", 1)[-1]])
+
+
+def sync_gradients(model: Transformer, mesh: Mesh) -> None:
+    """Sum every gradient over the (dp, sp) group in one fused
+    all-reduce: the transpose of the loss's mean over the data axes (each
+    rank's backward carries ``1/n`` of its loss)."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if mesh.group(DATA_AXES) is None or not grads:
+        return
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), DATA_AXES,
+                      mesh=mesh)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def sharded_grad_norm(model: Transformer, mesh: Mesh) -> torch.Tensor:
+    """The global L2 norm of a mesh model's (dp, sp)-reduced gradients, in
+    float32, equal to the one-card model's: the squares of tp-sharded
+    leaves are summed over tp, and replicated leaves counted once."""
+    sums = torch.zeros(2, dtype=torch.float32, device=model.device)
+    for name, p in model.named_parameters():
+        if p.grad is not None:
+            sums[int(_tp_sharded(name, mesh))] += p.grad.float().square().sum()
+    sharded = all_reduce(sums[1], AXIS_TP, mesh=mesh)
+    return torch.sqrt(sums[0] + sharded)
+
+
 def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
-                    grad_norm: bool = False):
+                    grad_norm: bool = False, mesh: Optional[Mesh] = None,
+                    overlap: Optional[str] = None):
     """``train_step(ids, labels) -> loss``: one AdamW update of ``model``
-    in place (the ``train_step`` body of ``make_train_step`` :844-850 on
-    one card).  The step's gradients stay in ``p.grad`` until the next
-    step.  The default optimizer is ``adamw(model.parameters(), 1e-3)``,
-    as the reference's ``optax.adamw(1e-3)``.
+    in place (the ``train_step`` body of ``make_train_step`` :844-850).
+    The step's gradients stay in ``p.grad`` until the next step.  The
+    default optimizer is ``adamw(model.parameters(), 1e-3)``, as the
+    reference's ``optax.adamw(1e-3)``.
+
+    On a ``mesh`` (default: the model's; None runs on one card) ids and
+    labels are the global ``[B, T]`` batch, as the reference's are
+    (:764-766): each rank slices its ``P(dp, sp)`` block, runs
+    ``forward_local``'s backward, sums every gradient over (dp, sp)
+    (:func:`sync_gradients`) and updates its own shards; the loss is the
+    (dp, sp) mean, the same on every rank.  ``overlap="device"`` (the
+    bucketed device reduction) is not ported yet (item 8c).
 
     With ``grad_norm`` the step is ``train_step(ids, labels, accept=None)
     -> (loss, gnorm)``, ``gnorm`` the global L2 norm of the gradients
-    (:790-794).  It runs in two halves: the gradients and their norm,
-    then ``optimizer.step()``.  ``accept(loss, gnorm) -> bool``, when
-    given, is asked between the two, and False declines the update: the
-    parameters and the optimizer's state stay as they were, untouched
-    and uncopied.  This is the reference caller's skip (it keeps its old
-    immutable references) for a step that updates in place.
+    (:790-794; on a mesh :func:`sharded_grad_norm`).  It runs in two
+    halves: the gradients and their norm, then ``optimizer.step()``.
+    ``accept(loss, gnorm) -> bool``, when given, is asked between the
+    two, and False declines the update: the parameters and the
+    optimizer's state stay as they were, untouched and uncopied.  This
+    is the reference caller's skip (it keeps its old immutable
+    references) for a step that updates in place.
 
     With ``ledger`` (default) every call drives the process step ledger
     (``telemetry.steps``) as the reference's does (:865-887): the first
     call declares the model's train FLOPs per token at the batch's
     sequence length and its dtype, and each step is ``step_begin`` →
-    step → ``step_end(tokens=B·T)``; a declined step is left open, and
-    the next ``step_begin`` abandons it.  On a card ``step_end`` waits on
-    an event recorded after the optimizer's kernels, so the record's
-    ``wall_s`` is the step and ``host_issue_s`` its enqueue.
-    ``ledger=False`` returns the bare step (for a caller that brackets
-    the step itself, e.g. around its feed's wait)."""
+    step → ``step_end(tokens=B·T)`` of the global batch; a declined
+    step is left open, and the next ``step_begin`` abandons it.  On a
+    card ``step_end`` waits on an event recorded after the optimizer's
+    kernels, so the record's ``wall_s`` is the step and
+    ``host_issue_s`` its enqueue.  ``ledger=False`` returns the bare
+    step (for a caller that brackets the step itself, e.g. around its
+    feed's wait)."""
+    if overlap == "auto":
+        overlap = "device" if get_env("DMLC_COLL_OVERLAP", False) else None
+    if overlap == "device":
+        raise DMLCError("overlap='device' (bucketed device gradient "
+                        "reduction) is not ported yet (ROADMAP.md Queue 1 "
+                        "item 8c)")
+    if overlap is not None:
+        raise ValueError(f"unknown overlap mode {overlap!r} "
+                         "(expected None, 'device' or 'auto')")
+    if mesh is None:
+        mesh = model.mesh
+    elif mesh is not model.mesh:
+        raise DMLCError("the model's parameters were not built for this "
+                        "mesh (shard_params_from_jax builds them)")
     if optimizer is None:
         optimizer = adamw(model.parameters(), 1e-3)
 
     def gradients(ids: torch.Tensor, labels: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)
-        loss = unsharded_loss(model, ids, labels)
-        loss.backward()
+        if mesh is None:
+            loss = unsharded_loss(model, ids, labels)
+            loss.backward()
+        else:
+            loss = forward_local(model, _local_batch(ids, mesh),
+                                 _local_batch(labels, mesh), model.cfg,
+                                 SHARDED_AXES, mesh)
+            loss.backward()
+            sync_gradients(model, mesh)
         if not grad_norm:
             return loss.detach(), None
+        if mesh is not None:
+            return loss.detach(), sharded_grad_norm(model, mesh)
         return loss.detach(), _global_norm(
             p.grad for p in model.parameters() if p.grad is not None)
 

@@ -1,10 +1,16 @@
-"""Core ops, unsharded (port of ``dmlc_tpu/ops/core.py:50-136``).
+"""Shard-aware core ops (port of ``dmlc_tpu/ops/core.py``).
 
-The JAX module threads a ``ShardAxes`` through every op and adds a
-``psum`` where a dimension is sharded; this slice runs on one card, so
-only the unsharded branches exist here.  Precision follows the JAX ops
-exactly: statistics in float32, results cast back to the input's dtype
-at the same points.
+Every op that touches a sharded dimension takes a ``ShardAxes`` naming
+the mesh axes (None = unsharded) and the :class:`~..parallel.Mesh` they
+live on; with ``ShardAxes()`` each computes exactly what the one-card
+model computes.  The tensor-parallel branches (vocab-sharded embedding
+and cross entropy, the row-parallel FFN's reduction) combine partial
+results with ``reduce_from`` (all-reduce forward, identity backward) and
+take replicated inputs into sharded compute with ``copy_to`` (identity
+forward, all-reduce backward), the transposes the reference gets from
+shard_map's varying-axes types.  Precision follows the JAX ops exactly:
+statistics in float32, results cast back to the input's dtype at the
+same points.
 
 SwiGLU's hidden activation ``h = a * silu(b)`` is the custom op
 ``dmlc_tpu_torch::mlp_act``, so that a selective-checkpoint policy can
@@ -17,11 +23,42 @@ so the numbers are those of the plain expression.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "embed_lookup", "softmax_xent", "swiglu_ffn",
-           "mlp_act"]
+from ..parallel.collectives import all_reduce, copy_to, reduce_from
+
+__all__ = ["ShardAxes", "pmax_const", "rms_norm", "rope", "embed_lookup",
+           "softmax_xent", "swiglu_ffn", "mlp_act"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardAxes:
+    """Mesh axis names for each parallelism flavour (None = unsharded)."""
+
+    tp: Optional[str] = None  # tensor: heads / ffn hidden / vocab
+    sp: Optional[str] = None  # sequence: ring attention blocks
+    ep: Optional[str] = None  # expert: MoE expert shards
+    pp: Optional[str] = None  # pipeline: layer stages
+    dp: Optional[str] = None  # data: batch shards (grad reduction)
+
+
+def pmax_const(x: torch.Tensor, axis, *, mesh) -> torch.Tensor:
+    """The max over ``axis`` with a zero gradient (the reference's
+    ``_pmax_const``: it only stabilises a softmax, whose gradient does
+    not depend on it)."""
+    return all_reduce(x.detach(), axis, "max", mesh=mesh)
+
+
+def _in_shard(ids: torch.Tensor, n_local: int, axis, mesh):
+    """``(safe local index, in-shard mask)`` of global ``ids`` against
+    this rank's block of ``n_local`` along ``axis``."""
+    local = ids - mesh.axis_rank(axis) * n_local
+    inside = (local >= 0) & (local < n_local)
+    return local.clamp(0, n_local - 1), inside
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -61,20 +98,43 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return rotate(x, ang[None, :, None, :])
 
 
-def embed_lookup(embed: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Embedding rows for ``ids`` (any shape) → [..., E]."""
-    return F.embedding(ids, embed)
+def embed_lookup(embed: torch.Tensor, ids: torch.Tensor,
+                 axes: ShardAxes = ShardAxes(), mesh=None) -> torch.Tensor:
+    """Embedding rows for ``ids`` (any shape) → [..., E].  With
+    ``axes.tp`` the table is this rank's vocab shard ``[V/tp, E]``: rows
+    of other shards are zeros, then summed over tp."""
+    if axes.tp is None:
+        return F.embedding(ids, embed)
+    safe, inside = _in_shard(ids, embed.shape[0], axes.tp, mesh)
+    emb = F.embedding(safe, embed)
+    emb = torch.where(inside[..., None], emb, torch.zeros_like(emb))
+    return reduce_from(emb, axes.tp, mesh=mesh)
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-token cross entropy in float32.  logits: [..., V]; labels: [...].
-    The max only stabilises the exp and is detached, as the reference's
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 axes: ShardAxes = ShardAxes(), mesh=None) -> torch.Tensor:
+    """Per-token cross entropy in float32.  logits: [..., V] (with
+    ``axes.tp`` this rank's vocab shard [..., V/tp]); labels: [...]
+    global ids; the result is replicated over tp.  The max only
+    stabilises the exp and is detached, as the reference's
     ``lax.stop_gradient`` does: the gradient is the softmax either way,
     and no ``amax`` backward (which splits ties) runs."""
     logits = logits.float()
     m = logits.amax(dim=-1).detach()
-    lse = torch.log(torch.exp(logits - m[..., None]).sum(dim=-1)) + m
-    correct = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if axes.tp is not None:
+        m = pmax_const(m, axes.tp, mesh=mesh)
+    se = torch.exp(logits - m[..., None]).sum(dim=-1)
+    if axes.tp is not None:
+        se = reduce_from(se, axes.tp, mesh=mesh)
+    lse = torch.log(se) + m
+    if axes.tp is None:
+        correct = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        safe, inside = _in_shard(labels.long(), logits.shape[-1], axes.tp,
+                                 mesh)
+        c = torch.gather(logits, -1, safe[..., None])[..., 0]
+        correct = reduce_from(torch.where(inside, c, torch.zeros_like(c)),
+                              axes.tp, mesh=mesh)
     return lse - correct
 
 
@@ -104,7 +164,19 @@ mlp_act.register_autograd(_mlp_act_backward, setup_context=_mlp_act_setup)
 
 
 def swiglu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,
-               w_out: torch.Tensor) -> torch.Tensor:
+               w_out: torch.Tensor, axes: ShardAxes = ShardAxes(), *,
+               reduce: bool = True, mesh=None) -> torch.Tensor:
     """SwiGLU FFN.  w_in/w_gate: [E, F]; w_out: [F, E] (or a leading
-    expert dim on all four: ``[X, C, E]`` against ``[X, E, F]``)."""
-    return mlp_act(x @ w_in, x @ w_gate) @ w_out
+    expert dim on all four: ``[X, C, E]`` against ``[X, E, F]``).
+
+    With ``axes.tp`` the weights are megatron shards (columns of
+    w_in/w_gate, rows of w_out) and the output a partial sum over tp:
+    ``reduce`` (default) takes the replicated ``x`` in with ``copy_to``
+    and sums the output with ``reduce_from``; ``reduce=False`` leaves
+    both to the caller, which combines several partial sums in one
+    reduction (the MoE)."""
+    reduce = reduce and axes.tp is not None
+    if reduce:
+        x = copy_to(x, axes.tp, mesh=mesh)
+    y = mlp_act(x @ w_in, x @ w_gate) @ w_out
+    return reduce_from(y, axes.tp, mesh=mesh) if reduce else y

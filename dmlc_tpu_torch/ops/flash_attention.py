@@ -23,8 +23,16 @@ Dispatch is on the tensors' device: each op has a ``"cpu"``
 implementation that runs the plain versions and a ``"cuda"`` one that
 launches the kernels in ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``
 (or raises, for a shape they do not take).  ``impl="cuda"|"torch"``
-forces one of the two, for comparisons.  ``block_attend``, the ring
-step's ``(pv, m, l)`` contract, stays forward-only.
+forces one of the two, for comparisons.
+
+``block_attend``, the ring step's ``(pv, m, l)`` contract at global
+offsets, is differentiable as the reference's ``block_attend_flash``
+is (``_flash_core`` :162-183): its forward is K1 at the offsets
+(unnormalised) on a CUDA tensor, and its backward recomputes the plain
+``block_attend_reference`` under autograd, as the reference's VJP
+rematerialises through its lax twin ``_lax_block_attend`` (:150-160)
+rather than the Pallas backward kernels.  The recompute holds a
+``[B, H, Tq, Tk]`` float32 score matrix.
 """
 
 from __future__ import annotations
@@ -323,20 +331,42 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return o
 
 
+class _BlockAttend(torch.autograd.Function):
+    """K1 (or its plain version) forward; the plain recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, q_offset, kv_offset, kernel):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = dict(scale=scale, causal=causal, q_offset=q_offset,
+                        kv_offset=kv_offset)
+        if kernel:
+            return _launch(q, k, v, normalize=False, **ctx.args)
+        return block_attend_reference(q, k, v, **ctx.args)
+
+    @staticmethod
+    def backward(ctx, dpv, dm, dl):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(t.requires_grad)
+                      for t in (q, k, v)]
+            outs = block_attend_reference(*leaves, **ctx.args)
+            want = [t for t in leaves if t.requires_grad]
+            cts = [torch.zeros_like(o) if g is None else g
+                   for o, g in zip(outs, (dpv, dm, dl))]
+            got = iter(torch.autograd.grad(outs, want, cts,
+                                           allow_unused=True))
+        grads = [next(got) if t.requires_grad else None for t in leaves]
+        return (*grads, None, None, None, None, None)
+
+
 def block_attend(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
                  kv_offset: int = 0, impl: Optional[str] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Partial attention of q against one KV range at global offsets:
     ``(pv, m, l)``, the contract the ring step folds across ranks.
-    Forward-only: its backward is the reference's lax twin (:172-183),
-    which belongs to ring attention and comes with the sharded slice."""
+    Differentiable: K1 forward on a CUDA tensor (the plain version on a
+    CPU tensor), the plain recompute backward on either."""
     _route(impl)
-    if any(t.requires_grad for t in (q, k, v)) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "block_attend is forward-only; its backward (the ring step's "
-            "recompute) comes with the sharded slice")
-    if not _use_kernel(q.device.type, impl):
-        return block_attend_reference(q, k, v, scale=scale, causal=causal,
-                                      q_offset=q_offset, kv_offset=kv_offset)
-    return _launch(q, k, v, scale=scale, causal=causal, q_offset=q_offset,
-                   kv_offset=kv_offset, normalize=False)
+    return _BlockAttend.apply(q, k, v, float(scale), bool(causal),
+                              int(q_offset), int(kv_offset),
+                              _use_kernel(q.device.type, impl))

@@ -1,8 +1,40 @@
-"""dmlc_tpu_torch.parallel: the host half of the JAX package's
+"""dmlc_tpu_torch.parallel: the mesh over ``torch.distributed``
+(``mesh.py``), its named collectives and ``initialize_distributed``
+(``collectives.py``), ring attention (``ring_attention.py``), Ulysses
+(``ulysses.py``), and the host half of the JAX package's
 ``parallel/overlap.py`` (``GradientBucketer``: bucketed gradient
 allreduce on a background collective thread, CUDA leaves staged through
 pinned host buckets).
 
-Not ported yet (ROADMAP.md Queue 1 item 8): the mesh, the device
-collectives and ``initialize_distributed``, ring attention, Ulysses, the
-pipeline, and ``bucketed_psum_mean``."""
+The package exports the mesh and the collectives only, so that
+``ops.core`` can use them without importing the attention modules,
+which build on ``ops.flash_attention``: import ring attention and
+Ulysses from their modules.
+
+Not ported yet (ROADMAP.md Queue 1 item 8c): the pipeline and
+``bucketed_psum_mean``."""
+
+from .collectives import (  # noqa: F401
+    all_gather,
+    all_reduce,
+    all_to_all,
+    axis_rank,
+    axis_size,
+    barrier_sum,
+    broadcast,
+    copy_to,
+    initialize_distributed,
+    mean_from,
+    ppermute_ring,
+    process_rank_world,
+    reduce_from,
+    reduce_scatter,
+)
+from .mesh import (  # noqa: F401
+    MESH_AXES,
+    Mesh,
+    MeshConfig,
+    build_mesh,
+    factorize_devices,
+    mesh_config,
+)

@@ -20,7 +20,7 @@ copies has been synchronised — the fold never reads a bucket the copy
 engine is still writing.  Reduced values go back to each leaf's device.
 
 Not ported yet: the device path ``bucketed_psum_mean`` (one collective
-per bucket inside a sharded step, ROADMAP.md Queue 1 item 8).
+per bucket inside a sharded step, ROADMAP.md Queue 1 item 8c).
 
 Elastic safety: exceptions raised on the collective thread (including
 :class:`~dmlc_tpu_torch.tracker.client.WorldResized` from a mid-bucket

@@ -251,16 +251,61 @@ def test_flash_attention_is_differentiable():
                for t in (q, k, v))
 
 
-def test_block_attend_is_forward_only():
-    """The ring-step contract has no backward in this port yet; under
-    no_grad it runs."""
-    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 1, 64))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="sharded slice"):
-        tflash.block_attend(q, k, v, scale=0.125, causal=True)
+def test_block_attend_is_forward_only(monkeypatch):
+    """The ring step's kernel is forward-only: on the kernel route K1
+    launches once, unnormalised at the given offsets, and the backward
+    launches nothing — it recomputes the plain ``block_attend_reference``.
+    The launch is stood in for by the plain version (no card here)."""
+    plain = tflash.block_attend_reference
+    launches, recomputes = [], []
+
+    def fake_launch(q, k, v, *, normalize, **kw):
+        launches.append(dict(kw, normalize=normalize))
+        return plain(q, k, v, **kw)
+
+    def counted(*a, **kw):
+        recomputes.append(kw)
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(tflash, "_launch", fake_launch)
+    monkeypatch.setattr(tflash, "block_attend_reference", counted)
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _qkv(3, 1, 8, 8, 1, 64))
+    kw = dict(scale=0.125, causal=True, q_offset=8, kv_offset=4)
+    pv, m, l = tflash.block_attend(q, k, v, impl="cuda", **kw)
+    assert launches == [dict(kw, normalize=False)] and not recomputes
+    (pv.sum() + m.sum() + l.sum()).backward()
+    assert len(launches) == 1 and recomputes == [kw]
+    assert all(t.grad is not None for t in (q, k, v))
     with torch.no_grad():
         assert tflash.block_attend(q, k, v, scale=0.125, causal=True)[0] \
             .shape == (1, 8, 1, 64)
+
+
+@pytest.mark.parametrize("needs_grad", ["qkv", "k"])
+def test_block_attend_backward_is_the_plain_recompute(needs_grad):
+    """block_attend's gradients equal autograd through
+    ``block_attend_reference``, for any subset of q/k/v that requires
+    grad and with the unused outputs' cotangents left out (m and l when
+    only pv is read)."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 8, 8, 1, 64))
+    leaves = [t.clone().requires_grad_(n in needs_grad)
+              for n, t in zip("qkv", (q, k, v))]
+    refs = [t.clone().requires_grad_(n in needs_grad)
+            for n, t in zip("qkv", (q, k, v))]
+    kw = dict(scale=0.125, causal=True, q_offset=8, kv_offset=4)
+    outs = tflash.block_attend(*leaves, **kw)
+    want = tflash.block_attend_reference(*refs, **kw)
+    cts = [torch.randn(o.shape, generator=torch.Generator().manual_seed(i))
+           for i, o in enumerate(outs)]
+    n_read = 3 if needs_grad == "qkv" else 1
+    torch.autograd.backward(outs[:n_read], cts[:n_read])
+    torch.autograd.backward(want[:n_read], cts[:n_read])
+    for g, w in zip(leaves, refs):
+        if w.grad is None:
+            assert g.grad is None
+        else:
+            torch.testing.assert_close(g.grad, w.grad, rtol=0, atol=0)
 
 
 def test_flash_kernel_refuses_cpu_tensors():
