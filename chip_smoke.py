@@ -154,7 +154,42 @@ Phases, each printing one JSON line (any failure exits non-zero):
             p50 per rank, K1 launches per ring call and per step, bytes
             per step by collective and the ring's K/V shifts staged
             through host memory, the ring's and Ulysses' forward ms,
-            the card's name and power limit
+            the card's name and power limit; the ``--gloo-probe`` ops
+            include ``all_reduce(async_op=True)`` (gated as the others)
+   mesh5    the rest of the five-axis mesh (under ``build/mesh5_*``,
+            removed after): first K1, K2 and K3 alone at the gangs'
+            shapes ([2, 1024, 16, 128] and [2, 2048, 8, 128], bf16,
+            causal) against their plain versions (K2/K3 at the bf16
+            ``GRAD_TOL``), K1 timed beside its plain version and SDPA;
+            then two jobs of
+            4 workers of the port's launcher sharing the card over gloo
+            (each ``chip_smoke.py --mesh5-worker``).  Gang A: the
+            flagship's widths at depth 4 on pp2 x dp2 (2 layers a stage,
+            2 microbatches, global B=8 x T=1024, seed 0); gang B: the
+            routed flagship (top-2 of 8, capacity factor 1.25) at depth
+            2 on ep2 x tp2 (4 experts x half of d_ff and 8 heads a rank,
+            B=2 x T=2048).  Gates, each gang: a depth-2 float32 copy on
+            the gang's mesh against one process (loss within 2e-5
+            relative, every gathered gradient within 1e-4 of its max;
+            gang B's route agreement reported); 1 warm-up and 5 bf16
+            AdamW steps of ``make_train_step(mesh=...)`` with one loss
+            per step on every rank, falling, each leaf's SHA-256 equal
+            on the ranks that hold the same shard, and (M+P-1) x L/P
+            launches of each of K1-K3 a step a rank (6 in gang A, 2 in
+            gang B).  Gang A also: the same steps from the same start
+            with ``overlap="device"``, losses within 1e-2 relative of
+            the fused reduction's (bit-equality reported), every leaf
+            after the steps bit-equal to the fused run's and each leaf's
+            SHA-256 equal on the ranks that hold it; the train
+            state after the steps saved with specs
+            (``save_pytree(..., mesh=, specs=)``), restored into a fresh
+            model and AdamW bitwise, and one more step from each with
+            equal losses and SHA-256s.  Gang B also: one call under
+            ``moe_debug_overflow``, its dropped-choice fraction equal on
+            the ranks of one ep coordinate.  Numbers: step p50, peak
+            memory, pp bytes staged, all-reduce bytes, buckets and the
+            exposed (dp, sp) wait a step a rank, save and restore
+            seconds
    telemetry  the port's ``LoadGenerator`` drives the port's server (the
             flagship, spec_k=3, seed 0): 8 streams x 2 requests, prompts
             of 17..511 tokens, 32 new tokens; gates: /metrics parses as
@@ -217,9 +252,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
 9. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
             its path (and on the spine's timed steps, and in
             ``path_launches`` on the routed serving and train paths, the
-            self-heal runs, the elastic job and the mesh phase's ring,
-            Ulysses and train runs), max error, times and roofline
-            bound; K1's ``ring_step`` rows
+            self-heal runs, the elastic job, the mesh phase's ring,
+            Ulysses and train runs and the mesh5 gangs' timed steps),
+            max error, times and roofline bound; K1's ``ring_step`` and
+            ``mesh5_shapes`` rows
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits with code 2 and prints no result.  Details go to
@@ -461,7 +497,7 @@ def fwd_check(fa, q, k, v, o):
     return mx, mean
 
 
-def fwd_timing(fa, q, k, v, b, t, h, d):
+def fwd_timing(fa, q, k, v, b, t, h, d, phase="flash_fwd_train_shape"):
     """K1 timed alone on q, k, v (bf16, causal, o normalised as the
     train step calls it), two launches held bit-identical, beside the
     plain forward and SDPA's forward (yardstick only); emits and returns
@@ -486,7 +522,7 @@ def fwd_timing(fa, q, k, v, b, t, h, d):
     # q, k, v read and o written once (bf16), m and l written (f32)
     bnd, by = bound_ms(flops, 4 * q.numel() * q.element_size()
                        + 2 * b * h * t * 4, torch.bfloat16)
-    row = {"phase": "flash_fwd_train_shape", "B": b, "T": t, "H": h, "D": d,
+    row = {"phase": phase, "B": b, "T": t, "H": h, "D": d,
            "dtype": "bfloat16", "causal": True, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library": "SDPA forward", "bound_ms": bnd, "bound_by": by,
@@ -2413,6 +2449,25 @@ def moe_train_phase(tfm, fa, tele, model):
             }, launches
 
 
+def _record_routes(model, routes):
+    """Wrap each layer's ``moe_ffn`` to append its tokens' sorted top-k
+    expert indices to ``routes``; returns the undo."""
+    for layer in model.layers:
+        def record(x, c, route_tokens=None, layer=layer, **kw):
+            if c.routed:
+                probs = torch.softmax(
+                    (x.reshape(-1, x.shape[-1]) @ layer.gate).float(), -1)
+                routes.append(torch.topk(probs, c.moe_topk, dim=-1)
+                              .indices.sort(dim=-1).values)
+            return type(layer).moe_ffn(layer, x, c, route_tokens, **kw)
+        layer.moe_ffn = record
+
+    def undo():
+        for layer in model.layers:
+            del layer.moe_ffn
+    return undo
+
+
 def moe_check_phase(tfm, cfg):
     """The routed flagship at depth 2 in float32 on the card (B=2,
     T=1024), kernels against plain versions: the (token, choice) routes
@@ -2431,21 +2486,13 @@ def moe_check_phase(tfm, cfg):
 
     def forward(impl):
         routes = []
-        for layer in model.layers:
-            def record(x, c, route_tokens=None, layer=layer, **kw):
-                probs = torch.softmax(
-                    (x.reshape(-1, x.shape[-1]) @ layer.gate).float(), -1)
-                routes.append(torch.topk(probs, c.moe_topk, dim=-1)
-                              .indices.sort(dim=-1).values)
-                return type(layer).moe_ffn(layer, x, c, route_tokens, **kw)
-            layer.moe_ffn = record
+        undo = _record_routes(model, routes)
         try:
             x = embed_lookup(model.embed, ids)
             for layer in model.layers:
                 x = layer(x, positions, cfg32, impl)
         finally:
-            for layer in model.layers:
-                del layer.moe_ffn
+            undo()
         return rms_norm(x, model.ln_f) @ model.unembed, routes
 
     out = {impl: forward(impl) for impl in (None, "torch")}
@@ -2984,7 +3031,7 @@ MESH_OPS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast",
             "ppermute", "all_to_all")
 
 
-GLOO_PROBE_OPS = ("all_reduce", "all_gather_into_tensor",
+GLOO_PROBE_OPS = ("all_reduce", "all_reduce_async", "all_gather_into_tensor",
                   "reduce_scatter_tensor", "all_to_all_single", "broadcast",
                   "batch_isend_irecv")
 
@@ -3010,6 +3057,11 @@ def gloo_probe_worker(argv) -> int:
         if op == "all_reduce":
             y = x.clone()
             dist.all_reduce(y)
+            return y, torch.full_like(x, 3.0)
+        if op == "all_reduce_async":   # overlap="device"'s buckets
+            y = x.clone()
+            work = dist.all_reduce(y, async_op=True)
+            work.wait()
             return y, torch.full_like(x, 3.0)
         if op == "all_gather_into_tensor":
             y = x.new_empty((8, 3))
@@ -3173,12 +3225,12 @@ def _leaf_sha(model, mesh):
     hold the same values (replicated leaves: every rank)."""
     import hashlib
 
-    from dmlc_tpu_torch.models.transformer import PARAM_SPECS
+    from dmlc_tpu_torch.models.transformer import sharded_axes
 
     out = {}
     for name, prm in model.named_parameters():
-        spec = PARAM_SPECS[name.rsplit(".", 1)[-1]]
-        key = [mesh.axis_rank(a) for _, a in spec if mesh.axis_size(a) > 1]
+        key = [mesh.axis_rank(a) for a in sharded_axes(name)
+               if mesh.axis_size(a) > 1]
         out[name] = (key, hashlib.sha256(
             prm.detach().float().cpu().numpy().tobytes()).hexdigest())
     return out
@@ -3338,46 +3390,12 @@ def mesh_worker(argv) -> int:
     # 4. f32 at depth 2: sharded loss and every gathered gradient against
     # one process's unsharded_loss on the same weights
     cfg = tfm.TransformerConfig(**conf["model"])
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    rng = np.random.default_rng(0)
-    ids = torch.from_numpy(rng.integers(0, cfg32.vocab, (
-        conf["check_B"], conf["check_T"] + 1))).cuda()
-    x_ids, y_ids = ids[:, :-1], ids[:, 1:]
-    glob = tfm.init_params(cfg32, torch.Generator("cuda").manual_seed(0),
-                           "cuda")
-    model = shard_params_from_jax(gather_params(glob), cfg32, mesh)
     dp = mesh.axis_size("dp")
 
     def local(x):
         return (x.chunk(dp, 0)[mesh.axis_rank("dp")].chunk(sp, 1)[si])
 
-    zero()
-    loss = tfm.forward_local(model, local(x_ids), local(y_ids), cfg32,
-                             tfm.SHARDED_AXES, mesh)
-    loss.backward()
-    tfm.sync_gradients(model, mesh)
-    doc["check_launches"] = counts()
-    grads = gather_params(model, mesh, grads=True)
-    del model
-    ref_loss = tfm.unsharded_loss(glob, x_ids, y_ids)
-    ref_loss.backward()
-    ref_grads = gather_params(glob, grads=True)
-    rel_loss = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
-    flat = {**grads["blocks"], **{n: grads[n] for n in
-                                   ("embed", "unembed", "ln_f")}}
-    flat_ref = {**ref_grads["blocks"], **{n: ref_grads[n] for n in
-                                          ("embed", "unembed", "ln_f")}}
-    # max |g - g_ref| over max |g_ref| (one expert's gate: both exactly 0)
-    worst = {n: ((g - flat_ref[n]).abs().max()
-                 / flat_ref[n].abs().max().clamp_min(1e-30)).item()
-             for n, g in flat.items()}
-    check(rel_loss <= MESH_LOSS_RTOL, f"mesh f32 loss: rel {rel_loss}")
-    check(max(worst.values()) <= MESH_GRAD_TOL,
-          f"mesh f32 gradients: {worst}")
-    doc["f32"] = {"loss": float(loss), "ref_loss": float(ref_loss),
-                  "loss_rel_err": rel_loss, "grad_rel_max_err": worst}
-    del glob, grads, ref_grads, loss, ref_loss
-    torch.cuda.empty_cache()
+    doc["f32"] = mesh_f32_check(tfm, mesh, cfg, conf, local, "mesh")
 
     # 5. bf16 AdamW steps through make_train_step(mesh=...)
     glob = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
@@ -3422,6 +3440,34 @@ def mesh_worker(argv) -> int:
     return 0
 
 
+def mesh_job(name, flag, conf, timeout):
+    """``MESH_WORKERS`` workers of the port's launcher sharing the card,
+    each ``chip_smoke.py <flag> build/<name>`` (with ``MESH_ENV``), given
+    ``conf`` as ``config.json``; returns the ranks' ``<name>.<rank>.json``
+    docs and the job's seconds.  ``build/<name>`` is removed after."""
+    root = os.path.join(ROOT, "build", name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(dict(conf, ckpt=os.path.join(root, "ckpt")), f)
+    env_old = {k: os.environ.get(k) for k in MESH_ENV}
+    os.environ.update(MESH_ENV)
+    try:
+        _, _, job_s = _submit(
+            name, [sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
+                   root], timeout, workers=MESH_WORKERS)
+    finally:
+        for k, v in env_old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    docs = [json.load(open(os.path.join(root, f"{name}.{r}.json")))
+            for r in range(MESH_WORKERS)]
+    shutil.rmtree(root, ignore_errors=True)
+    return docs, job_s
+
+
 def mesh_phase(smi, fa):
     """The sharded flagship (see the module docstring): the psum worker,
     then 4 mesh workers under the port's launcher sharing the card.
@@ -3447,31 +3493,12 @@ def mesh_phase(smi, fa):
     for r in range(MESH_WORKERS):
         check(f"rank {r}/{MESH_WORKERS}: torch psum OK -> {want}"
               in out + err, f"mesh: psum rank {r} (tracker_mesh_psum.log)")
-    root = os.path.join(ROOT, "build", "mesh")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
     cfg = mesh_config_()
-    with open(os.path.join(root, "config.json"), "w") as f:
-        json.dump({"mesh": MESH_SHAPE, "ring": MESH_RING,
-                   "model": dataclasses.asdict(cfg), "B": MESH_B,
-                   "T": MESH_T, "check_B": MESH_CHECK_B,
-                   "check_T": MESH_CHECK_T, "steps": MESH_STEPS}, f)
-    env_old = {k: os.environ.get(k) for k in MESH_ENV}
-    os.environ.update(MESH_ENV)
-    try:
-        _, err, job_s = _submit(
-            "mesh", [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-                     "--mesh-worker", root], MESH_TIMEOUT_S,
-            workers=MESH_WORKERS)
-    finally:
-        for k, v in env_old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    docs = [json.load(open(os.path.join(root, f"mesh.{r}.json")))
-            for r in range(MESH_WORKERS)]
-    shutil.rmtree(root, ignore_errors=True)
+    docs, job_s = mesh_job("mesh", "--mesh-worker", {
+        "mesh": MESH_SHAPE, "ring": MESH_RING,
+        "model": dataclasses.asdict(cfg), "B": MESH_B, "T": MESH_T,
+        "check_B": MESH_CHECK_B, "check_T": MESH_CHECK_T,
+        "steps": MESH_STEPS}, MESH_TIMEOUT_S)
     backends = {d["backend"] for d in docs}
     check(len(backends) == 1, f"mesh: backends {backends}")
     losses = [d["train"]["losses"] for d in docs]
@@ -3529,6 +3556,414 @@ def mesh_phase(smi, fa):
     return line, rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7e: the rest of the five-axis mesh — the pipeline, expert
+# parallelism, the bucketed device reduction, sharded checkpoints
+# ---------------------------------------------------------------------------
+
+#: gang A: the dense flagship's widths on pp2 x dp2 (2 layers a stage, 2
+#: microbatches, B=8 x T=1024: one microbatch is [2, 1024, 16, 128] for
+#: K1 on a dp rank); gang B: the routed flagship (top-2 of 8) on ep2 x
+#: tp2 (4 experts x half of d_ff and 8 heads a rank, B=2 x T=2048)
+MESH5_GANGS = {
+    "A": {"mesh": {"pp": 2, "dp": 2, "sp": 1, "ep": 1, "tp": 1},
+          "n_layers": 4, "microbatches": 2, "routed": False,
+          "B": 8, "T": 1024, "check_B": 4, "check_T": 1024,
+          "overlaps": [None, "device"], "checkpoint": True},
+    "B": {"mesh": {"pp": 1, "dp": 1, "sp": 1, "ep": 2, "tp": 2},
+          "n_layers": 2, "microbatches": 1, "routed": True,
+          "B": 2, "T": 2048, "check_B": 2, "check_T": 2048,
+          "overlaps": [None], "checkpoint": False},
+}
+MESH5_STEPS = 5
+MESH5_TIMEOUT_S = 480
+#: overlap="device" against the fused reduction, bf16 losses: the
+#: bucket sums and the loss's transpose differ by a division by dp=2,
+#: exact in bf16, so the bits should agree; the losses' gate allows bf16
+#: rounding, the leaves after the steps are gated bit-equal
+MESH5_OVERLAP_RTOL = 1e-2
+
+
+def mesh5_config(gang):
+    """The gang's bf16 config: the flagship's widths at the gang's depth
+    and microbatches, routed top-2 of 8 for gang B."""
+    from dmlc_tpu_torch.models import transformer as tfm
+
+    g = MESH5_GANGS[gang]
+    cfg = dataclasses.replace(tfm.flagship_config(), n_layers=g["n_layers"],
+                              microbatches=g["microbatches"])
+    return moe_config(cfg) if g["routed"] else cfg
+
+
+def mesh_f32_check(tfm, mesh, cfg, conf, local, phase):
+    """``cfg`` at depth 2 in float32 on the mesh against one process's
+    ``unsharded_loss`` on the same weights (B x T = ``conf``'s
+    ``check_B`` x ``check_T``, this rank's block taken by ``local``):
+    the loss within ``MESH_LOSS_RTOL`` relative, every gathered gradient
+    within ``MESH_GRAD_TOL`` of its max; for a routed config, the share
+    of (token, layer, choice) routes that agree."""
+    from dmlc_tpu_torch.models.convert import (gather_params,
+                                               shard_params_from_jax)
+
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg32.vocab, (
+        conf["check_B"], conf["check_T"] + 1))).cuda()
+    x_ids, y_ids = ids[:, :-1], ids[:, 1:]
+    glob = tfm.init_params(cfg32, torch.Generator("cuda").manual_seed(0),
+                           "cuda")
+    model = shard_params_from_jax(gather_params(glob), cfg32, mesh)
+    # the routes of the forward (a remat recompute in the backward
+    # records them again, after)
+    routes, ref_routes = [], []
+    undo = _record_routes(model, routes)
+    loss = tfm.forward_local(model, local(x_ids), local(y_ids), cfg32,
+                             tfm.SHARDED_AXES, mesh)
+    n_fwd = len(routes)
+    loss.backward()
+    undo()
+    del routes[n_fwd:]
+    tfm.sync_gradients(model, mesh)
+    grads = gather_params(model, mesh, grads=True)
+    del model
+    undo = _record_routes(glob, ref_routes)
+    ref_loss = tfm.unsharded_loss(glob, x_ids, y_ids)
+    n_fwd = len(ref_routes)
+    ref_loss.backward()
+    undo()
+    del ref_routes[n_fwd:]
+    ref_grads = gather_params(glob, grads=True)
+
+    def leaves(tree):
+        out = {n: tree[n] for n in ("embed", "unembed", "ln_f")}
+        out.update({n: g.flatten(0, 1) for n, g in tree["blocks"].items()})
+        return out
+
+    flat, flat_ref = leaves(grads), leaves(ref_grads)
+    loss, ref_loss = float(loss), float(ref_loss)
+    rel_loss = abs(loss - ref_loss) / abs(ref_loss)
+    worst = {n: ((g - flat_ref[n]).abs().max()
+                 / flat_ref[n].abs().max().clamp_min(1e-30)).item()
+             for n, g in flat.items()}
+    doc = {"loss": loss, "ref_loss": ref_loss,
+           "loss_rel_err": rel_loss, "grad_rel_max_err": worst,
+           "B": conf["check_B"], "T": conf["check_T"]}
+    if cfg.routed:
+        # every rank routes all of its (dp, sp) block's tokens, here all
+        doc["route_agreement"] = torch.cat(
+            [(a == b).float().reshape(-1) for a, b in
+             zip(routes, ref_routes)]).mean().item()
+    check(rel_loss <= MESH_LOSS_RTOL, f"{phase} f32 loss: rel {rel_loss}")
+    check(max(worst.values()) <= MESH_GRAD_TOL,
+          f"{phase} f32 gradients: {worst}")
+    del glob, grads, ref_grads
+    torch.cuda.empty_cache()
+    return doc
+
+
+def _span_s(tele, after, name):
+    """Seconds in the spans called ``name`` recorded after ``after``."""
+    return sum(s["dur"] for s in tele.core.spans_since(after)[0]
+               if s["name"] == name) / 1e6
+
+
+def mesh5_worker(argv) -> int:
+    """One rank of a ``mesh5`` gang (under the port's launcher): tracker
+    rendezvous, ``initialize_distributed()``, ``build_mesh`` of the
+    gang's shape; the f32 check, then the bf16 AdamW steps of each
+    overlap mode from one start, gang A's sharded checkpoint and its
+    restored step, gang B's dropped-choice fraction.  Writes its numbers
+    to ``<out>/<out's name>.<rank>.json``."""
+    sys.path.insert(0, ROOT)
+    from dmlc_tpu_torch import telemetry as tele
+    from dmlc_tpu_torch.checkpoint import restore_pytree, save_pytree
+    from dmlc_tpu_torch.models import transformer as tfm
+    from dmlc_tpu_torch.models.convert import (
+        gather_params, shard_params_from_jax, state_specs,
+        train_state_from_jax, train_state_to_jax)
+    from dmlc_tpu_torch.ops import flash_attention as fa
+    from dmlc_tpu_torch.parallel import build_mesh, initialize_distributed
+    from dmlc_tpu_torch.tracker.client import TrackerClient
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = argv[0]
+    with open(os.path.join(out_dir, "config.json")) as f:
+        conf = json.load(f)
+    client = TrackerClient()
+    client.start()
+    t0 = time.perf_counter()
+    backend = initialize_distributed(timeout_s=MESH5_TIMEOUT_S)
+    mesh = build_mesh(**conf["mesh"])
+    rank = mesh.rank
+    doc = {"rank": rank, "coords": mesh.coords, "backend": backend,
+           "groups": sorted("+".join(k) if isinstance(k, tuple) else k
+                            for k in mesh.groups),
+           "init_s": time.perf_counter() - t0}
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
+               "flash_bwd_dq": fa.FLASH_BWD_DQ}
+
+    def zero():
+        for kern in kernels.values():
+            kern.launches = 0
+
+    def counts():
+        return {n: kern.launches for n, kern in kernels.items()}
+
+    dp, sp = mesh.axis_size("dp"), mesh.axis_size("sp")
+
+    def local(x):
+        return (x.chunk(dp, 0)[mesh.axis_rank("dp")]
+                .chunk(sp, 1)[mesh.axis_rank("sp")])
+
+    cfg = tfm.TransformerConfig(**conf["model"])
+    doc["f32"] = mesh_f32_check(tfm, mesh, cfg, conf, local, "mesh5")
+
+    # bf16 AdamW steps of each overlap mode from one start
+    glob = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           "cuda")
+    tree = gather_params(glob)
+    del glob
+    torch.cuda.empty_cache()
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (conf["B"], conf["T"] + 1))).cuda()
+    x_ids, y_ids = ids[:, :-1], ids[:, 1:]
+    doc["train"] = {}
+    keep = None
+    for overlap in conf["overlaps"]:
+        model = shard_params_from_jax(tree, cfg, mesh)
+        opt = tfm.adamw(model.parameters(), 1e-4)
+        step = tfm.make_train_step(model, opt, ledger=False, mesh=mesh,
+                                   overlap=overlap)
+        doc["params_local"] = sum(p.numel() for p in model.parameters())
+        tele.reset()
+        losses = [float(step(x_ids, y_ids))]       # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        zero()
+        tele.reset()
+        seq = tele.core.span_seq()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(conf["steps"]):
+            ts = time.perf_counter()
+            losses.append(float(step(x_ids, y_ids)))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - ts) * 1e3)
+        coll = tele.snapshot()["counters"].get("collective", {})
+        n = conf["steps"]
+        doc["train"][str(overlap)] = {
+            "losses": losses, "step_ms": walls, "step_p50_ms": median(walls),
+            "launches": counts(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "staged_bytes_per_step":
+                coll.get("ppermute_staged_bytes", 0.0) / n,
+            "all_reduce_bytes_per_step":
+                coll.get("all_reduce_bytes", 0.0) / n,
+            "buckets_per_step": coll.get("overlap_buckets", 0.0) / n,
+            # the host's wait on the (dp, sp) reduction a step: the fused
+            # all-reduce after the backward, or the join on the buckets
+            "exposed_s_per_step": _span_s(
+                tele, seq, "collective.join" if overlap
+                else "collective.allreduce") / n}
+        entry = doc["train"][str(overlap)]
+        entry["sha256"] = _leaf_sha(model, mesh)
+        if overlap is None:
+            keep = (model, opt, step)
+        else:
+            # the same steps from the same start: the bucketed means are
+            # the fused ones, so every leaf should come out bit-equal
+            entry["leaves_equal_to_fused"] = all(
+                torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                  keep[0].parameters()))
+            del model, opt, step
+        torch.cuda.empty_cache()
+    model, opt, step = keep
+    del tree
+    doc["sha256"] = doc["train"]["None"]["sha256"]
+
+    if conf["checkpoint"]:
+        # the train state after the steps, sharded with specs; restored
+        # into a fresh model and AdamW; one more step from each
+        dist.barrier()
+        ts = time.perf_counter()
+        state = train_state_to_jax(model, opt)
+        nbytes = save_pytree(conf["ckpt"], state, mesh=mesh,
+                             specs=state_specs(state))
+        save_s = time.perf_counter() - ts
+        del state
+        fresh = tfm.Transformer(cfg, mesh=mesh)
+        fresh_opt = tfm.adamw(fresh.parameters(), 1e-4)
+        dist.barrier()
+        ts = time.perf_counter()
+        back = restore_pytree(conf["ckpt"], train_state_to_jax(
+            fresh, fresh_opt, device="meta"), mesh=mesh)
+        train_state_from_jax(back, fresh, fresh_opt)
+        del back
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - ts
+        restored = _leaf_sha(fresh, mesh)
+        fresh_step = tfm.make_train_step(fresh, fresh_opt, ledger=False,
+                                         mesh=mesh)
+        after = [float(step(x_ids, y_ids)), float(fresh_step(x_ids, y_ids))]
+        doc["checkpoint"] = {
+            "bytes_written": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "restored_equal": restored == doc["sha256"],
+            "step_losses": after,
+            "step_sha_equal": _leaf_sha(fresh, mesh) == _leaf_sha(model,
+                                                                  mesh)}
+        del fresh, fresh_opt, fresh_step
+
+    if cfg.routed:
+        # the dropped-choice fraction of this rank's own choices, one call
+        tele.reset()
+        debug = dataclasses.replace(cfg, moe_debug_overflow=True)
+        with torch.no_grad():
+            tfm.forward_local(model, local(x_ids), local(y_ids), debug,
+                              tfm.SHARDED_AXES, mesh)
+        moe = tele.snapshot()["counters"]["moe"]
+        doc["overflow_fraction"] = (moe["overflow_fraction_sum"]
+                                    / moe["overflow_checks"])
+    doc["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"{os.path.basename(out_dir)}.{rank}"
+                           ".json"), "w") as f:
+        json.dump(doc, f)
+    client.log(f"rank {rank}: mesh5 gang done")
+    dist.destroy_process_group()
+    client.shutdown()
+    return 0
+
+
+def mesh5_kernel_rows(fa):
+    """K1, K2 and K3 alone at the two gangs' shapes (gang A's microbatch
+    [2, 1024, 16, 128], gang B's [2, 2048, 8, 128]; bf16, causal): K1
+    held against the plain forward, K2 and K3 against the plain backward
+    at ``GRAD_TOL`` (:func:`bwd_check`); K1 timed beside the plain
+    forward and SDPA, with its bound.  Returns K1's rows, each with K2's
+    and K3's errors at its shape."""
+    rows = {}
+    gen = torch.Generator("cuda").manual_seed(13)
+    for name, (b, t, h, d) in (("gang_A", (2, 1024, 16, 128)),
+                               ("gang_B", (2, 2048, 8, 128))):
+        args = bwd_inputs(gen, b, t, h, d, torch.bfloat16, True)
+        mx, _ = fwd_check(fa, *args[:4])
+        bwd = bwd_check(fa, args, {"phase": "mesh5_bwd", "gang": name,
+                                   "dtype": "bfloat16", "B": b, "T": t,
+                                   "H": h, "D": d, "causal": True})
+        torch.cuda.empty_cache()
+        rows[name] = dict(fwd_timing(fa, *args[:3], b, t, h, d,
+                                     phase="mesh5_k1"), max_abs_err=mx,
+                          bwd={k: v for k, v in bwd.items()
+                               if k.endswith("_err")})
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mesh5_phase(smi, fa):
+    """The rest of the five-axis mesh (see the module docstring): K1 at
+    the gangs' shapes, gang A (the pipeline, dp, overlap="device", the
+    sharded checkpoint) and gang B (routed experts over ep x tp).  Returns
+    the phase's line, the K1 rows and the kernels' launches summed over
+    the gangs' ranks' timed steps."""
+    t_start = time.time()
+    rows = mesh5_kernel_rows(fa)
+    line = {"phase": "mesh5", "card": smi, "workers": MESH_WORKERS,
+            "reduced": "depth only (gang A 16 -> 4, gang B 16 -> 2): four "
+                       "ranks share one card and the host, and every "
+                       "collective crosses gloo through host memory",
+            "k1": rows, "gangs": {}}
+    launches = {n: 0 for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    for gang in ("A", "B"):
+        g = MESH5_GANGS[gang]
+        cfg = mesh5_config(gang)
+        docs, job_s = mesh_job(f"mesh5_{gang}", "--mesh5-worker", {
+            "mesh": g["mesh"], "model": dataclasses.asdict(cfg),
+            "B": g["B"], "T": g["T"], "check_B": g["check_B"],
+            "check_T": g["check_T"], "steps": MESH5_STEPS,
+            "overlaps": g["overlaps"], "checkpoint": g["checkpoint"]},
+            MESH5_TIMEOUT_S)
+        check(len({d["backend"] for d in docs}) == 1,
+              f"mesh5 {gang}: backends differ")
+        runs = {}
+        for overlap in map(str, g["overlaps"]):
+            losses = [d["train"][overlap]["losses"] for d in docs]
+            check(all(ls == losses[0] for ls in losses),
+                  f"mesh5 {gang} {overlap}: ranks disagree {losses}")
+            check(all(math.isfinite(x) for x in losses[0])
+                  and losses[0][-1] < losses[0][0],
+                  f"mesh5 {gang} {overlap}: losses {losses[0]}")
+            per_step = [{n: c / MESH5_STEPS for n, c in
+                         d["train"][overlap]["launches"].items()}
+                        for d in docs]
+            # every rank runs its stage on each of the M + P - 1 steps:
+            # (M + P - 1) x L/P launches of each of K1-K3 a step
+            want = ((cfg.microbatches + g["mesh"]["pp"] - 1)
+                    * cfg.n_layers // g["mesh"]["pp"])
+            check(all(c == {n: want for n in c} for c in per_step),
+                  f"mesh5 {gang} {overlap}: launches {per_step} != {want}")
+            for d in docs:
+                for n, c in d["train"][overlap]["launches"].items():
+                    launches[n] += c
+            runs[overlap] = {
+                "losses": losses[0],
+                **{k: [d["train"][overlap][k] for d in docs]
+                   for k in ("step_p50_ms", "step_ms", "peak_gb",
+                             "staged_bytes_per_step",
+                             "all_reduce_bytes_per_step",
+                             "buckets_per_step", "exposed_s_per_step")},
+                "launches_per_step_per_rank": per_step[0]}
+        if "device" in runs:
+            a, b = runs["None"]["losses"], runs["device"]["losses"]
+            rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+            check(rel <= MESH5_OVERLAP_RTOL,
+                  f"mesh5 {gang}: overlap='device' losses {b} vs {a}")
+            runs["device"]["loss_rel_diff_vs_fused"] = rel
+            runs["device"]["bit_equal_to_fused"] = a == b
+            equal = [d["train"]["device"]["leaves_equal_to_fused"]
+                     for d in docs]
+            check(all(equal), f"mesh5 {gang}: overlap='device' leaves "
+                              f"differ from the fused run's: {equal}")
+            runs["device"]["leaves_equal_to_fused"] = equal
+        # the replicas of every leaf agree, in each overlap mode
+        for overlap in map(str, g["overlaps"]):
+            for name in docs[0]["sha256"]:
+                held = {}
+                for d in docs:
+                    key, sha = d["train"][overlap]["sha256"][name]
+                    held.setdefault(tuple(key), set()).add(sha)
+                check(all(len(v) == 1 for v in held.values()),
+                      f"mesh5 {gang} {overlap}: {name} differs between "
+                      "ranks that hold it")
+        doc = {"mesh": g["mesh"], "model": "flagship_moe_8x2" if cfg.routed
+               else "flagship", "n_layers": cfg.n_layers,
+               "microbatches": cfg.microbatches, "B": g["B"], "T": g["T"],
+               "backend": docs[0]["backend"],
+               "coords": [d["coords"] for d in docs],
+               "groups": docs[0]["groups"],
+               "params_local": [d["params_local"] for d in docs],
+               "f32_check": [d["f32"] for d in docs], "runs": runs,
+               "job_s": job_s}
+        if g["checkpoint"]:
+            ck = [d["checkpoint"] for d in docs]
+            check(all(c["restored_equal"] and c["step_sha_equal"]
+                      and c["step_losses"][0] == c["step_losses"][1]
+                      for c in ck), f"mesh5 {gang}: checkpoint {ck}")
+            doc["checkpoint"] = {k: [c[k] for c in ck] for k in ck[0]}
+        if cfg.routed:
+            fr = [d["overflow_fraction"] for d in docs]
+            # the ranks of one ep coordinate route the same choices
+            by_ep = {}
+            for d in docs:
+                by_ep.setdefault(d["coords"]["ep"], set()).add(
+                    d["overflow_fraction"])
+            check(all(len(v) == 1 for v in by_ep.values()),
+                  f"mesh5 {gang}: overflow fractions {fr}")
+            doc["overflow_fraction"] = fr
+        line["gangs"][gang] = doc
+    line["wall_s"] = time.time() - t_start
+    return line, rows, launches
 
 
 def main() -> int:
@@ -3655,6 +4090,14 @@ def main() -> int:
     mesh_doc, ring_rows, option_launches["mesh"] = mesh_phase(smi, fa)
     emit(mesh_doc)
 
+    # 7e. the rest of the five-axis mesh: gang A (pp2 x dp2, the
+    # pipeline, overlap="device", a sharded checkpoint) and gang B (ep2 x
+    # tp2, routed experts), 4 ranks each sharing the card over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh5_doc, mesh5_rows, option_launches["mesh5"] = mesh5_phase(smi, fa)
+    emit(mesh5_doc)
+
     # 8. the sparse text path: LibSVM and CSV through libsvm_feed; then
     # the tracker phase's 4-worker jobs on the same files
     for doc in sparse_phase(smi, spine_docs[2],
@@ -3697,8 +4140,16 @@ def main() -> int:
     # K1 timed alone at the train step's shapes besides its serving row
     kernels[0]["train_ms"] = {f"B{b}xT{t}": r["ms"]
                               for (b, t), r in k1_train.items()}
-    # K1 at the mesh train step's ring-step shape, at both offsets
+    # K1 at the mesh train step's ring-step shape, at both offsets, and at
+    # the mesh5 gangs' shapes
     kernels[0]["ring_step"] = ring_rows
+    kernels[0]["mesh5_shapes"] = mesh5_rows
+    # K2 and K3 held against the plain backward at the gangs' shapes
+    for kern, errs in ((kernels[1], ("dk", "dv")), (kernels[2], ("dq",))):
+        kern["mesh5_shapes"] = {
+            gang: {"max_abs_err": max(r["bwd"][f"{e}_max_abs_err"]
+                                      for e in errs)}
+            for gang, r in mesh5_rows.items()}
     emit({"kernels": kernels})
     RESULTS["total_s"] = time.perf_counter() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3715,6 +4166,8 @@ if __name__ == "__main__":
         sys.exit(elastic_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh5-worker"]:
+        sys.exit(mesh5_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--gloo-probe"]:
         sys.exit(gloo_probe_worker(sys.argv[2:]))
     sys.exit(main())

@@ -11,11 +11,23 @@ A leaf's key is JAX's ``keystr`` of its path (``['params']['embed']``,
 ``['opt'][0].mu[...]`` for a named tuple's field) with every character
 but ``[A-Za-z0-9._-]`` made ``_`` and the ends stripped; dict keys are
 visited in sorted order, as JAX flattens them.  A shard id names the
-box it covers (``0-2048_0-32768``, ``scalar``); the port writes each
-leaf as one shard.  bfloat16 moves as its bytes (``"bfloat16"`` in the
-manifest, as JAX writes it), never through float32 or numpy.  So a
-checkpoint the JAX package saved restores here and the other way
-round.
+global box it covers (``0-2048_0-32768``, ``scalar``).  bfloat16 moves
+as its bytes (``"bfloat16"`` in the manifest, as JAX writes it), never
+through float32 or numpy.  So a checkpoint the JAX package saved
+restores here and the other way round.
+
+Without a mesh each leaf is one shard and its ``spec`` is null.  On a
+mesh (``save_pytree(..., mesh=, specs=)``) the leaves are this rank's
+shards and ``specs`` gives each leaf's ``PartitionSpec`` as the
+reference's manifest writes it (``models.convert.state_specs``): each
+rank writes the shards it holds under their global index keys, of
+replicas only the rank at coordinate 0 on every live axis the leaf is
+not sharded over, and rank 0 writes the manifest, with every rank's
+shards and digests, after the others have written theirs (the
+reference's ``save_pytree(..., process_index=)``, whose process 0 lists
+its own shards only).  ``restore_pytree(..., mesh=)`` reads only the
+slice this rank's coordinate needs by the manifest's spec, from the
+file its index key names.
 
 Crash consistency: shards first, the manifest last through a temp file,
 ``fsync`` and ``os.replace``; a step without a committed manifest does
@@ -138,21 +150,59 @@ def leaf_key(path: str) -> str:
     return safe.strip("_") or "leaf"
 
 
-def _index_key(shape) -> str:
-    """The id of the shard covering the whole array."""
-    return "_".join(f"0-{d}" for d in shape) if len(shape) else "scalar"
+def _index_key(shape, box=None) -> str:
+    """The id of the shard covering ``box`` (``((start, stop), ...)``;
+    default the whole array)."""
+    if box is None:
+        box = tuple((0, d) for d in shape)
+    return "_".join(f"{a}-{b}" for a, b in box) if len(box) else "scalar"
 
 
-def _host_bytes(leaf) -> Tuple[np.ndarray, tuple, str]:
-    """(uint8 view of the leaf's bytes on the host, shape, dtype name)."""
+def _spec_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _mesh_box(shape, spec, mesh, local: bool) -> Tuple[tuple, tuple]:
+    """``(global shape, this rank's box)`` of a leaf sharded by ``spec``
+    on ``mesh``; ``shape`` is the local shard's (``local``) or the
+    global array's."""
+    glob, box = [], []
+    for i, d in enumerate(shape):
+        axes = _spec_axes(spec[i]) if spec and i < len(spec) else ()
+        n = mesh.axis_size(axes) if axes else 1
+        r = mesh.axis_rank(axes) if axes else 0
+        size = d if local else d // n
+        check(local or d % n == 0, f"dim {i} of {tuple(shape)} does not "
+              f"split over {axes}")
+        glob.append(size * n)
+        box.append((r * size, (r + 1) * size))
+    return tuple(glob), tuple(box)
+
+
+def _writes(spec, mesh) -> bool:
+    """Whether this rank writes its shard: the replica at coordinate 0 on
+    every axis the leaf is not sharded over."""
+    sharded = {a for e in (spec or ()) for a in _spec_axes(e)}
+    return all(c == 0 for a, c in mesh.coords.items() if a not in sharded)
+
+
+def _host_dtype(leaf) -> str:
+    """The leaf's dtype name as the manifest writes it."""
     if isinstance(leaf, torch.Tensor):
         check(leaf.dtype in _TORCH_DTYPES,
               f"checkpoint: unsupported dtype {leaf.dtype}")
+        return _TORCH_DTYPES[leaf.dtype]
+    return str(np.asarray(leaf).dtype)
+
+
+def _host_bytes(leaf) -> np.ndarray:
+    """A uint8 view of the leaf's bytes on the host."""
+    if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu").contiguous()
-        raw = t.reshape(-1).view(torch.uint8).numpy()
-        return raw, tuple(t.shape), _TORCH_DTYPES[t.dtype]
-    a = np.ascontiguousarray(np.asarray(leaf))
-    return a.reshape(-1).view(np.uint8), a.shape, str(a.dtype)
+        return t.reshape(-1).view(torch.uint8).numpy()
+    return np.ascontiguousarray(np.asarray(leaf)).reshape(-1).view(np.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -184,40 +234,72 @@ def _commit_manifest(uri: str, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-def save_pytree(uri: str, tree: Any) -> int:
+def save_pytree(uri: str, tree: Any, *, mesh=None,
+                specs: Optional[Dict[str, Optional[list]]] = None) -> int:
     """Write ``tree`` (nested dicts/lists/tuples of tensors and arrays)
-    under ``uri``; returns the bytes of shards written.  Tensors on the
-    card are copied to the host one leaf at a time."""
+    under ``uri``; returns the bytes of shards this process wrote.
+    Tensors on the card are copied to the host one leaf at a time.
+
+    With ``mesh`` the leaves are this rank's shards, ``specs`` maps each
+    leaf's path (``flatten_with_path``'s) to its spec (an axis name, a
+    list of names or None per leading dim; a leaf it does not name is
+    replicated), and every rank of the mesh calls this (the manifest's
+    commit is collective)."""
     path = _local_path(uri)
     check(path is not None, f"checkpoint {uri}: the port writes local "
           "paths only")
     with telemetry.span("checkpoint.save", stage="checkpoint",
                         args={"uri": uri}), \
             telemetry.timed("checkpoint", "save"):
-        nbytes = _save(uri, path, tree)
+        nbytes = _save(uri, path, tree, mesh, specs or {})
     telemetry.inc("checkpoint", "bytes_written", nbytes)
     telemetry.inc("checkpoint", "saves")
     return nbytes
 
 
-def _save(uri: str, path: str, tree: Any) -> int:
+def _save(uri: str, path: str, tree: Any, mesh, specs) -> int:
     os.makedirs(path, exist_ok=True)
     manifest: Dict[str, Any] = {"format": 1, "leaves": {}}
     nbytes = 0
     for kpath, leaf in flatten_with_path(tree):
         key = leaf_key(kpath)
         check(key not in manifest["leaves"], f"duplicate leaf key {key}")
-        raw, shape, dtype = _host_bytes(leaf)
-        ikey = _index_key(shape)
+        spec = specs.get(kpath)
+        shape = tuple(np.shape(leaf))
+        box = None
+        if mesh is not None:
+            shape, box = _mesh_box(shape, spec, mesh, local=True)
+        entry = manifest["leaves"][key] = {
+            "path": kpath, "shape": list(shape), "dtype": _host_dtype(leaf),
+            "spec": spec if mesh is not None else None, "shards": {},
+            "crc32c": {}}
+        if mesh is not None and not _writes(spec, mesh):
+            continue
+        raw = _host_bytes(leaf)
+        ikey = _index_key(shape, box)
         fname = f"{key}.{ikey}"
         with Stream.create(_join(uri, fname), "w") as s:
             s.write(memoryview(raw))
         nbytes += raw.size
-        manifest["leaves"][key] = {
-            "path": kpath, "shape": list(shape), "dtype": dtype,
-            "spec": None, "shards": {ikey: fname},
-            "crc32c": {ikey: crc32c(raw)}}
-    _commit_manifest(uri, json.dumps(manifest, indent=1).encode())
+        entry["shards"][ikey] = fname
+        entry["crc32c"][ikey] = crc32c(raw)
+    if mesh is not None and mesh.world > 1:
+        import torch.distributed as dist
+
+        # every rank's shards are on disk once it has sent its list; the
+        # manifest goes last, and no rank returns before it is committed
+        lists: List[Any] = [None] * mesh.world
+        dist.all_gather_object(lists, {k: (e["shards"], e["crc32c"])
+                                       for k, e in manifest["leaves"].items()})
+        for other in lists:
+            for k, (shards, crcs) in other.items():
+                manifest["leaves"][k]["shards"].update(shards)
+                manifest["leaves"][k]["crc32c"].update(crcs)
+        if mesh.rank == 0:
+            _commit_manifest(uri, json.dumps(manifest, indent=1).encode())
+        dist.barrier()
+    else:
+        _commit_manifest(uri, json.dumps(manifest, indent=1).encode())
     return nbytes
 
 
@@ -296,16 +378,16 @@ def _load_manifest(uri: str) -> Dict[str, Any]:
     return manifest
 
 
-def _restore(uri: str, template: Any) -> Tuple[Any, int]:
+def _restore(uri: str, template: Any, mesh=None) -> Tuple[Any, int]:
     with telemetry.span("checkpoint.restore", stage="checkpoint",
                         args={"uri": uri}), \
             telemetry.timed("checkpoint", "restore"):
-        out = _restore_tree(uri, template)
+        out = _restore_tree(uri, template, mesh)
     telemetry.inc("checkpoint", "restores")
     return out
 
 
-def _restore_tree(uri: str, template: Any) -> Tuple[Any, int]:
+def _restore_tree(uri: str, template: Any, mesh=None) -> Tuple[Any, int]:
     manifest = _load_manifest(uri)
     leaves_meta = manifest["leaves"]
     listing: List[str] = []
@@ -349,6 +431,33 @@ def _restore_tree(uri: str, template: Any) -> Tuple[Any, int]:
               "array exactly")
         return ikeys
 
+    def read_box(key, meta, shape, box, dtype, itemsize, crcs):
+        """The leaf's ``box``: the shard file of that box, else the parts
+        of the shards that cover it (a checkpoint saved with another
+        layout, or a whole leaf from a sharded save)."""
+        sub = tuple(b - a for a, b in box)
+        ikey = _index_key(shape, box)
+        if os.path.exists(_local_path(_join(uri, f"{key}.{ikey}"))):
+            raw = shard_bytes(key, ikey, int(np.prod(sub, dtype=np.int64))
+                              * itemsize, crcs.get(ikey))
+            return torch.from_numpy(raw).view(dtype).reshape(sub)
+        out_t = torch.empty(sub, dtype=dtype)
+        for other in shard_ids(key, meta, shape):
+            obox = _try_extents(other, shape)
+            cut = [(max(a, c), min(b, d)) for (a, b), (c, d)
+                   in zip(box, obox)]
+            if any(a >= b for a, b in cut):
+                continue
+            osub = tuple(d - c for c, d in obox)
+            raw = shard_bytes(key, other, int(np.prod(osub, dtype=np.int64))
+                              * itemsize, crcs.get(other))
+            part = torch.from_numpy(raw).view(dtype).reshape(osub)
+            out_t[tuple(slice(a - x, b - x) for (a, b), (x, _)
+                        in zip(cut, box))] = \
+                part[tuple(slice(a - c, b - c) for (a, b), (c, _)
+                           in zip(cut, obox))]
+        return out_t
+
     out: Dict[str, Any] = {}
     for kpath, tmpl in flatten_with_path(template):
         key = leaf_key(kpath)
@@ -360,22 +469,16 @@ def _restore_tree(uri: str, template: Any) -> Tuple[Any, int]:
         check(dtype is not None,
               f"checkpoint leaf {key}: unsupported dtype {meta['dtype']}")
         itemsize = torch.empty((), dtype=dtype).element_size()
-        crcs = meta.get("crc32c") or {}
-        ids = shard_ids(key, meta, shape)
-        if len(ids) == 1:
-            full = torch.from_numpy(shard_bytes(
-                key, ids[0], int(np.prod(shape, dtype=np.int64)) * itemsize,
-                crcs.get(ids[0]))).view(dtype).reshape(shape)
-        else:
-            full = torch.empty(shape, dtype=dtype)
-            for ikey in ids:
-                box = _try_extents(ikey, shape)
-                sub = tuple(b - a for a, b in box)
-                raw = shard_bytes(key, ikey,
-                                  int(np.prod(sub, dtype=np.int64))
-                                  * itemsize, crcs.get(ikey))
-                full[tuple(slice(a, b) for a, b in box)] = \
-                    torch.from_numpy(raw).view(dtype).reshape(sub)
+        box = tuple((0, d) for d in shape)
+        if mesh is not None:   # this rank's slice by the manifest's spec
+            _, box = _mesh_box(shape, meta.get("spec"), mesh, local=False)
+        full = read_box(key, meta, shape, box, dtype, itemsize,
+                        meta.get("crc32c") or {})
+        if mesh is not None and isinstance(tmpl, torch.Tensor):
+            check(tuple(tmpl.shape) == tuple(full.shape),
+                  f"checkpoint leaf {key}: this rank's slice "
+                  f"{tuple(full.shape)} != the template's "
+                  f"{tuple(tmpl.shape)}")
         if isinstance(tmpl, (np.ndarray, np.generic)):
             check(dtype != torch.bfloat16, f"checkpoint leaf {key}: "
                   "bfloat16 restores into a tensor template, not numpy")
@@ -384,12 +487,14 @@ def _restore_tree(uri: str, template: Any) -> Tuple[Any, int]:
     return _unflatten(template, out), nread
 
 
-def restore_pytree(uri: str, template: Any) -> Any:
+def restore_pytree(uri: str, template: Any, *, mesh=None) -> Any:
     """The tree saved under ``uri``, shaped as ``template`` (its values
     are ignored; a ``device="meta"`` tensor template costs no memory).
     Leaves come back as CPU tensors, or numpy arrays where the template
-    holds numpy."""
-    return _restore(uri, template)[0]
+    holds numpy.  With ``mesh`` each leaf is this rank's slice by the
+    manifest's spec (the whole leaf where the spec is null), and a
+    tensor template's shape must be the slice's."""
+    return _restore(uri, template, mesh)[0]
 
 
 class CheckpointManager:

@@ -1,8 +1,7 @@
 """Models of the port: the flagship decoder LM, trained on one card or on
-a dp × sp × tp mesh (``transformer``), and served; weights to and from
-the JAX package's trees (``convert``).  The pipeline, expert
-parallelism and the device gradient overlap are not ported yet
-(ROADMAP.md Queue 1 item 8c)."""
+a pp × dp × sp × ep × tp mesh (``transformer``), and served; weights and
+train state to and from the JAX package's trees (``convert``).  The
+gather decode path is not ported yet (ROADMAP.md Queue 1 item 8c)."""
 
 from .transformer import (  # noqa: F401
     PARAM_SPECS,

@@ -4,9 +4,11 @@
 init_params`` builds (after ``jax.tree.map(np.asarray, ...)``): blocks
 stacked ``[S, L/S, ...]``, every leaf a numpy array.  ``params_to_jax``
 is its inverse.  ``shard_params_from_jax`` slices the same global tree
-to one rank's shards on a mesh (``PARAM_SPECS``; ``params_from_jax`` is
-its world-1 case), and ``gather_params`` rebuilds a mesh model's global
-parameters (or gradients) in that tree's layout.  Neither needs jax nor the JAX package.  bfloat16
+to one rank's shards on a mesh (its pp stage's layers, then
+``PARAM_SPECS``; ``params_from_jax`` is its world-1 case), and
+``gather_params`` rebuilds a mesh model's global parameters (or
+gradients) in that tree's layout, blocks stacked ``[P, L/P, ...]``.
+Neither needs jax nor the JAX package.  bfloat16
 leaves are ``ml_dtypes``' bfloat16 on the numpy side, which
 ``torch.from_numpy`` refuses; they go through their uint16 bits instead,
 so both directions are bit-exact.
@@ -16,12 +18,16 @@ state in the tree the JAX example checkpoints, ``{"params": ..., "opt":
 optax.adamw's state}``, with torch tensors as leaves (bfloat16 stays
 torch's, no numpy on the way): the AdamW moments are optax's
 ``ScaleByAdamState.mu``/``.nu`` and torch's per-parameter ``step`` its
-``count``.  ``checkpoint.sharded`` writes this tree in the JAX package's
-format.
+``count``.  On a mesh model they carry this rank's shards, the moments
+shaped as the shards are, and ``state_specs`` gives each leaf's
+``PartitionSpec`` as the reference's manifest writes it, so that
+``checkpoint.sharded.save_pytree(..., mesh=, specs=)`` writes the
+reference's sharded layout.
 """
 
 from __future__ import annotations
 
+import re
 from collections import namedtuple
 from typing import Dict, Mapping, Optional
 
@@ -29,12 +35,14 @@ import numpy as np
 import torch
 
 from ..base import DMLCError
+from ..checkpoint.sharded import flatten_with_path
 from ..parallel.collectives import all_gather
-from ..parallel.mesh import Mesh
-from .transformer import PARAM_SPECS, Transformer, TransformerConfig
+from ..parallel.mesh import AXIS_PP, Mesh
+from .transformer import (PARAM_SPEC_TREE, PARAM_SPECS, Transformer,
+                          TransformerConfig)
 
 __all__ = ["params_from_jax", "params_to_jax", "shard_params_from_jax",
-           "gather_params", "tensor_from_numpy",
+           "gather_params", "tensor_from_numpy", "state_specs",
            "ScaleByAdamState", "train_state_to_jax", "train_state_from_jax"]
 
 #: optax's ``ScaleByAdamState`` as a named tuple: its fields are the
@@ -74,9 +82,12 @@ def _shard(t: torch.Tensor, name: str, mesh: Optional[Mesh]) -> torch.Tensor:
 def shard_params_from_jax(tree: Mapping, cfg: TransformerConfig,
                           mesh: Optional[Mesh], device=None) -> Transformer:
     """A :class:`Transformer` on ``mesh`` holding this rank's shards of
-    the JAX tree's global weights (numpy or torch leaves), in the
-    config's dtype, on ``device`` (default: the mesh's device, else the
-    CUDA card; no card raises).  ``mesh=None`` loads every weight whole."""
+    the JAX tree's global weights (numpy or torch leaves; blocks stacked
+    ``[S, L/S, ...]`` for any S, as ``init_params(key, cfg, n_stages=S)``
+    builds them), in the config's dtype, on ``device`` (default: the
+    mesh's device, else the CUDA card; no card raises): its pp stage's
+    layers, and of each its experts and tp shards.  ``mesh=None`` loads
+    every weight whole."""
     model = Transformer(cfg, device=device, mesh=mesh)
 
     def as_tensor(x) -> torch.Tensor:
@@ -92,11 +103,13 @@ def shard_params_from_jax(tree: Mapping, cfg: TransformerConfig,
     for name in ("embed", "unembed", "ln_f"):
         put(getattr(model, name), tree[name], name)
     blocks = tree["blocks"]
+    first = 0 if mesh is None else \
+        mesh.axis_rank(AXIS_PP) * len(model.layers)
     for name in _BLOCK_LEAVES:
         stacked = blocks[name]
         flat = stacked.reshape((cfg.n_layers,) + tuple(stacked.shape[2:]))
         for li, layer in enumerate(model.layers):
-            put(getattr(layer, name), flat[li], name)
+            put(getattr(layer, name), flat[first + li], name)
     return model
 
 
@@ -112,9 +125,10 @@ def params_from_jax(tree: Mapping, cfg: TransformerConfig,
 def gather_params(model: Transformer, mesh: Optional[Mesh] = None,
                   grads: bool = False) -> Dict:
     """The global parameters (``grads``: their gradients) of a mesh
-    model, in the JAX tree's layout with blocks stacked ``[1, L, ...]``,
-    every leaf a tensor on the model's device; the tp shards are
-    gathered over their axis.  Every rank of the mesh calls it (the
+    model, in the JAX tree's layout with blocks stacked ``[P, L/P,
+    ...]`` (``[1, L, ...]`` off a pp mesh), every leaf a tensor on the
+    model's device; the ep and tp shards are gathered over their axes
+    and the stages over pp.  Every rank of the mesh calls it (the
     gathers are collective)."""
     mesh = mesh if mesh is not None else model.mesh
 
@@ -128,9 +142,12 @@ def gather_params(model: Transformer, mesh: Optional[Mesh] = None,
 
     out = {name: whole(getattr(model, name), name)
            for name in ("embed", "unembed", "ln_f")}
-    out["blocks"] = {name: torch.stack([whole(getattr(layer, name), name)
-                                        for layer in model.layers])[None]
-                     for name in _BLOCK_LEAVES}
+    out["blocks"] = {}
+    for name in _BLOCK_LEAVES:
+        stage = torch.stack([whole(getattr(layer, name), name)
+                             for layer in model.layers])
+        out["blocks"][name] = (stage[None] if mesh is None else all_gather(
+            stage, AXIS_PP, mesh=mesh, tiled=False))
     return out
 
 
@@ -151,6 +168,22 @@ def params_to_jax(model: Transformer, n_stages: int = 1) -> Dict:
     return {"embed": _to_numpy(model.embed),
             "unembed": _to_numpy(model.unembed),
             "ln_f": _to_numpy(model.ln_f), "blocks": blocks}
+
+
+def state_specs(tree) -> Dict[str, Optional[list]]:
+    """``{leaf path: spec}`` of a params or train-state tree in the JAX
+    layout (``train_state_to_jax``'s): each parameter leaf, and each of
+    its AdamW moments, the reference's ``param_specs()`` spec as its
+    checkpoint manifest writes it (``PARAM_SPEC_TREE``), any other leaf
+    (the step count) replicated, ``[]``."""
+    out = {}
+    for path, _ in flatten_with_path(tree):
+        name = re.search(r"\['(\w+)'\]$", path)
+        table = PARAM_SPEC_TREE["blocks"] if "['blocks']" in path \
+            else PARAM_SPEC_TREE
+        spec = table.get(name.group(1)) if name else None
+        out[path] = list(spec) if isinstance(spec, list) else []
+    return out
 
 
 def _param_leaves(model: Transformer):
@@ -198,9 +231,12 @@ def _leaf(t: torch.Tensor, device) -> torch.Tensor:
 def train_state_to_jax(model: Transformer, optimizer: torch.optim.AdamW,
                        device="cpu") -> Dict:
     """``{"params", "opt"}`` as the JAX example's train state: params in
-    ``params_to_jax``'s layout (one stage) and ``opt =
-    (ScaleByAdamState(count, mu, nu),)`` (optax.adamw's state; its other
-    two entries hold no leaves), every leaf a tensor on ``device``.  A
+    ``params_to_jax``'s layout (one stage: on a mesh model, this rank's
+    shards with its stage's layers ``[1, L/P, ...]``, the block of the
+    global ``[P, L/P, ...]`` that ``state_specs`` names) and ``opt =
+    (ScaleByAdamState(count, mu, nu),)`` (optax.adamw's state, the
+    moments shaped as the shards; its other two entries hold no leaves),
+    every leaf a tensor on ``device``.  A
     parameter without optimizer state (no step taken) has zero moments,
     as ``optax.adamw(...).init``.  ``device="meta"`` gives the structure
     alone, a restore template."""

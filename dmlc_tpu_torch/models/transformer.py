@@ -1,42 +1,45 @@
 """Flagship decoder-only transformer LM: training, on one card or a
-dp × sp × tp mesh, and serving.
+pp × dp × sp × ep × tp mesh, and serving.
 
 Port of ``dmlc_tpu/models/transformer.py``: ``TransformerConfig``/
 ``flagship_config``/``count_params``/FLOP counts (:49-126, :420-428),
-``init_params`` (:128-155) and ``param_specs`` (:158-177, as the table
-``PARAM_SPECS``), attention with its sp branch (ring attention) and tp
-reduction (:180-202), the dense soft-gated MoE FFN (:205-227) with its
-tp reduction and the routed top-k one (:230-310, unsharded), the block
-and its per-block remat under the three policies (:313-353),
-``forward_local`` (:356-404: positions from the sp rank, the loss
-meaned over (dp, sp)) and ``unsharded_loss`` (:407, ``forward_local``
-with ``ShardAxes()``), a train step with AdamW as ``make_train_step``
-builds it with ``optax.adamw``, on one card or on a mesh, with or
-without the global gradient norm (:761-850), and the serving forwards
-``forward_prefill`` / ``forward_prefill_last`` (:504-558) and
-``forward_decode_paged`` (:690-758).  The train step drives the step
-ledger as the reference's does (:855-887).  The pipeline (pp), expert
-parallelism (ep), the routed FFN under tp > 1, ``overlap="device"`` and
-the gather decode path come in a later slice (ROADMAP.md Queue 1 item
-8c).
+``init_params`` (:128-155) and ``param_specs`` (:158-177, as the tables
+``PARAM_SPEC_TREE`` and ``PARAM_SPECS``), attention with its sp branch
+(ring attention) and tp reduction (:180-202), the dense soft-gated MoE
+FFN (:205-227) and the routed top-k one (:230-310), each with its ep
+slice and its (ep, tp) reduction, the block and its per-block remat
+under the three policies (:313-353), ``forward_local`` (:356-404:
+positions from the sp rank, the pp stages through the SPMD pipeline,
+the loss meaned over (dp, sp)) and ``unsharded_loss`` (:407,
+``forward_local`` with ``ShardAxes()``), a train step with AdamW as
+``make_train_step`` builds it with ``optax.adamw``, on one card or on a
+mesh, with the fused or the bucketed (``overlap="device"``) gradient
+reduction, with or without the global gradient norm (:761-850), and the
+serving forwards ``forward_prefill`` / ``forward_prefill_last``
+(:504-558) and ``forward_decode_paged`` (:690-758).  The train step
+drives the step ledger as the reference's does (:855-887).  The gather
+decode path comes in a later slice (ROADMAP.md Queue 1 item 8c).
 
 On a mesh (``Transformer(cfg, device, mesh)``) each rank holds the
-shards ``PARAM_SPECS`` gives its coordinate: heads over tp in
-``wq``/``wk``/``wv``/``wo``, ``d_ff`` over tp in ``w_in``/``w_gate``/
-``w_out``, vocab over tp in ``embed``/``unembed``, norms and ``gate``
-replicated.  The collectives are explicit (``parallel.collectives``):
-``copy_to`` where a replicated activation meets a tp shard (the qkv
-projection, the FFN input and its combine weights, the unembedding),
-``reduce_from`` where tp partial sums meet (attention out, the FFN out,
-the embedding, the cross entropy's sums), the ring's ``ppermute`` over
-sp, and ``mean_from`` over (dp, sp) for the loss; the train step then
-sums every gradient over (dp, sp) in one fused all-reduce.
+shards ``PARAM_SPECS`` gives its coordinate: its pp stage's layers
+(``L/P`` of them), heads over tp in ``wq``/``wk``/``wv``/``wo``, experts
+over ep and ``d_ff`` over tp in ``w_in``/``w_gate``/``w_out``, vocab over
+tp in ``embed``/``unembed``, norms and ``gate`` replicated.  The
+collectives are explicit (``parallel.collectives``): ``copy_to`` where
+a replicated activation meets a shard (the qkv projection, the FFN
+input and its combine weights over (ep, tp), the unembedding, the
+pipeline's input over pp), ``reduce_from`` where partial sums meet
+(attention out, the FFN out over (ep, tp), the embedding, the cross
+entropy's sums, the pipeline's outputs over pp), the ring's and the
+pipeline's ``ppermute``, and ``mean_from`` over (dp, sp) for the loss;
+the train step then sums every gradient over (dp, sp).
 
 Each layer module keeps the JAX weight layouts (``wq [E, H, D]``,
 ``wo [H, D, E]``, ``w_in [X, E, F]``, ...) so weights convert one to one
 (``models/convert.py``); the JAX pytree stacks blocks ``[S, L/S, ...]``
-and this module lists them as ``L`` layers in the same order, which is
-also the layer index of the KV pool ``[L, n_blocks, block_size, H, D]``.
+and this module lists them as ``L`` layers in the same order (on a pp
+mesh, stage s's ``L/P``), which is also the layer index of the KV pool
+``[L, n_blocks, block_size, H, D]``.
 
 Attention goes through ``ops.flash_attention`` (training and prefill,
 differentiable) and ``ops.paged_attention`` (decode), which launch the
@@ -68,12 +71,15 @@ from ..ops.paged_attention import paged_attention
 from ..parallel.collectives import all_reduce, copy_to, mean_from, \
     reduce_from
 from ..parallel.mesh import (AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP,
-                             DATA_AXES, Mesh)
+                             DATA_AXES, MESH_AXES, Mesh)
+from ..parallel.overlap import DeviceBucketer
+from ..parallel.pipeline import pipeline_spmd
 from ..parallel.ring_attention import ring_attention
 
 __all__ = ["TransformerConfig", "flagship_config", "count_params",
            "train_flops_per_token", "train_step_flops",
-           "decode_flops_per_token", "PARAM_SPECS", "SHARDED_AXES",
+           "decode_flops_per_token", "PARAM_SPEC_TREE", "PARAM_SPECS",
+           "SHARDED_AXES",
            "Block", "Transformer", "init_params", "forward_local",
            "unsharded_loss", "adamw", "sync_gradients", "sharded_grad_norm",
            "make_train_step", "forward_prefill",
@@ -82,18 +88,37 @@ __all__ = ["TransformerConfig", "flagship_config", "count_params",
 SHARDED_AXES = ShardAxes(tp=AXIS_TP, sp=AXIS_SP, ep=AXIS_EP, pp=AXIS_PP,
                          dp=AXIS_DP)
 
-#: ``param_specs`` (:158-177) per leaf of the port's per-layer layout
-#: (the reference's leaves without their ``[S, L/S]`` stage dims): the
-#: ``(dimension, axis)`` pairs each leaf is sharded by; replicated
-#: leaves have none
+#: ``param_specs()`` (:158-177) of the JAX tree's leaves (blocks stacked
+#: ``[S, L/S, ...]``), each spec as the reference's checkpoint manifest
+#: writes it (``_spec_to_json``): an axis or None per leading dim
+PARAM_SPEC_TREE = {
+    "embed": [AXIS_TP, None], "unembed": [None, AXIS_TP], "ln_f": [],
+    "blocks": {
+        "ln1": [AXIS_PP], "ln2": [AXIS_PP], "gate": [AXIS_PP],
+        "wq": [AXIS_PP, None, None, AXIS_TP, None],
+        "wk": [AXIS_PP, None, None, AXIS_TP, None],
+        "wv": [AXIS_PP, None, None, AXIS_TP, None],
+        "wo": [AXIS_PP, None, AXIS_TP, None, None],
+        "w_in": [AXIS_PP, None, AXIS_EP, None, AXIS_TP],
+        "w_gate": [AXIS_PP, None, AXIS_EP, None, AXIS_TP],
+        "w_out": [AXIS_PP, None, AXIS_EP, AXIS_TP, None],
+    },
+}
+
+
+def _per_layer(spec, lead: int):
+    return tuple((i - lead, a) for i, a in enumerate(spec)
+                 if a is not None and i >= lead)
+
+
+#: the same per leaf of the port's per-layer layout (a block leaf
+#: without its ``[S, L/S]`` stage dims, which pp shards by holding the
+#: stage's layers): the ``(dimension, axis)`` pairs each leaf is sharded
+#: by; replicated leaves have none
 PARAM_SPECS = {
-    "embed": ((0, AXIS_TP),), "unembed": ((1, AXIS_TP),), "ln_f": (),
-    "ln1": (), "ln2": (), "gate": (),
-    "wq": ((1, AXIS_TP),), "wk": ((1, AXIS_TP),), "wv": ((1, AXIS_TP),),
-    "wo": ((0, AXIS_TP),),
-    "w_in": ((0, AXIS_EP), (2, AXIS_TP)),
-    "w_gate": ((0, AXIS_EP), (2, AXIS_TP)),
-    "w_out": ((0, AXIS_EP), (1, AXIS_TP)),
+    **{k: _per_layer(v, 0) for k, v in PARAM_SPEC_TREE.items()
+       if k != "blocks"},
+    **{k: _per_layer(v, 2) for k, v in PARAM_SPEC_TREE["blocks"].items()},
 }
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -107,8 +132,9 @@ class TransformerConfig:
     n_heads: int = 4
     head_dim: int = 16
     d_ff: int = 128
-    n_layers: int = 4
+    n_layers: int = 4          # in all; a pp mesh holds L/P a stage
     n_experts: int = 2         # 1 = dense FFN (the gate is then exactly 1.0)
+    microbatches: int = 2      # the pipeline schedule's M
     dtype: str = "float32"     # bfloat16 for real runs; float32 for CPU tests
     remat: bool = False        # checkpoint each block in the train step
     # "full" recomputes the whole block in the backward; "save_flash"
@@ -142,7 +168,8 @@ def flagship_config() -> TransformerConfig:
     (the JAX package's ``flagship_config``): bf16, per-block remat."""
     return TransformerConfig(vocab=32768, d_model=2048, n_heads=16,
                              head_dim=128, d_ff=6144, n_layers=16,
-                             n_experts=1, dtype="bfloat16", remat=True)
+                             n_experts=1, microbatches=1, dtype="bfloat16",
+                             remat=True)
 
 
 def count_params(cfg: TransformerConfig) -> int:
@@ -262,15 +289,16 @@ class Block(nn.Module):
         reference's call holds more tokens than ``x``: the dead rows it
         pads a decode batch with, which come after the live ones.  (The
         overflow counter then counts the live tokens' choices only; the
-        reference's counts the dead rows' too.)  The routed FFN runs
-        unsharded: under tp > 1 it raises (item 8c)."""
+        reference's counts the dead rows' too.)"""
         if cfg.routed:
-            if axes.tp is not None and mesh.axis_size(axes.tp) > 1:
-                raise DMLCError(
-                    "the routed top-k FFN under tensor parallelism is not "
-                    "ported yet (ROADMAP.md Queue 1 item 8c)")
-            return self.topk_ffn(x, cfg, route_tokens)
+            return self.topk_ffn(x, cfg, route_tokens, axes, mesh)
         return self.dense_ffn(x, axes, mesh)
+
+    def _expert_offset(self, axes: ShardAxes, mesh: Optional[Mesh]) -> int:
+        """The global index of this rank's first expert."""
+        if axes.ep is None:
+            return 0
+        return mesh.axis_rank(axes.ep) * self.w_in.shape[0]
 
     def dense_ffn(self, x: torch.Tensor, axes: ShardAxes = ShardAxes(),
                   mesh: Optional[Mesh] = None) -> torch.Tensor:
@@ -278,31 +306,43 @@ class Block(nn.Module):
         every token; the gate softmax is float32 and the combine casts
         the probabilities to the activations' dtype.  With one expert
         the gate is exactly 1.0 and is kept for parity.  Under
-        ``axes.tp`` each expert's output is this rank's partial sum, and
-        one ``reduce_from`` combines them all."""
+        ``axes.ep`` this rank's experts take their slice of the gate's
+        probabilities; under ``axes.tp`` each expert's output is this
+        rank's partial sum; one ``reduce_from`` over (ep, tp) combines
+        them all."""
         gate_logits = torch.einsum("bte,ex->btx", x, self.gate)
         probs = torch.softmax(gate_logits.float(), dim=-1)
-        if axes.tp is not None:
-            x = copy_to(x, axes.tp, mesh=mesh)
+        red = _moe_axes(axes)
+        if red:
+            x = copy_to(x, red, mesh=mesh)
         ys = torch.stack([swiglu_ffn(x, self.w_in[i], self.w_gate[i],
                                      self.w_out[i], reduce=False)
                           for i in range(self.w_in.shape[0])])
         probs = probs.to(ys.dtype)
-        if axes.tp is None:
+        if not red:
             return torch.einsum("xbte,btx->bte", ys, probs)
-        probs = copy_to(probs, axes.tp, mesh=mesh)
-        return reduce_from(torch.einsum("xbte,btx->bte", ys, probs),
-                           axes.tp, mesh=mesh)
+        probs = copy_to(probs, red, mesh=mesh)
+        off = self._expert_offset(axes, mesh)
+        probs = probs[..., off:off + ys.shape[0]]
+        return reduce_from(torch.einsum("xbte,btx->bte", ys, probs), red,
+                           mesh=mesh)
 
     def topk_ffn(self, x: torch.Tensor, cfg: TransformerConfig,
-                 route_tokens: Optional[int] = None) -> torch.Tensor:
+                 route_tokens: Optional[int] = None,
+                 axes: ShardAxes = ShardAxes(),
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
         """Routed top-k MoE with capacity dispatch (``_moe_topk_ffn``
-        :230-298 on one card, where every expert is local).  Each token's
-        ``k`` choices, renormalised, take slots token-major in ``[X, C,
-        E]``, ``C = ceil(k·n·capacity_factor / X)``; a choice past its
-        expert's capacity is dropped and adds nothing.  The experts'
-        SwiGLUs run on their slots as batched products, and the combine
-        gathers and weights each kept choice's output."""
+        :230-298).  Each token's ``k`` choices, renormalised, take slots
+        token-major in ``[X_local, C, E]``, ``C = ceil(k·n·
+        capacity_factor / X)`` over all ``n`` tokens and all ``X``
+        experts; a choice past its expert's capacity is dropped and adds
+        nothing.  Routing is local: under ``axes.ep`` this rank takes
+        only the choices of its own experts, and the choices of other
+        ranks' experts add on those ranks through the one
+        ``reduce_from`` over (ep, tp) that also sums the tp shards' partial
+        outputs.  The experts' SwiGLUs run on their slots as batched
+        products, and the combine gathers and weights each kept choice's
+        output."""
         b, t, e = x.shape
         n = b * t
         k = cfg.moe_topk
@@ -315,33 +355,51 @@ class Block(nn.Module):
         n_cap = n if route_tokens is None else int(route_tokens)
         capacity = -(-(k * n_cap * cfg.moe_capacity_factor) // n_expert)
         capacity = max(int(capacity), 1)
+        x_l = self.w_in.shape[0]
+        off = self._expert_offset(axes, mesh)
         flat_e = topi.reshape(-1)                            # token-major
-        # each choice's slot in its expert: the count of earlier choices
-        # of that expert, scanned along [X, n·k]'s inner dim (down the
-        # rows of [n·k, X], the card's scan takes ~3 ms a call)
-        oh = F.one_hot(flat_e, n_expert).t().contiguous()
-        pos = oh.cumsum(dim=1).gather(0, flat_e[None])[0] - 1
-        keep = pos < capacity
-        pos_c = pos.clamp(max=capacity - 1)
+        local = (flat_e >= off) & (flat_e < off + x_l)
+        le = (flat_e - off).clamp(0, x_l - 1)
+        # each local choice's slot in its expert: the count of earlier
+        # local choices of that expert, scanned along [X_l, n·k]'s inner
+        # dim (down the rows of [n·k, X], the card's scan takes ~3 ms a
+        # call)
+        oh = (F.one_hot(le, x_l) * local[:, None]).t().contiguous()
+        pos = oh.cumsum(dim=1).gather(0, le[None])[0] - 1
+        keep = local & (pos < capacity)
+        pos_c = pos.clamp(0, capacity - 1)
         if cfg.moe_debug_overflow:
-            _record_moe_overflow(keep)
+            _record_moe_overflow(keep, local)
+        red = _moe_axes(axes)
+        if red:
+            xf = copy_to(xf, red, mesh=mesh)
+            topv = copy_to(topv, red, mesh=mesh)
         xk = xf.repeat_interleave(k, dim=0) * keep[:, None].to(xf.dtype)
-        buf = xf.new_zeros((n_expert, capacity, e)).index_put_(
-            (flat_e, pos_c), xk, accumulate=True)
+        buf = xf.new_zeros((x_l, capacity, e)).index_put_(
+            (le, pos_c), xk, accumulate=True)
         out = swiglu_ffn(buf, self.w_in, self.w_gate, self.w_out)
-        picked = out[flat_e, pos_c]                          # [n·k, E]
+        picked = out[le, pos_c]                              # [n·k, E]
         w = (topv.reshape(-1) * keep.float()).to(picked.dtype)
         y = (picked * w[:, None]).reshape(n, k, e).sum(dim=1)
-        return y.reshape(b, t, e).to(x.dtype)
+        y = y.reshape(b, t, e)
+        if red:
+            y = reduce_from(y, red, mesh=mesh)
+        return y.to(x.dtype)
 
 
-def _record_moe_overflow(keep: torch.Tensor) -> None:
-    """The dropped-choice fraction of one routed call into the ``moe``
-    stage (``_record_moe_overflow`` :300-304).  One count a call: a
-    rematerialised block counts again in its backward, as the reference's
-    ``debug.callback`` does."""
-    n_choices = float(keep.numel())
-    frac = (n_choices - keep.float().sum()) / max(n_choices, 1.0)
+def _moe_axes(axes: ShardAxes) -> Tuple[str, ...]:
+    """The axes the experts' outputs are summed over (``reduce_axes``
+    :224, :294)."""
+    return tuple(a for a in (axes.ep, axes.tp) if a is not None)
+
+
+def _record_moe_overflow(keep: torch.Tensor, local: torch.Tensor) -> None:
+    """The dropped-choice fraction of this rank's own choices in one
+    routed call into the ``moe`` stage (``_record_moe_overflow``
+    :267-276, :300-304).  One count a call: a rematerialised block counts
+    again in its backward, as the reference's ``debug.callback`` does."""
+    n_local = local.float().sum()
+    frac = (n_local - keep.float().sum()) / n_local.clamp_min(1.0)
     telemetry.inc("moe", "overflow_checks")
     telemetry.inc("moe", "overflow_fraction_sum", float(frac))
 
@@ -350,8 +408,10 @@ class Transformer(nn.Module):
     """Embedding, ``n_layers`` :class:`Block` s, final norm, unembedding,
     on ``device`` (default: the mesh's device, else the CUDA card; no
     card raises).  On a ``mesh`` the parameters are this rank's shards
-    (``PARAM_SPECS``); ``models.convert.shard_params_from_jax`` fills
-    them."""
+    (``PARAM_SPECS``), and on a pp mesh its stage's ``n_layers / P``
+    layers (layers ``[s·L/P, (s+1)·L/P)`` on pp rank s, the reference's
+    ``P(pp, ...)`` on the stacked blocks);
+    ``models.convert.shard_params_from_jax`` fills them."""
 
     def __init__(self, cfg: TransformerConfig, device=None,
                  mesh: Optional[Mesh] = None):
@@ -370,8 +430,9 @@ class Transformer(nn.Module):
         self.embed = p(v, cfg.d_model)
         self.unembed = p(cfg.d_model, v)
         self.ln_f = p(cfg.d_model)
+        n_local = _local(cfg.n_layers, AXIS_PP, mesh, "n_layers")
         self.layers = nn.ModuleList(Block(cfg, device, mesh)
-                                    for _ in range(cfg.n_layers))
+                                    for _ in range(n_local))
 
     @property
     def device(self) -> torch.device:
@@ -448,19 +509,37 @@ def forward_local(model: Transformer, ids: torch.Tensor,
                   impl: Optional[str] = None) -> torch.Tensor:
     """This rank's loss (``forward_local`` :356-404).  ids/labels
     ``[B_local, T_local]``: its (dp, sp) block of the batch, at global
-    positions ``sp_rank·T_local + arange(T_local)``.  The mean float32
-    cross entropy, meaned over (dp, sp) unless ``reduce_loss=False``
-    (then this rank's mean).  With ``ShardAxes()`` (the default) it is
-    the one-card loss.  ``mesh`` defaults to the model's."""
+    positions ``sp_rank·T_local + arange(T_local)``.  Under ``axes.pp``
+    the batch runs as ``cfg.microbatches`` microbatches through the SPMD
+    pipeline (``parallel.pipeline``; a batch that does not divide
+    raises), each stage its own layers; the outputs are the same on
+    every pp rank.  The mean float32 cross entropy, meaned over (dp, sp)
+    unless ``reduce_loss=False`` (then this rank's mean).  With
+    ``ShardAxes()`` (the default) it is the one-card loss.  ``mesh``
+    defaults to the model's."""
     cfg = cfg or model.cfg
     mesh = mesh if mesh is not None else model.mesh
-    t_local = ids.shape[1]
+    b, t_local = ids.shape
     sp_rank = mesh.axis_rank(axes.sp) if axes.sp is not None else 0
     positions = sp_rank * t_local + torch.arange(t_local, device=ids.device)
     x = embed_lookup(model.embed, ids, axes, mesh).to(cfg.torch_dtype)
     run = _block_runner(cfg)
-    for layer in model.layers:
-        x = run(layer, x, positions, cfg, impl, axes, mesh)
+
+    def stage(layers, h: torch.Tensor) -> torch.Tensor:
+        for layer in layers:
+            h = run(layer, h, positions, cfg, impl, axes, mesh)
+        return h
+
+    if axes.pp is not None:
+        m = cfg.microbatches
+        if b % m:
+            raise DMLCError(f"batch {b} does not split into {m} "
+                            "microbatches")
+        xmb = x.reshape(m, b // m, t_local, cfg.d_model)
+        x = pipeline_spmd(stage, model.layers, xmb, mesh=mesh,
+                          axis_name=axes.pp).reshape(b, t_local, cfg.d_model)
+    else:
+        x = stage(model.layers, x)
     x = rms_norm(x, model.ln_f)
     if axes.tp is not None:
         x = copy_to(x, axes.tp, mesh=mesh)
@@ -506,34 +585,62 @@ def _local_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
             .chunk(sp, dim=1)[mesh.axis_rank(AXIS_SP)])
 
 
-def _tp_sharded(name: str, mesh: Mesh) -> bool:
-    return mesh.axis_size(AXIS_TP) > 1 and any(
-        axis == AXIS_TP for _, axis in PARAM_SPECS[name.rsplit(".", 1)[-1]])
+def sharded_axes(name: str) -> Tuple[str, ...]:
+    """The mesh axes a parameter (by its ``named_parameters`` name) is
+    sharded over, in ``MESH_AXES`` order: pp for every block leaf (its
+    stage's layers), then ``PARAM_SPECS``' ep and tp."""
+    leaf = name.rsplit(".", 1)[-1]
+    axes = {a for _, a in PARAM_SPECS[leaf]}
+    if leaf in PARAM_SPEC_TREE["blocks"]:
+        axes.add(AXIS_PP)
+    return tuple(a for a in MESH_AXES if a in axes)
 
 
 def sync_gradients(model: Transformer, mesh: Mesh) -> None:
-    """Sum every gradient over the (dp, sp) group in one fused
-    all-reduce: the transpose of the loss's mean over the data axes (each
-    rank's backward carries ``1/n`` of its loss)."""
+    """Sum every gradient over the (dp, sp) group (the line of ranks at
+    this rank's (pp, ep, tp) coordinate) in one fused all-reduce: the
+    transpose of the loss's mean over the data axes (each rank's
+    backward carries ``1/n`` of its loss).  The host's wait is the
+    ``collective.allreduce`` span."""
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     if mesh.group(DATA_AXES) is None or not grads:
         return
-    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), DATA_AXES,
-                      mesh=mesh)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    with telemetry.span("collective.allreduce", stage="collective",
+                        args={"bytes": flat.numel() * flat.element_size()}):
+        flat = all_reduce(flat, DATA_AXES, mesh=mesh)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 
 
 def sharded_grad_norm(model: Transformer, mesh: Mesh) -> torch.Tensor:
     """The global L2 norm of a mesh model's (dp, sp)-reduced gradients, in
-    float32, equal to the one-card model's: the squares of tp-sharded
-    leaves are summed over tp, and replicated leaves counted once."""
-    sums = torch.zeros(2, dtype=torch.float32, device=model.device)
+    float32, equal to the one-card model's (``optax.global_norm`` of the
+    reference's global gradients): each leaf's squares are summed over
+    every axis it is sharded on (:func:`sharded_axes`), one all-reduce
+    an axis, and replicated leaves are counted once."""
+    classes = {}
     for name, p in model.named_parameters():
         if p.grad is not None:
-            sums[int(_tp_sharded(name, mesh))] += p.grad.float().square().sum()
-    sharded = all_reduce(sums[1], AXIS_TP, mesh=mesh)
-    return torch.sqrt(sums[0] + sharded)
+            classes.setdefault(sharded_axes(name), []).append(
+                p.grad.float().square().sum())
+    keys = sorted(classes)
+    sums = torch.stack([torch.stack(classes[k]).sum() for k in keys])
+    for axis in MESH_AXES:
+        if mesh.axis_size(axis) > 1 and any(axis in k for k in keys):
+            red = all_reduce(sums, axis, mesh=mesh)
+            sums = torch.stack([red[i] if axis in k else sums[i]
+                                for i, k in enumerate(keys)])
+    return torch.sqrt(sums.sum())
+
+
+def _reverse_topological(model: Transformer) -> List[nn.Parameter]:
+    """The parameters in the order the backward finishes them: the
+    unembedding and final norm first, then each layer's leaves from the
+    last layer back (a :class:`Block`'s in reverse registration order:
+    the FFN's, then the attention's), the embedding last."""
+    blocks = [p for layer in model.layers for p in layer.parameters()]
+    return [model.embed, *blocks, model.ln_f, model.unembed][::-1]
 
 
 def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
@@ -550,8 +657,14 @@ def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
     (:764-766): each rank slices its ``P(dp, sp)`` block, runs
     ``forward_local``'s backward, sums every gradient over (dp, sp)
     (:func:`sync_gradients`) and updates its own shards; the loss is the
-    (dp, sp) mean, the same on every rank.  ``overlap="device"`` (the
-    bucketed device reduction) is not ported yet (item 8c).
+    (dp, sp) mean, the same on every rank.  ``overlap="device"``
+    differentiates each rank's own mean loss instead and sums the
+    gradients over (dp, sp) in buckets issued during the backward,
+    each divided by the group's size
+    (``parallel.overlap.DeviceBucketer``, the reference's
+    ``bucketed_psum_mean``); the step waits on every bucket before the
+    update, and the loss is the (dp, sp) mean, not differentiated.
+    ``"auto"`` reads ``DMLC_COLL_OVERLAP``.
 
     With ``grad_norm`` the step is ``train_step(ids, labels, accept=None)
     -> (loss, gnorm)``, ``gnorm`` the global L2 norm of the gradients
@@ -576,11 +689,7 @@ def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
     feed's wait)."""
     if overlap == "auto":
         overlap = "device" if get_env("DMLC_COLL_OVERLAP", False) else None
-    if overlap == "device":
-        raise DMLCError("overlap='device' (bucketed device gradient "
-                        "reduction) is not ported yet (ROADMAP.md Queue 1 "
-                        "item 8c)")
-    if overlap is not None:
+    if overlap not in (None, "device"):
         raise ValueError(f"unknown overlap mode {overlap!r} "
                          "(expected None, 'device' or 'auto')")
     if mesh is None:
@@ -590,12 +699,23 @@ def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
                         "mesh (shard_params_from_jax builds them)")
     if optimizer is None:
         optimizer = adamw(model.parameters(), 1e-3)
+    buckets = None
+    if overlap == "device" and mesh is not None:
+        buckets = DeviceBucketer(_reverse_topological(model), DATA_AXES,
+                                 mesh)
 
     def gradients(ids: torch.Tensor, labels: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)
         if mesh is None:
             loss = unsharded_loss(model, ids, labels)
             loss.backward()
+        elif buckets is not None:
+            with buckets:
+                loss = forward_local(model, _local_batch(ids, mesh),
+                                     _local_batch(labels, mesh), model.cfg,
+                                     SHARDED_AXES, mesh, reduce_loss=False)
+                loss.backward()
+            loss = all_reduce(loss.detach(), DATA_AXES, "mean", mesh=mesh)
         else:
             loss = forward_local(model, _local_batch(ids, mesh),
                                  _local_batch(labels, mesh), model.cfg,

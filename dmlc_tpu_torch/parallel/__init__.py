@@ -1,18 +1,17 @@
 """dmlc_tpu_torch.parallel: the mesh over ``torch.distributed``
 (``mesh.py``), its named collectives and ``initialize_distributed``
-(``collectives.py``), ring attention (``ring_attention.py``), Ulysses
-(``ulysses.py``), and the host half of the JAX package's
-``parallel/overlap.py`` (``GradientBucketer``: bucketed gradient
-allreduce on a background collective thread, CUDA leaves staged through
-pinned host buckets).
+(``collectives.py``), the SPMD pipeline (``pipeline.py``), ring
+attention (``ring_attention.py``), Ulysses (``ulysses.py``), and both
+halves of the JAX package's ``parallel/overlap.py`` (``DeviceBucketer``:
+a mesh step's (dp, sp) gradient reduction in buckets issued during the
+backward; ``GradientBucketer``: bucketed gradient allreduce on a
+background collective thread, CUDA leaves staged through pinned host
+buckets).
 
 The package exports the mesh and the collectives only, so that
 ``ops.core`` can use them without importing the attention modules,
-which build on ``ops.flash_attention``: import ring attention and
-Ulysses from their modules.
-
-Not ported yet (ROADMAP.md Queue 1 item 8c): the pipeline and
-``bucketed_psum_mean``."""
+which build on ``ops.flash_attention``: import the pipeline, ring
+attention and Ulysses from their modules."""
 
 from .collectives import (  # noqa: F401
     all_gather,

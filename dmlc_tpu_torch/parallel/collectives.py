@@ -9,12 +9,16 @@ identity.  ``all_reduce``, ``all_gather``, ``reduce_scatter``,
 the model's path are, each through an explicit ``autograd.Function``
 (JAX derives the same transposes from shard_map's varying-axes types):
 
-* ``ppermute_ring``: a shift's transpose is the opposite shift;
+* ``ppermute_ring``: a shift's transpose is the opposite shift (the
+  ring attention's K/V rotation over sp, the pipeline's stage shift
+  over pp);
 * ``all_to_all``: its transpose is the inverse all-to-all;
 * ``copy_to`` (identity forward, all-reduce backward) and
-  ``reduce_from`` (all-reduce forward, identity backward): the tensor-
-  parallel pair, placed where a value replicated over tp meets a tp
-  shard and where tp partial sums are combined;
+  ``reduce_from`` (all-reduce forward, identity backward): the pair
+  placed where a replicated value meets sharded compute and where
+  partial sums are combined — over tp, over the (ep, tp) plane for the
+  MoE (a tuple of axes, an axis of size 1 dropping out, as the
+  reference's ``reduce_axes`` filter), and over pp around the pipeline;
 * ``mean_from``: the loss mean over the data axes, whose transpose
   hands each rank ``g / n`` (the parameters' gradients are then summed
   over the same axes, as the reference's pmean transpose does);
@@ -27,9 +31,10 @@ histogram, under the same names; here they count calls, not traces.
 Ranks that share one card use gloo with CUDA tensors.  gloo's
 point-to-point does not take a CUDA tensor (its TCP transport reads the
 device pointer as host memory: "writev: Bad address", torch 2.11 on an
-H100, recorded by ``chip_smoke.py``'s ``mesh`` phase), so on gloo the
-ring's shift copies through pinned host memory explicitly and counts
-the bytes (``collective/ppermute_staged_bytes``); the other ops hand
+H100, recorded by ``chip_smoke.py``'s ``mesh`` phase), so on gloo a
+shift (the ring's and the pipeline's) copies through pinned host memory
+explicitly and counts the bytes (``collective/ppermute_staged_bytes``);
+the other ops hand
 CUDA tensors to gloo as they are.  No op switches backends."""
 
 from __future__ import annotations

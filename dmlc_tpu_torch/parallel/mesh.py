@@ -13,14 +13,14 @@ Here a rank of the process group holds one coordinate on each axis,
 laid out as the reference lays out its device array (``MESH_AXES``
 order, ``pp`` outermost, ``tp`` innermost), and each axis of size > 1
 gets one process group per line of ranks along it, plus one for the
-(dp, sp) plane that gradients are reduced over.  ``torch.distributed``
+(dp, sp) plane that gradients are reduced over and one for the (ep,
+tp) plane that the MoE's expert outputs are summed over.  ``torch.distributed``
 ``new_group`` is used rather than ``DeviceMesh``, which binds one card
 to each rank: ranks that share a card (gloo) form a mesh too.
 
 The InputSplit contract maps onto the mesh as in the reference:
 ``part_index`` = flattened (dp, sp) coordinate, ``num_parts`` =
-dp·sp.  This slice runs dp, sp and tp; ``pp > 1`` and ``ep > 1`` raise
-(ROADMAP.md Queue 1 item 8c)."""
+dp·sp: pp, ep and tp carry no data."""
 
 from __future__ import annotations
 
@@ -34,8 +34,8 @@ import torch
 from ..base import DMLCError, resolve_device
 
 __all__ = ["AXIS_DP", "AXIS_PP", "AXIS_SP", "AXIS_TP", "AXIS_EP",
-           "MESH_AXES", "DATA_AXES", "factorize_devices", "MeshConfig",
-           "Mesh", "build_mesh", "mesh_config"]
+           "MESH_AXES", "DATA_AXES", "MOE_AXES", "factorize_devices",
+           "MeshConfig", "Mesh", "build_mesh", "mesh_config"]
 
 AXIS_DP = "dp"
 AXIS_PP = "pp"
@@ -48,6 +48,9 @@ MESH_AXES: Tuple[str, ...] = (AXIS_PP, AXIS_DP, AXIS_SP, AXIS_EP, AXIS_TP)
 #: The data-bearing axes: the batch is sharded over them and the
 #: gradients reduced over them.
 DATA_AXES: Tuple[str, ...] = (AXIS_DP, AXIS_SP)
+#: The axes the experts are sharded over: the MoE sums its outputs over
+#: both in one reduction.
+MOE_AXES: Tuple[str, ...] = (AXIS_EP, AXIS_TP)
 
 
 def _largest_pow2_divisor(n: int, cap: int) -> int:
@@ -124,10 +127,10 @@ AxisName = Union[str, Tuple[str, ...]]
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """This rank's place in a dp × sp × tp (× pp × ep) mesh: its
+    """This rank's place in a pp × dp × sp × ep × tp mesh: its
     coordinate on each axis, the process group of each axis it shares
-    with other ranks (None for an axis of size 1), the (dp, sp) group,
-    and the device its tensors live on."""
+    with other ranks (None for an axis of size 1), the (dp, sp) and (ep,
+    tp) groups, and the device its tensors live on."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
@@ -163,7 +166,8 @@ class Mesh:
     def group(self, axis: AxisName):
         """The process group along ``axis``; None where it has one rank.
         A tuple of axes names the group over all of them; the mesh builds
-        each single axis and the (dp, sp) plane."""
+        each single axis and the (dp, sp) and (ep, tp) planes.  An axis of
+        size 1 in the tuple drops out."""
         live = tuple(a for a in self._axes(axis) if self.shape[a] > 1)
         if not live:
             return None
@@ -195,18 +199,15 @@ def build_mesh(world: Optional[int] = None, *, dp: Optional[int] = None,
 
     ``world`` defaults to the process group's size (1 when there is
     none).  Axis sizes may be pinned; the rest are factorized by
-    :func:`factorize_devices`, with ``pp`` and ``ep`` 1 unless given.
-    Every rank calls this with the same arguments: it creates the axis
-    groups collectively.  A mesh of world 1 makes no group, and every
+    :func:`factorize_devices` as the reference's ``build_mesh`` does
+    (free axes take tp, then sp, then pp, ep stays 1 unless given, dp
+    the rest: world 8 unpinned is pp2 x sp2 x tp2).  Every rank calls
+    this with the same arguments: it creates the axis groups
+    collectively.  A mesh of world 1 makes no group, and every
     collective on it is the identity.  ``device`` defaults to the card
     (``rank % device_count`` where the host has several)."""
     import torch.distributed as dist
 
-    for axis, size in ((AXIS_PP, pp), (AXIS_EP, ep)):
-        if size is not None and size > 1:
-            raise DMLCError(
-                f"{axis}={size}: the pipeline and expert axes are not "
-                "ported yet (ROADMAP.md Queue 1 item 8c)")
     initialized = dist.is_available() and dist.is_initialized()
     pg_world = dist.get_world_size() if initialized else 1
     if world is None:
@@ -214,7 +215,7 @@ def build_mesh(world: Optional[int] = None, *, dp: Optional[int] = None,
     if world != pg_world:
         raise DMLCError(f"a mesh of {world} ranks over a process group of "
                         f"{pg_world} (initialize_distributed first)")
-    shape = factorize_devices(world, dp=dp, sp=sp, tp=tp, pp=1, ep=1)
+    shape = factorize_devices(world, dp=dp, sp=sp, tp=tp, pp=pp, ep=ep)
     rank = dist.get_rank() if initialized else 0
     grid = _rank_grid(shape)
     coords = {a: int(c) for a, c in zip(
@@ -224,7 +225,7 @@ def build_mesh(world: Optional[int] = None, *, dp: Optional[int] = None,
     groups: Dict[AxisName, object] = {}
     # every rank creates every group, in one order (new_group is
     # collective over the default group)
-    plans = [(a,) for a in MESH_AXES] + [DATA_AXES]
+    plans = [(a,) for a in MESH_AXES] + [DATA_AXES, MOE_AXES]
     for axes in plans:
         live = tuple(a for a in axes if shape[a] > 1)
         if len(live) != len(axes) or world == 1:

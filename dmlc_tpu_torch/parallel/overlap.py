@@ -1,7 +1,13 @@
-"""Overlap-by-design gradient reduction, host path (the port of the host
-half of ``dmlc_tpu/parallel/overlap.py``): a bucketed allreduce that
-hides under the device-to-host transfer and packing of later gradients
-instead of sitting serially after them.
+"""Overlap-by-design gradient reduction (the port of
+``dmlc_tpu/parallel/overlap.py``): a bucketed allreduce that hides under
+the work still to come instead of sitting serially after it.  Two
+halves, as in the reference:
+
+* **Device path** — :class:`DeviceBucketer`, the counterpart of
+  ``bucketed_psum_mean``: a mesh train step's (dp, sp) gradient
+  reduction as one ``all_reduce`` a bucket, each issued during the
+  backward as soon as its gradients are accumulated (see the class).
+* **Host path** — :class:`GradientBucketer`, below.
 
 Slice the gradient payload into fixed-size buckets
 (``DMLC_COLL_BUCKET_MB``) filled in *reverse-topological* order
@@ -18,9 +24,6 @@ memory; the training thread enqueues each leaf's copy, and a bucket is
 handed to the collective thread only after an event recorded behind its
 copies has been synchronised — the fold never reads a bucket the copy
 engine is still writing.  Reduced values go back to each leaf's device.
-
-Not ported yet: the device path ``bucketed_psum_mean`` (one collective
-per bucket inside a sharded step, ROADMAP.md Queue 1 item 8c).
 
 Elastic safety: exceptions raised on the collective thread (including
 :class:`~dmlc_tpu_torch.tracker.client.WorldResized` from a mid-bucket
@@ -46,8 +49,10 @@ from ..concurrency import make_lock
 
 __all__ = [
     "CollectiveFuture",
+    "DeviceBucketer",
     "GradientBucketer",
     "bucket_bytes",
+    "plan_buckets",
     "reverse_topological",
 ]
 
@@ -375,3 +380,129 @@ class GradientBucketer:
 
     def close(self) -> None:
         self._worker.close()
+
+
+def plan_buckets(leaves: Sequence[torch.Tensor],
+                 bucket_bytes_: Optional[int] = None) -> List[List[int]]:
+    """The reference's bucket fill (``bucketed_psum_mean``): ``leaves`` in
+    the order given, a bucket closed before a leaf that would take it
+    past ``bucket_bytes_`` (default :func:`bucket_bytes`) or that changes
+    the dtype; a leaf larger than the cap is a bucket of its own.
+    Returns each bucket's leaf indices."""
+    cap = bucket_bytes_ or bucket_bytes()
+    buckets: List[List[int]] = []
+    cur: List[int] = []
+    cur_bytes = 0
+    cur_dtype = None
+    for i, leaf in enumerate(leaves):
+        nb = leaf.numel() * leaf.element_size()
+        if cur and (cur_bytes + nb > cap or leaf.dtype != cur_dtype):
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(i)
+        cur_bytes += nb
+        cur_dtype = leaf.dtype
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+class DeviceBucketer:
+    """The mean of a mesh model's gradients over ``axis`` (the (dp, sp)
+    plane), one ``all_reduce`` a bucket issued during the backward: the
+    device half of the overlap design (``bucketed_psum_mean``).
+
+    ``params`` come in reverse-topological order (the backward finishes
+    the first ones first) and :func:`plan_buckets` fills the buckets.  A
+    hook on each parameter (``register_post_accumulate_grad_hook``)
+    counts the bucket's gradients in; once a bucket is whole, and every
+    earlier bucket launched, its gradients are concatenated and handed
+    to ``all_reduce(async_op=True)`` over the axis's group.  So every
+    rank launches its buckets in one order, whatever order its hooks
+    fire in, and the group's collectives pair up.  The hooks act only
+    inside ``with bucketer:`` around the backward; leaving it launches
+    what is left (a gradient that never arrived counts as zeros), waits
+    on every bucket in order (the ``collective.join`` span, the exposed
+    share), divides each sum by the group's size — psum, then divide,
+    as the reference — and writes the means back to ``p.grad``.
+
+    Telemetry under the host bucketer's names: ``collective``
+    ``overlap_buckets`` a bucket, and each bucket's ``all_reduce_calls``
+    / ``all_reduce_bytes``.  ``launched_in_backward`` is how many of the
+    last step's buckets launched before the backward returned."""
+
+    def __init__(self, params: Sequence[torch.Tensor], axis, mesh,
+                 bucket_bytes_: Optional[int] = None):
+        self.params = list(params)
+        self.axis = axis
+        self.mesh = mesh
+        self.buckets = plan_buckets(self.params, bucket_bytes_)
+        self._bucket_of = {id(self.params[i]): b
+                           for b, idxs in enumerate(self.buckets)
+                           for i in idxs}
+        self._armed = False
+        self._pending: List[int] = []
+        self._launched: List[tuple] = []
+        self.launched_in_backward = 0
+        for p in self.params:
+            p.register_post_accumulate_grad_hook(self._ready)
+
+    def __enter__(self) -> "DeviceBucketer":
+        self._pending = [len(b) for b in self.buckets]
+        self._launched = []
+        self._armed = True
+        return self
+
+    def _ready(self, p: torch.Tensor) -> None:
+        if not self._armed:
+            return
+        self._pending[self._bucket_of[id(p)]] -= 1
+        while (len(self._launched) < len(self.buckets)
+               and self._pending[len(self._launched)] == 0):
+            self._launch()
+
+    def _launch(self) -> None:
+        import torch.distributed as dist
+
+        from .. import telemetry
+        from .collectives import _note
+
+        idxs = self.buckets[len(self._launched)]
+        flat = torch.cat([self.params[i].grad.reshape(-1)
+                          if self.params[i].grad is not None
+                          else self.params[i].new_zeros(
+                              self.params[i].numel()) for i in idxs])
+        group = self.mesh.group(self.axis)
+        work = None
+        if group is not None:
+            _note("all_reduce", flat, self.axis)
+            work = dist.all_reduce(flat, group=group, async_op=True)
+        telemetry.inc("collective", "overlap_buckets")
+        self._launched.append((idxs, flat, work))
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        from .. import telemetry
+
+        self._armed = False
+        if exc_type is not None:
+            for _, _, work in self._launched:
+                if work is not None:
+                    work.wait()
+            return
+        self.launched_in_backward = len(self._launched)
+        while len(self._launched) < len(self.buckets):
+            self._launch()
+        n = self.mesh.axis_size(self.axis)
+        with telemetry.span("collective.join", stage="collective",
+                            args={"buckets": len(self._launched)}):
+            for idxs, flat, work in self._launched:
+                if work is not None:
+                    work.wait()
+                    flat.div_(n)
+                sizes = [self.params[i].numel() for i in idxs]
+                for i, part in zip(idxs, flat.split(sizes)):
+                    p = self.params[i]
+                    if p.grad is None:
+                        p.grad = part.view_as(p).clone()
+                    else:
+                        p.grad.copy_(part.view_as(p))

@@ -37,7 +37,6 @@ from dmlc_tpu.parallel.mesh import MESH_AXES
 from dmlc_tpu.parallel.ring_attention import make_sharded_ring_attention
 from dmlc_tpu.parallel.ring_attention import ring_attention_reference
 from dmlc_tpu.parallel.ulysses import ulysses_attention
-from dmlc_tpu_torch.base import DMLCError
 from dmlc_tpu_torch.ops import flash_attention as tflash
 from dmlc_tpu_torch.parallel import collectives as tcoll
 from dmlc_tpu_torch.parallel import factorize_devices, mesh as tmesh
@@ -175,12 +174,6 @@ def test_world_one_mesh_makes_no_group_and_collectives_are_identity():
         assert torch.equal(y, x)
     assert tcoll.barrier_sum("sp", mesh=mesh) == 1
     assert mesh.axis_rank("tp") == 0 and mesh.axis_size(("dp", "sp")) == 1
-
-
-@pytest.mark.parametrize("pins", [{"pp": 2}, {"ep": 2}])
-def test_pipeline_and_expert_axes_raise_naming_8c(pins):
-    with pytest.raises(DMLCError, match="8c"):
-        tmesh.build_mesh(device="cpu", **pins)
 
 
 def test_initialize_distributed_raises_without_the_coordinator_port(

@@ -9,10 +9,11 @@ in float32.  On each of the meshes (dp1, sp2, tp2), (dp2, sp2, tp1) and
 (dp1, sp1, tp2): the loss and EVERY gathered gradient (a missing
 ``copy_to`` leaves the loss right and the replicated leaves' gradients
 wrong), the sharded gradient norm against the one-card norm, and 3 AdamW
-steps of each package's train step.  Tolerances: loss 1e-5 relative (as
-tests/test_model.py), gradients 1e-5 absolute, the train steps' losses
-and final parameters 1e-5 (3 steps of lr 1e-3), the norm 1e-5
-relative."""
+steps of each package's train step.  Tolerances: loss 1e-5 relative
+(as tests/test_model.py), gradients 1e-5 absolute, the train steps'
+losses and final parameters 1e-5 (3 steps of lr 1e-3), the norm 1e-5
+relative.  (The pp and ep meshes are tests/test_torch_pipeline.py's
+and tests/test_torch_expert_parallel.py's.)"""
 
 import dataclasses
 import json
@@ -81,8 +82,6 @@ def _flat(tree, prefix=""):
 
 
 _BODY = """
-import dataclasses
-from {pkg}.base import DMLCError
 from {pkg}.models import transformer as tfm
 from {pkg}.models.convert import gather_params, shard_params_from_jax
 cfg = tfm.TransformerConfig(**json.loads({dims!r}), remat={remat})
@@ -115,14 +114,6 @@ model = shard_params_from_jax(tree, cfg, mesh, device="cpu")
 step = tfm.make_train_step(model, ledger=False, mesh=mesh)
 OUT["losses"] = np.array([float(step(ids, labels)) for _ in range({steps})])
 save("param.", gather_params(model, mesh))
-if mesh.axis_size("tp") > 1:
-    routed = shard_params_from_jax(
-        tree, dataclasses.replace(cfg, moe_topk=1), mesh, device="cpu")
-    try:
-        tfm.forward_local(routed, local(ids), local(labels), routed.cfg,
-                          tfm.SHARDED_AXES, mesh)
-    except DMLCError as e:
-        OUT["routed_error"] = str(e)
 """
 
 
@@ -210,20 +201,9 @@ def test_train_steps_equal_jax_make_train_step(gang, weights):
     assert losses[-1] < losses[0]
 
 
-def test_routed_ffn_under_tp_raises_naming_8c(gang):
-    shape, _, outs = gang
-    if shape["tp"] == 1:
-        assert all("routed_error" not in o for o in outs)
-    else:
-        assert all("8c" in str(o["routed_error"]) for o in outs)
-
-
-def test_overlap_device_raises_naming_8c():
+def test_unknown_overlap_mode_raises():
     model = ttfm.init_params(ttfm.TransformerConfig(**DIMS),
                              torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(DMLCError, match="8c"):
-        ttfm.make_train_step(model, overlap="device",
-                             mesh=build_mesh(device="cpu"))
     with pytest.raises(ValueError, match="overlap"):
         ttfm.make_train_step(model, overlap="host")
 
@@ -235,12 +215,6 @@ def test_train_step_refuses_a_model_built_for_another_mesh():
                              torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(DMLCError, match="mesh"):
         ttfm.make_train_step(model, mesh=build_mesh(device="cpu"))
-
-
-@pytest.mark.parametrize("axis", ["pp", "ep"])
-def test_pipeline_and_expert_meshes_raise_naming_8c(axis):
-    with pytest.raises(DMLCError, match="8c"):
-        build_mesh(device="cpu", **{axis: 2})
 
 
 def test_train_step_flops_equals_jax():
