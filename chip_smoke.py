@@ -39,13 +39,41 @@ Phases, each printing one JSON line (any failure exits non-zero):
             zeroed just before and read just after; one prefill and one
             decode step are then held against the plain versions (gated
             on a float32 copy of the weights; bf16 reported beside its
-            own rounding noise floor)
+            own rounding noise floor).  Every serving run here and below
+            reads the compute ledger (``GET /compute``) and the decode
+            records; gates: the memory sample is the card's
+            (``hbm.source == "device"``), ``aot_fallbacks_total`` is 0
+            (no cost pass failed), every decode record carries
+            ``membw_util`` and ``bound``, the decode site's counted
+            bytes are at least the bytes of the weights a step
+            multiplies by, and (dense models) its counted FLOPs are
+            within 10% of the step's ``decode_flops_per_token`` sum;
+            numbers: the bound verdicts, phase shares, each site's cost
+            passes with their seconds and signature counts, step p50
+            and gap p99
+   gather   the gather decode path (``DMLC_SERVE_PAGED_ATTN=off``): the
+            same flagship and prompts at spec_k 0 and 3, K1 and K4
+            counted from 0 (gates: K4 0, K1 equal to the paged run's);
+            the bf16 token streams beside the paged run's (reported);
+            a float32 copy at depth 2 served both ways (gate: equal
+            greedy tokens) and one decode step of it (B=8, contexts
+            17..511) paged against ``gather`` + ``forward_decode``
+            (gate: logits within 1e-4 relative); step p50 and gap p99
+            of both paths
 6. train    the flagship train step (remat save_flash, AdamW lr 1e-4)
             at B=8 x T=1024: 2 warm-up and 8 timed steps on one batch,
             losses finite and falling, exactly 16 launches of each of
             K1, K2 and K3 per step (counts zeroed just before the timed
-            steps); step ms, tokens/s, MFU, peak memory
-   train_long  2 steps at B=1 x T=8192: finite losses, step ms, memory
+            steps); step ms, tokens/s, MFU, peak memory.  The first
+            warm-up step is the ``train.step`` site's cost pass; gates:
+            its counted FLOPs over ``train_step_flops`` above 1 (the
+            backward counted, the remat's recompute on top), every
+            timed record with ``membw_util`` and ``bound``, and then the
+            five sites ``serving.prefill``, ``serving.decode``,
+            ``serving.decode_spec``, ``serving.decode_paged`` and
+            ``train.step`` each with a cost
+   train_long  1 warm-up and 2 steps at B=1 x T=8192: finite losses, step
+            ms, memory
    train_grads  gradients of the loss through the kernels against the
             plain versions on a float32 copy of the flagship at depth 2,
             B=2, T=1024 (bf16 reported beside its own noise floor)
@@ -251,9 +279,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
             left behind
 9. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
             its path (and on the spine's timed steps, and in
-            ``path_launches`` on the routed serving and train paths, the
-            self-heal runs, the elastic job, the mesh phase's ring,
-            Ulysses and train runs and the mesh5 gangs' timed steps),
+            ``path_launches`` on the gather path, the routed serving and
+            train paths, the self-heal runs, the elastic job, the mesh
+            phase's ring, Ulysses and train runs and the mesh5 gangs'
+            timed steps),
             max error, times and roofline bound; K1's ``ring_step`` and
             ``mesh5_shapes`` rows
 
@@ -714,10 +743,26 @@ def paged_phase(pa, prompt_lens):
 # phase 5: the slice
 # ---------------------------------------------------------------------------
 
+def _site_stats(tele):
+    return {name: site.stats()
+            for name, site in tele.compute.sites().items()}
+
+
 def serve_batch(serving, model, prompts, spec_k):
     """Start an engine and its HTTP server on the card, POST every prompt
     to /generate at once (one client thread each), and check that each
-    answer is 200 with 32 tokens."""
+    answer is 200 with 32 tokens.  Then the compute ledger: ``GET
+    /compute`` and the decode records (the step ledger is reset first).
+    Gates: the memory sample is the card's, no cost pass failed, every
+    decode record has ``membw_util`` and ``bound``, the decode site's
+    counted bytes are at least the bytes of the weights a step
+    multiplies by, and for a dense model its counted FLOPs are within
+    10% of the step's ``decode_flops_per_token`` sum.  The outputs go
+    back under ``outputs`` (not emitted)."""
+    from dmlc_tpu_torch import telemetry as tele
+
+    tele.reset_steps()
+    before = _site_stats(tele)
     eng = serving.InferenceEngine(model, device="cuda", n_blocks=256,
                                   block_size=16, max_active=8,
                                   queue_depth=64, spec_k=spec_k)
@@ -752,13 +797,78 @@ def serve_batch(serving, model, prompts, spec_k):
                   f"{doc['n_generated']}")
         ttft = sorted(doc["ttft_s"] for _, doc in results)
         tokens = sum(doc["n_generated"] for _, doc in results)
-        return {"requests": len(prompts), "spec_k": spec_k, "wall_s": wall,
-                "tokens": tokens, "tokens_per_s": tokens / wall,
-                "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
-                **eng.stats()["counters"]}
+        code, comp = http(srv.url + "/compute")
+        check(code == 200, f"/compute answered {code}")
+        recs = tele.ledger().records()
+        reqs = eng.requests.summary()
+        cost = eng._decode.stats()
+        out = {"requests": len(prompts), "spec_k": spec_k, "wall_s": wall,
+               "tokens": tokens, "tokens_per_s": tokens / wall,
+               "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+               "step_p50_s": pctl([r["wall_s"] for r in recs], 50),
+               "gap_p99_s": reqs["tbt_p99_s"],
+               "compute": compute_doc(model, comp, recs, cost, before,
+                                      eng._decode.site),
+               **eng.stats()["counters"]}
+        out["outputs"] = [doc["output_ids"] for _, doc in results]
+        return out
     finally:
         srv.close()
         eng.close()
+
+
+def compute_doc(model, comp, recs, cost, before, decode_site):
+    """The serving gates on ``GET /compute`` and the decode records (see
+    :func:`serve_batch`), and what they read: the bound verdicts, the
+    phase shares, each site's cost passes (traces) in this phase with
+    their seconds and its signatures, the decode step's counted bytes
+    over its weights' bytes and counted over formula FLOPs."""
+    check(comp["hbm"]["source"] == "device", f"hbm: {comp['hbm']}")
+    check(comp["aot_fallbacks_total"] == 0,
+          f"cost passes failed: {comp['aot_fallbacks_total']}")
+    check(recs and all(r["membw_util"] is not None and r["bound"]
+                       for r in recs),
+          f"decode records without a roofline: {recs[:1]}")
+    last = cost["last_cost"]
+    check(last is not None, f"{decode_site}: no cost")
+    weights = sum(p.numel() * p.element_size()
+                  for name, p in model.named_parameters() if name != "embed")
+    flops_ratio = last["flops"] / recs[-1]["flops"]
+    if not model.cfg.routed:
+        # the routed formula counts every expert (ROADMAP Queue 3, PR 10)
+        check(abs(flops_ratio - 1) <= 0.10,
+              f"{decode_site}: counted FLOPs {last['flops']} vs formula "
+              f"{recs[-1]['flops']}")
+    check(last["bytes_accessed"] >= weights,
+          f"{decode_site}: counted bytes {last['bytes_accessed']} < "
+          f"weights {weights}")
+    bounds = {}
+    for r in recs:
+        bounds[r["bound"]] = bounds.get(r["bound"], 0) + 1
+    passes = {}
+    for name, st in comp["sites"].items():
+        b0 = before.get(name, {"traces": 0, "compile_secs_total": 0.0})
+        if st["traces"] > b0["traces"]:
+            passes[name] = {
+                "cost_passes": st["traces"] - b0["traces"],
+                "seconds": st["compile_secs_total"]
+                - b0["compile_secs_total"],
+                "signatures": st["signatures"]}
+    return {"decode_site": decode_site, "bound_verdicts": bounds,
+            "membw_util_p50": pctl([r["membw_util"] for r in recs], 50),
+            "mfu_p50": pctl([r["mfu"] for r in recs], 50),
+            "phase_shares": comp["phases"]["shares"],
+            "cost_passes": passes,
+            "decode_signatures": cost["signatures"],
+            "decode_bytes": last["bytes_accessed"],
+            "decode_bytes_over_weights": last["bytes_accessed"] / weights,
+            "decode_flops_counted_over_formula": flops_ratio,
+            "hbm_peak_bytes": comp["hbm"]["peak_bytes"],
+            "aot_fallbacks_total": comp["aot_fallbacks_total"]}
+
+
+def _emitted(doc):
+    return {k: v for k, v in doc.items() if k != "outputs"}
 
 
 def http(url, doc=None, timeout=600):
@@ -850,6 +960,7 @@ def telemetry_serving(serving, tele, fa, model, cfg):
         steps = tele.ledger().records()
         led = tele.ledger().summary()
         check(led["mfu"] is not None, "decode MFU unreported")
+        _, comp = http(srv.url + "/compute")
         # a duplicate request_id: the original's tokens, no second prefill
         doc = {"prompt": list(range(1, 200)), "max_tokens": 32,
                "request_id": "smoke-dedupe"}
@@ -885,8 +996,18 @@ def telemetry_serving(serving, tele, fa, model, cfg):
         eng.close()
     walls = [r["wall_s"] for r in steps]
     issue = [r["host_issue_s"] for r in steps]
+    check(comp["hbm"]["source"] == "device"
+          and comp["aot_fallbacks_total"] == 0
+          and all(r["membw_util"] is not None and r["bound"] for r in steps),
+          f"/compute: {comp['hbm']['source']}, "
+          f"{comp['aot_fallbacks_total']} failed cost passes")
     return {
         "requests": 16, "streams": 8, "spec_k": 3,
+        "compute": {name: {k: st[k] for k in ("traces", "hits",
+                                              "signatures",
+                                              "compile_secs_total")}
+                    for name, st in comp["sites"].items()
+                    if name.startswith("serving.")},
         "loadgen": {k: load[k] for k in (
             "wall_s", "total_generated_tokens", "aggregate_tokens_per_s",
             "p50_ttft_s", "p99_ttft_s", "p50_latency_s",
@@ -1067,6 +1188,99 @@ def logit_checks(tfm, model, cfg):
     return doc
 
 
+def _serve_off(serving, model, prompts, spec_k):
+    """:func:`serve_batch` with ``DMLC_SERVE_PAGED_ATTN=off`` (the gather
+    path)."""
+    os.environ["DMLC_SERVE_PAGED_ATTN"] = "off"
+    try:
+        return serve_batch(serving, model, prompts, spec_k)
+    finally:
+        del os.environ["DMLC_SERVE_PAGED_ATTN"]
+
+
+def _agreement(a, b):
+    """Token streams of the same prompts on two paths: requests equal,
+    and the mean share of each stream before its first difference."""
+    prefix = []
+    for x, y in zip(a, b):
+        n = next((i for i, (p, q) in enumerate(zip(x, y)) if p != q),
+                 len(x))
+        prefix.append(n / len(x))
+    return {"requests_equal": sum(x == y for x, y in zip(a, b)),
+            "requests": len(a), "mean_prefix_share": sum(prefix) / len(a)}
+
+
+def gather_phase(serving, fa, pa, tfm, model, prompts, looping, paged):
+    """The gather decode path (``DMLC_SERVE_PAGED_ATTN=off``): the
+    flagship served as the slice phase serves it (8 requests at spec_k 0,
+    8 looping ones at spec_k 3), K1 and K4 counted from 0 just before: K1
+    launches equal the paged run's (the same prefills), K4 none.  The
+    bf16 token streams are held beside the paged run's (reported: the
+    two paths round differently).  Then a float32 copy at depth 2 served
+    both ways on the same prompts: equal greedy tokens; and one decode
+    step of it (B=8, contexts 17..511) through ``forward_decode_paged``
+    and through ``gather`` + ``forward_decode``: logits within 1e-4
+    relative (max abs difference over max abs logit)."""
+    fa.FLASH_FWD.launches = 0
+    pa.PAGED_ATTENTION.launches = 0
+    plain = _serve_off(serving, model, prompts, 0)
+    spec = _serve_off(serving, model, looping, 3)
+    launches = {"flash_fwd": fa.FLASH_FWD.launches,
+                "paged_attention": pa.PAGED_ATTENTION.launches}
+    cfg = model.cfg
+    check(launches["paged_attention"] == 0
+          and launches["flash_fwd"] == paged["flash_fwd"]
+          == cfg.n_layers * (plain["prefills"] + spec["prefills"]),
+          f"gather launches {launches}, paged {paged}")
+    doc = {"phase": "gather", "model": "flagship", "launches": launches,
+           "paged_launches": {k: paged[k] for k in launches},
+           "plain": _emitted(plain), "spec": _emitted(spec),
+           "bf16_vs_paged": {
+               "spec_0": _agreement(plain["outputs"],
+                                    paged["outputs"][0]),
+               "spec_3": _agreement(spec["outputs"], paged["outputs"][1])},
+           "step_p50_s": {"paged": [d["step_p50_s"]
+                                    for d in paged["docs"]],
+                          "gather": [plain["step_p50_s"],
+                                     spec["step_p50_s"]]},
+           "gap_p99_s": {"paged": [d["gap_p99_s"] for d in paged["docs"]],
+                         "gather": [plain["gap_p99_s"],
+                                    spec["gap_p99_s"]]}}
+    # the float32 depth-2 copy, both paths
+    cfg2 = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+    m2 = tfm.Transformer(cfg2, device="cuda")
+    with torch.no_grad():
+        want = dict(model.named_parameters())
+        for name, p in m2.named_parameters():
+            p.copy_(want[name].float())
+    f32 = {}
+    for mode, run in (("paged", serve_batch), ("gather", _serve_off)):
+        f32[mode] = [run(serving, m2, prompts, 0)["outputs"],
+                     run(serving, m2, looping, 3)["outputs"]]
+    check(f32["paged"] == f32["gather"],
+          f"f32 tokens differ between the paths: "
+          f"{_agreement(f32['paged'][0], f32['gather'][0])}")
+    inp = slice_inputs(cfg2)
+    _, k, v = prefill(tfm, m2, inp)
+    kp, vp = decode_pools(cfg2, k, v, inp)
+    b, w = inp["tables"].shape
+    with torch.inference_mode():
+        got = decode(tfm, m2, inp, kp.clone(), vp.clone())[:, 0]
+        kd, vd = (x[:, inp["tables"].long()].reshape(
+            cfg2.n_layers, b, w * 16, cfg2.n_heads, cfg2.head_dim)
+            for x in (kp, vp))
+        lens = inp["lengths"]
+        dense = tfm.forward_decode(m2, inp["dids"][:, 0], lens.long(), kd,
+                                   vd, lens)[0]
+    rel = ((got - dense).abs().max() / dense.abs().max()).item()
+    check(rel <= 1e-4, f"paged vs gather decode logits rel {rel}")
+    doc["f32_depth2"] = {"tokens_equal": True,
+                         "decode_logits_rel": rel,
+                         "requests": 2 * len(prompts)}
+    del m2, kp, vp, kd, vd
+    return doc, launches
+
+
 # ---------------------------------------------------------------------------
 # phase 6: training
 # ---------------------------------------------------------------------------
@@ -1126,11 +1340,30 @@ def ledger_pairs(step, bare, ids, labels, pairs=12):
             "diff_ms": diffs}
 
 
+def memory_sample_ms(step, ids, labels, tele, n=6):
+    """``n`` steps, each followed by one timed ``mem_get_info`` (the
+    driver call a memory sample makes once a card) and one timed
+    ``compute.sample_hbm`` (what the train step runs after each step,
+    outside the ledger's wall), in ms."""
+    got = {"mem_get_info_ms": [], "sample_hbm_ms": []}
+    for _ in range(n):
+        step(ids, labels)
+        torch.cuda.synchronize()
+        for key, fn in (("mem_get_info_ms",
+                         lambda: torch.cuda.mem_get_info(0)),
+                        ("sample_hbm_ms", tele.compute.sample_hbm)):
+            t0 = time.perf_counter()
+            fn()
+            got[key].append((time.perf_counter() - t0) * 1e3)
+    return got
+
+
 def train_phase(tfm, fa, tele, cfg):
     """The flagship train step at B=8 x T=1024: 2 warm-up steps, then the
     counters are zeroed and 8 steps timed on the same batch, all through
     the step ledger (reset first: the serving phases declared decode
-    FLOPs), then 12 ABBA pairs of ledgered against bare steps."""
+    FLOPs), then 12 ABBA pairs of ledgered against bare steps, then 6
+    bare steps each followed by a timed memory sample."""
     tele.reset_steps()
     model = tfm.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                             "cuda")
@@ -1139,6 +1372,14 @@ def train_phase(tfm, fa, tele, cfg):
     ids, labels = train_batch(cfg, TRAIN_B, TRAIN_T, 1)
     torch.cuda.reset_peak_memory_stats()
     _, warm, _ = timed_steps(step, ids, labels, 2)
+    # the first step was the site's cost pass: forward, backward, update
+    site = tele.compute.sites()["train.step"].stats()
+    cost = site["last_cost"]
+    check(cost is not None and site["aot_fallbacks"] == 0
+          and site["traces"] == 1, f"train.step: {site}")
+    counted = cost["flops"] / tfm.train_step_flops(cfg, TRAIN_B, TRAIN_T)
+    check(counted > 1.0, f"train step counted FLOPs {cost['flops']} under "
+          f"train_step_flops: the backward went uncounted")
     kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
                "flash_bwd_dq": fa.FLASH_BWD_DQ}
     for kern in kernels.values():
@@ -1157,6 +1398,10 @@ def train_phase(tfm, fa, tele, cfg):
                * len(walls) / sum(walls) / PEAK_FLOPS[torch.bfloat16])
     check(abs(ledger_mfu / own_mfu - 1) <= 0.01,
           f"ledger MFU {ledger_mfu} vs the smoke's {own_mfu}")
+    check(all(r["membw_util"] is not None and r["bound"] for r in recs),
+          f"train records without a roofline: {recs[0]}")
+    bare = tfm.make_train_step(model, opt, ledger=False)
+    bare(ids, labels)   # its first step is its cost pass, outside the pairs
     TELEMETRY["train"] = {
         "B": TRAIN_B, "T": TRAIN_T, "steps": len(recs),
         "step_p50_s": pctl([r["wall_s"] for r in recs], 50),
@@ -1165,9 +1410,15 @@ def train_phase(tfm, fa, tele, cfg):
         "event_span_p50_s": pctl([r["event_span_s"] for r in recs], 50),
         "ledger_mfu": ledger_mfu, "smoke_mfu_same_steps": own_mfu,
         "mfu_rel_diff": ledger_mfu / own_mfu - 1,
-        "ledger_vs_bare": ledger_pairs(
-            step, tfm.make_train_step(model, opt, ledger=False), ids,
-            labels)}
+        "compute": {
+            "counted_flops": cost["flops"],
+            "counted_over_train_step_flops": counted,
+            "bytes_accessed": cost["bytes_accessed"],
+            "cost_pass_s": site["compile_secs_total"],
+            "membw_util_p50": pctl([r["membw_util"] for r in recs], 50),
+            "bound": [r["bound"] for r in recs]},
+        "ledger_vs_bare": ledger_pairs(step, bare, ids, labels),
+        "memory_sample": memory_sample_ms(bare, ids, labels, tele)}
     losses = warm + losses
     check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
@@ -1183,8 +1434,11 @@ def train_phase(tfm, fa, tele, cfg):
 
 
 def train_long_phase(tfm, cfg, step):
-    """Two steps at the reference's long-context shape, B=1 x T=8192."""
+    """Two steps at the reference's long-context shape, B=1 x T=8192,
+    after one warm-up (the shape's first step is the site's cost
+    pass)."""
     ids, labels = train_batch(cfg, 1, LONG_T, 2)
+    timed_steps(step, ids, labels, 1)
     torch.cuda.reset_peak_memory_stats()
     walls, losses, _ = timed_steps(step, ids, labels, 2)
     check(all(math.isfinite(x) for x in losses), f"long losses {losses}")
@@ -2381,7 +2635,8 @@ def moe_serve_phase(serving, fa, pa, tele, model, prompts, looping):
                             before)]
     check(checks > 0, "moe_debug_overflow recorded nothing")
     return {"phase": "moe_serve", "model": "flagship_moe_8x2",
-            "plain": plain, "spec": spec, "launches": launches,
+            "plain": _emitted(plain), "spec": _emitted(spec),
+            "launches": launches,
             "overflow_pass": {"tokens_per_s": over["tokens_per_s"],
                               "ttft_p50_s": over["ttft_p50_s"],
                               "overflow_checks": checks,
@@ -4038,11 +4293,17 @@ def main() -> int:
     spec = serve_batch(serving, model, looping, 3)
     launches = {"flash_fwd": fa.FLASH_FWD.launches,
                 "paged_attention": pa.PAGED_ATTENTION.launches}
-    emit({"phase": "slice", "model": "flagship", **plain})
-    emit({"phase": "slice_spec", "model": "flagship", **spec})
+    emit({"phase": "slice", "model": "flagship", **_emitted(plain)})
+    emit({"phase": "slice_spec", "model": "flagship", **_emitted(spec)})
     emit({"phase": "launches", **launches})
     check(all(n > 0 for n in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    # 5b. the gather decode path on the same prompts
+    gather_doc, gather_launches = gather_phase(
+        serving, fa, pa, tfm, model, prompts, looping,
+        {**launches, "outputs": (plain["outputs"], spec["outputs"]),
+         "docs": (plain, spec)})
+    emit(gather_doc)
     emit(logit_checks(tfm, model, cfg))
     TELEMETRY["serving"] = telemetry_serving(serving, tele, fa, model, cfg)
     # a closed engine's KV pools live until the collector breaks the
@@ -4053,6 +4314,10 @@ def main() -> int:
     # 6. training
     train_model, one_step, train_launches, step = train_phase(tfm, fa, tele,
                                                               cfg)
+    costs = {site: st["last_cost"] for site, st in _site_stats(tele).items()}
+    for site in ("serving.prefill", "serving.decode", "serving.decode_spec",
+                 "serving.decode_paged", "train.step"):
+        check(costs.get(site) is not None, f"site {site} has no cost")
     long_step = train_long_phase(tfm, cfg, step)
     emit(grad_checks(tfm, cfg))
     emit(profile_phase(tfm, model, cfg, {"train": one_step,
@@ -4074,6 +4339,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     option_launches = model_options_phase(tfm, serving, fa, pa, tele, cfg,
                                           prompts, looping)
+    option_launches["gather"] = gather_launches
 
     # 7c. the elastic trainer: 3 workers share the card, one is lost, the
     # world shrinks and grows back (the kernels are built already, so the

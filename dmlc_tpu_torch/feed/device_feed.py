@@ -952,11 +952,11 @@ def _make_padded_expander(n_parts: int, batch_records: int, max_bytes: int,
     max_bytes], length} contract after the bytes crossed the link: row
     ``r`` is the window ``starts[r] + arange(max_bytes)`` of ``data``
     (the guard region after each partition's block keeps every window in
-    bounds), zeroed past the record's length."""
+    bounds), zeroed past the record's length.  The expansion is the
+    compute ledger's site ``feed.expand`` (:1222-1224)."""
     cache: Dict[torch.device, tuple] = {}
 
-    def transform(batch):
-        data, offsets = batch["data"], batch["offsets"]
+    def expand(data: torch.Tensor, offsets: torch.Tensor):
         dev = data.device
         if dev not in cache:
             cache[dev] = (torch.arange(n_parts, device=dev) * stride,
@@ -968,7 +968,13 @@ def _make_padded_expander(n_parts: int, batch_records: int, max_bytes: int,
                            max=max_bytes).reshape(-1)
         rows = data[starts[:, None] + cols[None, :]]
         rows.mul_(cols[None, :] < lens[:, None])
-        return {"data": rows, "length": lens.to(torch.int32)}
+        return rows, lens.to(torch.int32)
+
+    site = telemetry.compute.profiled_site(expand, site="feed.expand")
+
+    def transform(batch):
+        rows, length = site(batch["data"], batch["offsets"])
+        return {"data": rows, "length": length}
 
     return transform
 

@@ -1,7 +1,8 @@
 """Models of the port: the flagship decoder LM, trained on one card or on
-a pp × dp × sp × ep × tp mesh (``transformer``), and served; weights and
-train state to and from the JAX package's trees (``convert``).  The
-gather decode path is not ported yet (ROADMAP.md Queue 1 item 8c)."""
+a pp × dp × sp × ep × tp mesh (``transformer``), and served on the
+paged decode path or the gather path (``forward_decode``,
+``forward_decode_spec``); weights and train state to and from the JAX
+package's trees (``convert``)."""
 
 from .transformer import (  # noqa: F401
     PARAM_SPECS,
@@ -10,7 +11,10 @@ from .transformer import (  # noqa: F401
     TransformerConfig,
     adamw,
     count_params,
+    decode_phase_flops,
     flagship_config,
+    forward_decode,
+    forward_decode_spec,
     forward_local,
     init_params,
     make_train_step,

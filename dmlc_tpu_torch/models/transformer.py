@@ -16,9 +16,12 @@ the loss meaned over (dp, sp)) and ``unsharded_loss`` (:407,
 mesh, with the fused or the bucketed (``overlap="device"``) gradient
 reduction, with or without the global gradient norm (:761-850), and the
 serving forwards ``forward_prefill`` / ``forward_prefill_last``
-(:504-558) and ``forward_decode_paged`` (:690-758).  The train step
-drives the step ledger as the reference's does (:855-887).  The gather
-decode path comes in a later slice (ROADMAP.md Queue 1 item 8c).
+(:504-558), the gather decode path's ``forward_decode`` and
+``forward_decode_spec`` (:561-687, attending a dense gathered cache
+with plain products) and ``forward_decode_paged`` (:690-758), with
+``decode_phase_flops`` (:431) for the compute ledger's phase split.
+The train step is the compute ledger's site ``train.step`` and drives
+the step ledger as the reference's does (:852-887).
 
 On a mesh (``Transformer(cfg, device, mesh)``) each rank holds the
 shards ``PARAM_SPECS`` gives its coordinate: its pp stage's layers
@@ -52,6 +55,7 @@ build no autograd graph.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable, List, Optional, Tuple
@@ -59,6 +63,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -78,12 +83,14 @@ from ..parallel.ring_attention import ring_attention
 
 __all__ = ["TransformerConfig", "flagship_config", "count_params",
            "train_flops_per_token", "train_step_flops",
-           "decode_flops_per_token", "PARAM_SPEC_TREE", "PARAM_SPECS",
+           "decode_flops_per_token", "decode_phase_flops",
+           "PARAM_SPEC_TREE", "PARAM_SPECS",
            "SHARDED_AXES",
            "Block", "Transformer", "init_params", "forward_local",
            "unsharded_loss", "adamw", "sync_gradients", "sharded_grad_norm",
            "make_train_step", "forward_prefill",
-           "forward_prefill_last", "forward_decode_paged"]
+           "forward_prefill_last", "forward_decode", "forward_decode_spec",
+           "forward_decode_paged"]
 
 SHARDED_AXES = ShardAxes(tp=AXIS_TP, sp=AXIS_SP, ep=AXIS_EP, pp=AXIS_PP,
                          dp=AXIS_DP)
@@ -203,6 +210,20 @@ def train_step_flops(cfg: TransformerConfig, batch: int, t: int,
 def decode_flops_per_token(cfg: TransformerConfig, ctx: int) -> float:
     """Forward FLOPs of one generated token attending ``ctx`` tokens."""
     return train_flops_per_token(cfg, ctx, causal=False) / 3.0
+
+
+def decode_phase_flops(cfg: TransformerConfig, ctx: int) -> dict:
+    """:func:`decode_flops_per_token` split by phase (:431-446), the
+    shares the compute ledger apportions a decode step's device time
+    by; the three values sum exactly to it (the qkvo projections count
+    as attention)."""
+    e, hd, f, x = (cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff,
+                   cfg.n_experts)
+    return {
+        "attention": float(cfg.n_layers * (2 * 4 * e * hd + 4 * ctx * hd)),
+        "mlp": float(cfg.n_layers * (2 * 3 * e * f * x)),
+        "unembed": float(2 * e * cfg.vocab),
+    }
 
 
 def _local(n: int, axis: str, mesh: Optional[Mesh], what: str) -> int:
@@ -676,17 +697,21 @@ def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
     is the reference caller's skip (it keeps its old immutable
     references) for a step that updates in place.
 
+    The step is the compute ledger's site ``train.step``
+    (``telemetry.compute.profiled_site``, :852-855): the first step of a
+    batch shape runs under the cost pass, forward, backward and update.
     With ``ledger`` (default) every call drives the process step ledger
     (``telemetry.steps``) as the reference's does (:865-887): the first
     call declares the model's train FLOPs per token at the batch's
     sequence length and its dtype, and each step is ``step_begin`` →
-    step → ``step_end(tokens=B·T)`` of the global batch; a declined
-    step is left open, and the next ``step_begin`` abandons it.  On a
-    card ``step_end`` waits on an event recorded after the optimizer's
-    kernels, so the record's ``wall_s`` is the step and
-    ``host_issue_s`` its enqueue.  ``ledger=False`` returns the bare
-    step (for a caller that brackets the step itself, e.g. around its
-    feed's wait)."""
+    step → ``step_end(tokens=B·T, bytes_accessed=...)`` of the global
+    batch, the bytes the site's cost, then a memory sample
+    (``compute.sample_hbm``); a declined step is left open, and the
+    next ``step_begin`` abandons it.  On a card ``step_end`` waits on an
+    event recorded after the optimizer's kernels, so the record's
+    ``wall_s`` is the step and ``host_issue_s`` its enqueue.
+    ``ledger=False`` returns the bare step (for a caller that brackets
+    the step itself, e.g. around its feed's wait)."""
     if overlap == "auto":
         overlap = "device" if get_env("DMLC_COLL_OVERLAP", False) else None
     if overlap not in (None, "device"):
@@ -736,9 +761,14 @@ def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
             optimizer.step()
         return (loss if gnorm is None else (loss, gnorm)), applied
 
+    compute = telemetry.compute
+    # the compute ledger's site (the function itself under
+    # DMLC_COMPUTE_PROFILE=0): a batch shape's first step is its trace,
+    # counted forward, backward and update
+    site = compute.profiled_site(train_step, site="train.step")
     if not ledger:
-        return lambda ids, labels, accept=None: train_step(ids, labels,
-                                                           accept)[0]
+        return lambda ids, labels, accept=None: site(ids, labels,
+                                                     accept=accept)[0]
     cfg = model.cfg
     declared = []
 
@@ -751,9 +781,15 @@ def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
         telemetry.step_begin()
         # a raising or declined step leaves the ledger's step open; the
         # next step_begin abandons it instead of recording a garbage wall
-        out, applied = train_step(ids, labels, accept)
+        out, applied = site(ids, labels, accept=accept)
         if applied:
-            telemetry.step_end(tokens=float(ids.numel()))
+            stats = getattr(site, "stats", None)   # absent when disabled
+            cost = stats()["last_cost"] if stats else None
+            telemetry.step_end(
+                tokens=float(ids.numel()),
+                bytes_accessed=cost["bytes_accessed"] if cost else None)
+        if compute.enabled():
+            compute.sample_hbm()
         return out
 
     return stepped
@@ -811,6 +847,99 @@ def _rope_window(x: torch.Tensor, positions: torch.Tensor,
     return rotate(x, ang[:, :, None, :])
 
 
+def _phase_scope() -> Callable:
+    """``scope(name)``: a ``torch.profiler.record_function`` region for
+    the decode forwards' attention / mlp / unembed phases under
+    ``DMLC_COMPUTE_TRACE_PHASES=1`` (the reference's named scopes), else
+    a no-op."""
+    if telemetry.compute.phases_enabled():
+        return record_function
+    return lambda name: contextlib.nullcontext()
+
+
+def _cached_window_attention(q: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor,
+                             lengths: torch.Tensor) -> torch.Tensor:
+    """S window tokens per row (q/k_new/v_new ``[B, S, H, D]``) attend a
+    dense cache ``[B, Tc, H, D]`` plus a causal prefix of the window
+    (:622-645): window position s sees cache slots ``j < lengths[b]``
+    and window slots ``<= s``.  Scores and the probability-value
+    product are float32 (``preferred_element_type=f32``), masked
+    entries -1e30, the probabilities rounded to the values' dtype
+    first; the output is in q's dtype.  S=1 is the single-token mask of
+    ``_cached_attention`` (:475-497)."""
+    d = q.shape[-1]
+    tc, s_w = k_cache.shape[1], q.shape[1]
+    k_all = torch.cat([k_cache, k_new], dim=1)             # [B, Tc+S, H, D]
+    v_all = torch.cat([v_cache, v_new], dim=1)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k_all.float()) * (1.0 / d ** 0.5)
+    idx = torch.arange(tc + s_w, device=q.device)
+    in_cache = idx[None, None, :] < lengths.long()[:, None, None]
+    in_window = ((idx[None, None, :] >= tc)
+                 & (idx[None, None, :] - tc
+                    <= torch.arange(s_w, device=q.device)[None, :, None]))
+    s = s.masked_fill(~(in_cache | in_window)[:, None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v_all.dtype).float(),
+                       v_all.float())
+    return out.to(q.dtype)
+
+
+def forward_decode_spec(model: Transformer, ids: torch.Tensor,
+                        positions: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, lengths: torch.Tensor,
+                        route_tokens: Optional[int] = None):
+    """Decode window step against a dense gathered cache (:648-687), the
+    gather path's speculative verify: ids / positions ``[B, S]`` are
+    each row's window (position 0 the token consumed, 1..S-1 drafts),
+    k_cache / v_cache ``[L, B, Tc, H, D]`` with row b's slots valid
+    below ``lengths[b]`` (garbage past it).  Returns ``(logits [B, S,
+    V], k_new, v_new [L, B, S, H, D])``; the caller writes the prefix
+    it commits into the cache.  The attention is plain products
+    (the reference's einsum, no kernel).  ``route_tokens`` as in
+    :func:`forward_decode_paged`."""
+    cfg = model.cfg
+    scope = _phase_scope()
+    x = embed_lookup(model.embed, ids).to(cfg.torch_dtype)
+    k_news: List[torch.Tensor] = []
+    v_news: List[torch.Tensor] = []
+    for li, layer in enumerate(model.layers):
+        with scope("attention"):
+            q, k, v = layer.qkv(rms_norm(x, layer.ln1))
+            q = _rope_window(q, positions)
+            k = _rope_window(k, positions)
+            o = _cached_window_attention(q, k, v, k_cache[li], v_cache[li],
+                                         lengths)
+            x = x + layer.attn_out(o)
+        with scope("mlp"):
+            x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, route_tokens)
+        k_news.append(k)
+        v_news.append(v)
+    with scope("unembed"):
+        logits = rms_norm(x, model.ln_f) @ model.unembed
+    return logits, torch.stack(k_news), torch.stack(v_news)
+
+
+def forward_decode(model: Transformer, ids: torch.Tensor,
+                   positions: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, lengths: torch.Tensor,
+                   route_tokens: Optional[int] = None):
+    """Single-token decode step against a dense gathered cache
+    (:561-604): ids / positions / lengths ``[B]``.  Returns ``(logits
+    [B, V], k_new, v_new [L, B, H, D])``.  It is
+    :func:`forward_decode_spec` at S=1 (``_rope_at`` is ``_rope_window``
+    at one position, ``_cached_attention`` the S=1 mask), so the two
+    agree exactly, as the reference's docstring requires of its pair.
+    Batch rows are independent: a dead row (length 0) changes no other
+    row."""
+    logits, k, v = forward_decode_spec(model, ids[:, None],
+                                       positions[:, None], k_cache, v_cache,
+                                       lengths, route_tokens)
+    return logits[:, 0], k[:, :, 0], v[:, :, 0]
+
+
 def _window_addresses(lengths: torch.Tensor, block_tables: torch.Tensor,
                       s_w: int, block_size: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -853,19 +982,22 @@ def forward_decode_paged(model: Transformer, ids: torch.Tensor,
     the window to ``max_active`` rows after the live ones, so its
     capacity counts ``max_active · S`` tokens.  None counts ``B · S``."""
     cfg = model.cfg
+    scope = _phase_scope()
     s_w = ids.shape[1]
     live, wb, ws = _window_addresses(lengths, block_tables, s_w,
                                      k_pool.shape[2])
     x = embed_lookup(model.embed, ids).to(cfg.torch_dtype)
     for li, layer in enumerate(model.layers):
-        q, k, v = layer.qkv(rms_norm(x, layer.ln1))
-        q = _rope_window(q, positions)
-        k = _rope_window(k, positions)
-        k_pool[li, wb, ws] = k.flatten(0, 1)[live].to(k_pool.dtype)
-        v_pool[li, wb, ws] = v.flatten(0, 1)[live].to(v_pool.dtype)
-        o = paged_attention(q, k_pool[li], v_pool[li], block_tables, lengths,
-                            impl=impl)
-        x = x + layer.attn_out(o)
-        x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, route_tokens)
-    x = rms_norm(x, model.ln_f)
-    return x @ model.unembed
+        with scope("attention"):
+            q, k, v = layer.qkv(rms_norm(x, layer.ln1))
+            q = _rope_window(q, positions)
+            k = _rope_window(k, positions)
+            k_pool[li, wb, ws] = k.flatten(0, 1)[live].to(k_pool.dtype)
+            v_pool[li, wb, ws] = v.flatten(0, 1)[live].to(v_pool.dtype)
+            o = paged_attention(q, k_pool[li], v_pool[li], block_tables,
+                                lengths, impl=impl)
+            x = x + layer.attn_out(o)
+        with scope("mlp"):
+            x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, route_tokens)
+    with scope("unembed"):
+        return rms_norm(x, model.ln_f) @ model.unembed

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.collectives import all_reduce, copy_to, reduce_from
+from ..telemetry import compute
 
 __all__ = ["ShardAxes", "pmax_const", "rms_norm", "rope", "embed_lookup",
            "softmax_xent", "swiglu_ffn", "mlp_act"]
@@ -161,6 +162,10 @@ def _mlp_act_backward(ctx, g):
 
 
 mlp_act.register_autograd(_mlp_act_backward, setup_context=_mlp_act_setup)
+# elementwise work: no FLOPs in the cost pass, as for aten's elementwise
+# ops (the peak rates the roofline divides by are the tensor cores')
+compute.register_flops("dmlc_tpu_torch::mlp_act",
+                       lambda args, kwargs, out: 0.0)
 
 
 def swiglu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_gate: torch.Tensor,

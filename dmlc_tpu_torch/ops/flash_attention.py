@@ -45,6 +45,7 @@ import torch
 from torch import Tensor
 
 from ..base import DMLCError
+from ..telemetry import compute
 from ._build import Kernel, rows_aligned
 
 __all__ = ["flash_attention", "flash_backward", "flash_backward_reference",
@@ -311,6 +312,35 @@ def _backward(ctx, do, _dlse):
 
 
 flash_attn_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _pairs(tq: int, tk: int, causal: bool) -> int:
+    """The (query, key) pairs a head attends: row i of a causal call sees
+    keys 0..i."""
+    if not causal:
+        return tq * tk
+    n = min(tq, tk)
+    return n * (n + 1) // 2 + (tq - n) * tk
+
+
+def _fwd_flops(args, kwargs, out) -> float:
+    """K1: 4·D FLOPs a visible pair (the scores and the value product)."""
+    q, k, causal = args[0], args[1], args[4]
+    b, tq, h, d = q.shape
+    return 4.0 * b * h * d * _pairs(tq, k.shape[1], causal)
+
+
+def _bwd_flops(args, kwargs, out) -> float:
+    """K2 + K3: 8·D and 6·D FLOPs a visible pair."""
+    q, k, causal = args[0], args[1], args[7]
+    b, tq, h, d = q.shape
+    return 14.0 * b * h * d * _pairs(tq, k.shape[1], causal)
+
+
+# the cost pass sees each op whole, whichever device runs it; the same
+# counts as the kernels' roofline bounds
+compute.register_flops("dmlc_tpu_torch::flash_attn_fwd", _fwd_flops)
+compute.register_flops("dmlc_tpu_torch::flash_attn_bwd", _bwd_flops)
 
 
 def _route(impl: Optional[str]) -> None:

@@ -31,9 +31,11 @@ from typing import Optional
 import torch
 
 from ..base import DMLCError
+from ..telemetry import compute
 from ._build import Kernel, rows_aligned
 
-__all__ = ["paged_attention", "paged_attention_reference", "PAGED_ATTENTION"]
+__all__ = ["paged_attention", "paged_attention_reference", "kernel_cost",
+           "PAGED_ATTENTION"]
 
 _NEG_BIG = -1e30
 _MAX_WINDOW = 8
@@ -111,8 +113,27 @@ def kv_splits(width: int, block_size: int) -> int:
     return max(1, -(-width // max(1, _SPLIT_TOKENS // block_size)))
 
 
+def kernel_cost(q, k_pool, block_tables, lengths):
+    """``(FLOPs, bytes)`` of one K4 call on these inputs, as its roofline
+    bound counts them: 4·D FLOPs a head for each visible (window row,
+    key) pair, and each visible K/V row, q, the output, the tables and
+    the lengths moved once.  Reads ``lengths`` on the host."""
+    b, s_w, h, d = q.shape
+    span = block_tables.shape[1] * k_pool.shape[1]
+    lens = lengths.tolist()
+    pairs = sum(min(n + s + 1, span) for n in lens for s in range(s_w))
+    visible = sum(min(n + s_w, span) for n in lens)
+    el = q.element_size()
+    nbytes = (2 * visible * h * d * el + 2 * q.numel() * el
+              + 4 * (block_tables.numel() + lengths.numel()))
+    return 4.0 * h * d * pairs, float(nbytes)
+
+
 def _launch(q, k_pool, v_pool, block_tables, lengths, scale: float):
     _check(q, k_pool, v_pool, block_tables, lengths)
+    if compute.counting():   # a cost pass cannot see a ctypes launch
+        compute.add_kernel_cost(*kernel_cost(q, k_pool, block_tables,
+                                             lengths))
     if not rows_aligned(q):  # the kernel reads q in 16-byte vectors
         q = q.clone(memory_format=torch.contiguous_format)
     b, s_w, h, d = q.shape

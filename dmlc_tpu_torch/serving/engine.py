@@ -1,11 +1,17 @@
 """Inference engine: the per-iteration prefill/decode loop.
 
-Port of the paged branch of ``dmlc_tpu/serving/engine.py``: ``submit``,
-``generate``, ``start``, ``close``, ``step``, ``_run_prefill`` (:643),
-``_ensure_decode_capacity`` (:716), ``_draft_tokens`` (:754) and
-``_run_decode`` (:789).  Every iteration admits what fits (prefill runs
-the flash-attention kernel) and then runs one decode window for every
-active request (the paged-attention kernel, reading the pools in place).
+Port of ``dmlc_tpu/serving/engine.py``: ``_jitted_programs`` (:129-191,
+as :func:`_programs`), ``submit``, ``generate``, ``start``, ``close``,
+``step``, ``_run_prefill`` (:643), ``_ensure_decode_capacity`` (:716),
+``_draft_tokens`` (:754) and ``_run_decode`` (:789-995) on both of its
+data paths.  Every iteration admits what fits (prefill runs the
+flash-attention kernel) and then runs one decode window for every
+active request.  ``DMLC_SERVE_PAGED_ATTN`` picks the path: ``on`` (and
+``auto``: the engine is one card and takes no mesh) reads the pools in
+place through the paged-attention kernel; ``off`` gathers each row's
+blocks into a dense view (``PagedKVCache.gather``, the ``gather``
+phase) and attends it with plain products (``forward_decode`` /
+``forward_decode_spec``), then writes each row's committed K/V back.
 Sampling is greedy; with ``spec_k > 0`` an n-gram drafter proposes up to
 ``spec_k`` tokens per row and the longest-accepted-prefix walk keeps the
 output identical to plain greedy decoding.
@@ -26,13 +32,24 @@ bounded dedupe table (``DMLC_SERVE_DEDUPE_MAX``); ``begin_drain`` /
 ``drain`` stop admitting (:class:`EngineDraining`) while in-flight
 generations finish.
 
+The compute ledger (``telemetry.compute``) as the reference's: the
+prefill and decode programs are its sites ``serving.prefill``,
+``serving.decode``, ``serving.decode_spec`` and ``serving.decode_paged``;
+each decode step's ledger record carries the site's counted bytes (so
+``membw_util`` and the ``bound`` verdict), the step's device time is
+split across attention / mlp / unembed by ``decode_phase_flops``, the
+host's ``gather`` and ``sampling`` phases are measured, and every 8th
+iteration samples the card's memory.
+
 Differences from the reference: no jit (PyTorch runs eagerly, so there
 are no shape buckets to pin and the decode batch is the live rows only,
 with no dead padding rows, though a routed config's expert capacity
-counts them); the pools live only on the device; and the
-compute telemetry (cost analysis, memory samples) is ROADMAP.md Queue 1
-item 9.  ``stats()`` also keeps plain integer counters and the kernels'
-launch counts.
+counts them); the pools live only on the device.  Because the rows
+count is part of a decode site's signature here, each decode site's
+cap is ``DMLC_SERVE_MAX_DECODE_SIGS`` signatures per rows count
+(``× max_active``): the reference's cap counts (window, width) at its
+one padded batch size.  ``stats()`` also keeps plain integer counters
+and the kernels' launch counts.
 
 The engine runs on the CUDA card unless the caller passes
 ``device="cpu"`` (the tests do); with no card and no device it raises.
@@ -52,7 +69,9 @@ from .. import telemetry
 from ..base import DMLCError, get_env, resolve_device
 from ..concurrency import make_lock
 from ..models.transformer import (Transformer, decode_flops_per_token,
-                                  forward_decode_paged, forward_prefill_last)
+                                  decode_phase_flops, forward_decode,
+                                  forward_decode_paged, forward_decode_spec,
+                                  forward_prefill_last)
 from ..ops.flash_attention import FLASH_FWD
 from ..ops.paged_attention import PAGED_ATTENTION
 from .kv_cache import PagedKVCache
@@ -161,6 +180,49 @@ class _Slots:
             self._cv.notify_all()
 
 
+_PROGRAMS: Dict[tuple, object] = {}
+
+
+def _programs(use_paged: bool, window: int, max_active: int):
+    """Process-wide prefill and decode programs: the compute ledger's
+    sites, one wrapper per program variant so every engine of the
+    process shares one signature ledger (and one cost pass a
+    signature).  The decode program is the gather path's
+    ``forward_decode`` (site ``serving.decode``) or its window twin
+    ``forward_decode_spec`` (``serving.decode_spec``), or the paged
+    ``forward_decode_paged`` (``serving.decode_paged``; the window is a
+    shape).  Under ``DMLC_COMPUTE_PROFILE=0`` they are the plain
+    functions; the cache is keyed on that mode, and on the function
+    this module names at the engine's construction.  A decode site's
+    cap is ``DMLC_SERVE_MAX_DECODE_SIGS`` per rows count (see the module
+    docstring), so its wrapper is keyed on ``max_active`` too; the
+    engine passes ``route_tokens`` (``max_active`` times the window) by
+    keyword, outside the signature, which it does not change."""
+    compute = telemetry.compute
+    mode = "profiled" if compute.enabled() else "plain"
+    if use_paged:
+        fn, site = forward_decode_paged, "serving.decode_paged"
+    elif window > 1:
+        fn, site = forward_decode_spec, "serving.decode_spec"
+    else:
+        fn, site = forward_decode, "serving.decode"
+    prefill_key = (mode, "serving.prefill", forward_prefill_last)
+    decode_key = (mode, site, fn, max_active)
+    if prefill_key not in _PROGRAMS:
+        _PROGRAMS[prefill_key] = compute.profiled_site(
+            forward_prefill_last, site="serving.prefill")
+    if decode_key not in _PROGRAMS:
+        _PROGRAMS[decode_key] = compute.profiled_site(
+            fn, site=site, max_signatures=get_env(
+                "DMLC_SERVE_MAX_DECODE_SIGS", 64) * max_active)
+    progs = (_PROGRAMS[prefill_key], _PROGRAMS[decode_key])
+    for prog in progs:
+        rereg = getattr(prog, "reregister", None)
+        if rereg is not None:
+            rereg()
+    return progs
+
+
 class InferenceEngine:
     """Continuous-batching generation over one model replica.
 
@@ -214,6 +276,19 @@ class InferenceEngine:
                                  else get_env("DMLC_SERVE_SPEC_K", 0)))
         self.spec_min_ctx = max(1, get_env("DMLC_SERVE_SPEC_MIN_CTX", 4))
         self._spec_window = 1 + self.spec_k
+        # the decode data path: "auto" is the paged path, since this
+        # engine is one card and takes no mesh (the reference's auto
+        # gathers only for a mesh's dp/tp placement)
+        self.paged_mode = str(get_env("DMLC_SERVE_PAGED_ATTN",
+                                      "auto")).lower()
+        if self.paged_mode not in ("auto", "on", "off"):
+            raise ValueError(
+                f"DMLC_SERVE_PAGED_ATTN must be auto|on|off, got "
+                f"{self.paged_mode!r}")
+        self._use_paged = self.paged_mode != "off"
+        self._prefill, self._decode = _programs(
+            self._use_paged, self._spec_window, self.max_active)
+        self._hbm_tick = 0
         self._crash_requeue_max = get_env("DMLC_SERVE_CRASH_REQUEUE_MAX", 2)
         # request-scoped observability: the per-request lifecycle ledger
         # (/requests) feeding the SLO burn-rate monitor (/slo), and the
@@ -525,7 +600,7 @@ class InferenceEngine:
             self.requests.on_prefill_begin(req.id, t=t0, resume=resume)
             with telemetry.span("serving.prefill", stage="serving",
                                 args={"tokens": n, "req": req.id}):
-                logits, k, v = forward_prefill_last(
+                logits, k, v = self._prefill(
                     self.model, ids.to(self.device),
                     torch.tensor([n - 1], device=self.device))
                 self.cache.write(req.id, k[:, 0, :n], v[:, 0, :n], start=0)
@@ -629,6 +704,7 @@ class InferenceEngine:
                     active=0, waiting=self.scheduler.n_waiting,
                     preempted=n_preempted, kv_stats=self.cache.stats())
             return
+        compute = telemetry.compute
         if not self._flops_declared:
             # per-token FLOPs vary with context: declared once for the
             # ledger's goodput math, the exact FLOPs passed every step
@@ -649,21 +725,44 @@ class InferenceEngine:
             if d:
                 ids[i, 1:1 + len(d)] = torch.tensor(d, dtype=torch.long)
             drafts.append(d)
-        tables, lengths = self.cache.block_tables_array(
-            [r.id for r in active])
-        base_lens = [self.cache.length(r.id) for r in active]
+        seq_ids = [r.id for r in active]
+        base_lens = [self.cache.length(s) for s in seq_ids]
         base = torch.tensor(base_lens, dtype=torch.long)
-        positions = base[:, None] + torch.arange(s_w)
+        positions = (base[:, None] + torch.arange(s_w)).to(self.device)
+        ids = ids.to(self.device)
         # a routed config's expert capacity counts the reference's padded
         # batch (max_active rows, the dead ones after the live): the live
         # tokens then route exactly as they do there
-        logits = forward_decode_paged(
-            self.model, ids.to(self.device), positions.to(self.device),
-            self.cache.k_pool, self.cache.v_pool, tables, lengths,
-            route_tokens=self.max_active * s_w)
+        route = self.max_active * s_w
+        if self._use_paged:
+            tables, lengths = self.cache.block_tables_array(seq_ids)
+            ctx_depth = tables.shape[1] * self.cache.block_size
+            t_dev = time.perf_counter()
+            logits = self._decode(
+                self.model, ids, positions, self.cache.k_pool,
+                self.cache.v_pool, tables, lengths, route_tokens=route)
+        else:
+            with compute.phase("gather"):
+                k, v, lengths = self.cache.gather(seq_ids)
+                k, v = self.cache.shard_gathered(k, v)
+            ctx_depth = int(k.shape[2])
+            t_dev = time.perf_counter()
+            if s_w > 1:
+                logits, k_new, v_new = self._decode(
+                    self.model, ids, positions, k, v, lengths,
+                    route_tokens=route)
+            else:
+                logits, k_new, v_new = self._decode(
+                    self.model, ids[:, 0], positions[:, 0], k, v, lengths,
+                    route_tokens=route)
+                # the single-token program's [B, V] logits, [L, B, H, D]
+                logits = logits[:, None]
+                k_new, v_new = k_new[:, :, None], v_new[:, :, None]
         amax = logits.argmax(dim=-1)                              # [B, S]
         fin = torch.isfinite(torch.gather(logits, 2, amax[..., None]))[..., 0]
+        # the host's first wait on the step: the device time ends here
         amax, fin = amax.cpu().tolist(), fin.cpu().tolist()
+        dev_s = time.perf_counter() - t_dev
         # executed FLOPs: every window position runs the full forward
         # whether or not its token commits (MFU counts work executed);
         # context depths repeat across rows and steps, so memoized
@@ -675,51 +774,69 @@ class InferenceEngine:
                     f = self._fpt_cache[c] = decode_flops_per_token(
                         self.cfg, c)
                 flops += f
+        if compute.enabled():
+            # the step's device time split by the model's exact per-phase
+            # FLOPs at the batch's context depth
+            compute.phase_estimate(decode_phase_flops(self.cfg, ctx_depth),
+                                   dev_s)
         # longest-accepted-prefix walk: position s emits argmax(logits[s]);
         # the walk continues only while the draft matches that argmax, so
         # the output is exactly plain greedy decoding
         outcomes = []
         n_tokens = n_proposed = n_accepted = 0
-        for i, req in enumerate(active):
-            draft = drafts[i]
-            n_proposed += len(draft)
-            n_row = 0
-            fail = done = False
-            for s in range(1 + len(draft)):
-                if not fin[i][s]:
-                    telemetry.inc("serving", "nonfinite_failures")
-                    logger.error("request %d produced non-finite logits "
-                                 "at decode position %d", req.id,
-                                 base_lens[i] + s)
-                    fail = True
+        with compute.phase("sampling"):
+            for i, req in enumerate(active):
+                draft = drafts[i]
+                n_proposed += len(draft)
+                n_row = 0
+                fail = done = False
+                for s in range(1 + len(draft)):
+                    if not fin[i][s]:
+                        telemetry.inc("serving", "nonfinite_failures")
+                        logger.error("request %d produced non-finite "
+                                     "logits at decode position %d",
+                                     req.id, base_lens[i] + s)
+                        fail = True
+                        break
+                    next_id = amax[i][s]
+                    req.generated.append(next_id)
+                    n_row += 1
+                    if req.is_finished_by(next_id):
+                        done = True
+                        break
+                    if s < len(draft) and draft[s] == next_id:
+                        n_accepted += 1
+                        continue
                     break
-                next_id = amax[i][s]
-                req.generated.append(next_id)
-                n_row += 1
-                if req.is_finished_by(next_id):
-                    done = True
-                    break
-                if s < len(draft) and draft[s] == next_id:
-                    n_accepted += 1
-                    continue
-                break
-            outcomes.append((req, n_row, fail, done))
-            n_tokens += n_row
-        # the pools already hold the committed prefix (scattered by the
-        # step); commit before any finish below frees blocks
-        self.cache.advance_many([(req.id, n) for req, n, _, _ in outcomes
-                                 if n])
-        t_commit = time.perf_counter()
-        for req, n_row, _, _ in outcomes:
-            if n_row:
-                self.requests.on_token(req.id, t=t_commit, n=n_row)
+                outcomes.append((req, i, n_row, fail, done))
+                n_tokens += n_row
+            # commit each row's prefix before any finish below frees
+            # blocks: the paged step already scattered it into the pools;
+            # the gather path writes it at the row's old length.  A row's
+            # non-finite position and what follows are not committed
+            if self._use_paged:
+                self.cache.advance_many([(req.id, n) for req, _, n, _, _
+                                         in outcomes if n])
+            else:
+                self.cache.write_many(
+                    [(req.id, k_new[:, i, :n], v_new[:, i, :n])
+                     for req, i, n, _, _ in outcomes if n])
+            t_commit = time.perf_counter()
+            for req, _, n_row, _, _ in outcomes:
+                if n_row:
+                    self.requests.on_token(req.id, t=t_commit, n=n_row)
+        stats_fn = getattr(self._decode, "stats", None)   # absent when off
+        cost = stats_fn() if stats_fn else None
         telemetry.step_end(
-            tokens=float(n_tokens), flops=flops, tokens_per_step=n_tokens / b,
+            tokens=float(n_tokens), flops=flops,
+            bytes_accessed=(cost["last_cost"] or {}).get("bytes_accessed")
+            if cost else None,
+            tokens_per_step=n_tokens / b,
             spec_accept_rate=(n_accepted / n_proposed
                               if n_proposed else None))
         # completion delivery happens AFTER step_end: waking a handler
         # thread is response streaming, not decode work
-        for req, _, fail, done in outcomes:
+        for req, _, _, fail, done in outcomes:
             if fail:
                 self._finish(req, error="non-finite logits during decode "
                              "(numeric corruption); retry the request",
@@ -734,8 +851,10 @@ class InferenceEngine:
             telemetry.inc("serving", "tokens_generated", n_tokens)
         telemetry.inc("serving", "decode_steps")
         telemetry.observe("serving", "decode_batch", b)
-        telemetry.set_gauge("serving", "paged_active", 1.0)
-        telemetry.inc("serving", "paged_decode_steps")
+        telemetry.set_gauge("serving", "paged_active",
+                            1.0 if self._use_paged else 0.0)
+        if self._use_paged:
+            telemetry.inc("serving", "paged_decode_steps")
         if s_w > 1:
             telemetry.inc("serving", "spec_proposed", n_proposed)
             telemetry.inc("serving", "spec_accepted", n_accepted)
@@ -744,6 +863,14 @@ class InferenceEngine:
                                     100.0 * n_accepted / n_proposed)
             telemetry.observe("serving", "spec_tokens_per_step",
                               n_tokens / b)
+        if cost:
+            telemetry.set_gauge("serving", "decode_signatures",
+                                cost["signatures"])
+        # memory peaks need only periodic samples: every 8th iteration
+        # (and the first, so short runs still record a peak)
+        self._hbm_tick += 1
+        if compute.enabled() and (self._hbm_tick - 1) % 8 == 0:
+            compute.sample_hbm()
         # the per-iteration record (batch composition, queue depth, KV
         # pressure: the /requests load signal), then a throttled SLO
         # evaluation on fresh evidence

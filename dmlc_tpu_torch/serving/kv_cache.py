@@ -11,11 +11,14 @@ blocks.  Pool layout is the reference's, layer-major:
 The data plane differs: the reference keeps a host (numpy) mirror plus a
 device twin it re-uploads block by block (:427-478); here the pools live
 ONLY on the device.  A prefill writes its K/V into them with an in-place
-indexed assignment (:meth:`write`), a decode step scatters its window in
-place inside the model's forward, and the cache then only advances the
-committed lengths (:meth:`advance_many`).  The gather view and its mesh
-placement (``gather``/``shard_gathered``) serve the sharded route and
-come with it in a later slice.
+indexed assignment (:meth:`write`).  On the paged decode path the step
+scatters its window in place inside the model's forward, and the cache
+then only advances the committed lengths (:meth:`advance_many`); on the
+gather path (``DMLC_SERVE_PAGED_ATTN=off``) :meth:`gather` builds the
+dense view on the device with one indexed read per pool and the engine
+writes each row's committed prefix back (:meth:`write_many`).
+``shard_gathered`` places nothing: a cache with a mesh raises (sharded
+serving is ROADMAP.md Queue 1 item 11).
 
 Thread-safety: bookkeeping is lock-protected; the data plane assumes the
 engine's single step thread.
@@ -96,12 +99,14 @@ class PagedKVCache:
 
     def __init__(self, n_layers: int, n_heads: int, head_dim: int, *,
                  n_blocks: int = 256, block_size: int = 16,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 mesh=None):
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         self.n_layers = int(n_layers)
         self.n_blocks = int(n_blocks)
         self.block_size = int(block_size)
+        self.mesh = mesh
         self.device = resolve_device(device)
         shape = (self.n_layers, self.n_blocks, self.block_size, int(n_heads),
                  int(head_dim))
@@ -226,6 +231,27 @@ class PagedKVCache:
         self.k_pool[:, blk, slot] = k.to(self.k_pool.dtype)
         self.v_pool[:, blk, slot] = v.to(self.v_pool.dtype)
 
+    def write_many(self, items: Sequence[Tuple[int, torch.Tensor,
+                                               torch.Tensor]]) -> None:
+        """:meth:`write` for several sequences at their current lengths
+        (``(seq_id, k, v)`` with k/v ``[L, T_i, H, D]``), one indexed
+        assignment per pool for all of them (:462-478)."""
+        if not items:
+            return
+        blks, slots = [], []
+        for seq_id, k, _ in items:
+            blocks, pos = self._reserve(seq_id, k.shape[1], None)
+            p = torch.arange(pos, pos + k.shape[1])
+            blks.append(torch.tensor(blocks, dtype=torch.long)
+                        [p // self.block_size])
+            slots.append(p % self.block_size)
+        blk = torch.cat(blks).to(self.device)
+        slot = torch.cat(slots).to(self.device)
+        self.k_pool[:, blk, slot] = torch.cat(
+            [k for _, k, _ in items], dim=1).to(self.k_pool.dtype)
+        self.v_pool[:, blk, slot] = torch.cat(
+            [v for _, _, v in items], dim=1).to(self.v_pool.dtype)
+
     def advance_many(self, counts: Sequence[Tuple[int, int]]) -> None:
         """Commit ``n`` tokens per ``(seq_id, n)`` whose K/V the decode
         step already scattered into the pools: bookkeeping only."""
@@ -247,6 +273,63 @@ class PagedKVCache:
             out[i, :len(t)] = torch.tensor(t, dtype=torch.int32)
         return (out.to(self.device),
                 torch.tensor(lens, dtype=torch.int32).to(self.device))
+
+    def gather(self, seq_ids: Sequence[int], *, pad_len: Optional[int] = None,
+               pad_batch: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Dense padded view for a decode batch (:530-571), on the pools'
+        device: ``(k, v, lengths)`` with k/v ``[L, B, T, H, D]`` and
+        lengths ``[B] int32``.  ``T`` is ``pad_len`` or the longest
+        length rounded up to a whole block (one block at least); ``B``
+        is ``pad_batch`` or ``len(seq_ids)``, extra rows zero with
+        length 0.  Whole blocks are copied by one indexed read per pool,
+        so slots in [length, T) hold whatever their block holds; blocks
+        past a row's length are zero."""
+        with self._lock:
+            ents = [self._seq(s) for s in seq_ids]
+            tables = [list(e.blocks) for e in ents]
+            lens = [e.length for e in ents]
+        bs = self.block_size
+        need = max(self.blocks_for(max(lens, default=0)) * bs, bs)
+        if pad_len is not None:
+            # an explicit pad_len pins the view's shape; widening it
+            # silently would defeat that, so insufficiency is loud
+            if pad_len % bs:
+                raise ValueError(f"pad_len {pad_len} not a multiple of "
+                                 f"block_size {bs}")
+            if pad_len < need:
+                raise ValueError(f"pad_len {pad_len} < required {need}")
+            need = pad_len
+        b = max(pad_batch or 0, len(seq_ids))
+        nb = need // bs
+        idx = torch.zeros((b, nb), dtype=torch.long)
+        valid = torch.zeros((b, nb), dtype=torch.bool)
+        for i, (table, n) in enumerate(zip(tables, lens)):
+            used = self.blocks_for(n)
+            idx[i, :used] = torch.tensor(table[:used], dtype=torch.long)
+            valid[i, :used] = True
+        idx, valid = idx.to(self.device), valid.to(self.device)
+        lengths = torch.zeros(b, dtype=torch.int32)
+        lengths[:len(lens)] = torch.tensor(lens, dtype=torch.int32)
+
+        def dense(pool: torch.Tensor) -> torch.Tensor:
+            out = pool[:, idx]                       # [L, B, nb, bs, H, D]
+            out.masked_fill_(~valid[None, :, :, None, None, None], 0)
+            return out.reshape(self.n_layers, b, need, *pool.shape[3:])
+
+        return (dense(self.k_pool), dense(self.v_pool),
+                lengths.to(self.device))
+
+    def shard_gathered(self, k: torch.Tensor, v: torch.Tensor):
+        """Place a gathered view over the cache's mesh (:573-593).  With
+        no mesh it is the input, unchanged; a mesh raises: the port
+        serves on one card, and sharded serving over
+        ``torch.distributed`` is ROADMAP.md Queue 1 item 11."""
+        if self.mesh is None:
+            return k, v
+        raise DMLCError("a gathered KV view cannot be placed over a mesh "
+                        "yet: sharded serving is ROADMAP.md Queue 1 "
+                        "item 11")
 
     # ---- observability --------------------------------------------------
     def stats(self) -> Dict[str, float]:

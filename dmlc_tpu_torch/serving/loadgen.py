@@ -24,9 +24,8 @@ engine), not smeared by client-side HTTP overhead.  ``emit_bench``
 joins it with the engine's own views, the decode step ledger
 (``/healthz``) and the request ledger (``/requests``: queue wait, TBT
 — the inter-token gap — percentiles, preemption rate, KV occupancy),
-into one JSON file.  The JAX package's ``/compute`` keys (recompiles,
-memory peak, the roofline verdict) are not joined: the port has no
-compute telemetry yet (ROADMAP.md Queue 1 item 9).
+and the compute ledger (``/compute``: recompiles, memory peak, the
+roofline verdict) into one JSON file.
 
 **Multi-tenant mode**: pass ``tenants=[{"tenant": "paid", "streams":
 4, "priority": "interactive"}, ...]`` and each stream carries its
@@ -332,8 +331,9 @@ class LoadGenerator:
         """Join the client summary with the server-side views — the
         decode step ledger (/healthz) and the request ledger
         (/requests: queue-wait/TBT percentiles, preemption rate, KV
-        occupancy) and the active SLO violations (/slo) — and write
-        them as one JSON line to ``path``; returns the document."""
+        occupancy), the active SLO violations (/slo) and the compute
+        ledger (/compute) — and write them as one JSON line to
+        ``path``; returns the document."""
         ledger = self.healthz().get("ledger", {}) or {}
         doc = dict(summary)
         doc["decode_mfu"] = ledger.get("mfu")
@@ -358,6 +358,19 @@ class LoadGenerator:
         doc["kv_waste_tokens"] = reqs.get("kv_waste_tokens")
         slo = self._fetch_optional("/slo")
         doc["slo_active"] = slo.get("active", [])
+        # the compute ledger's headline keys: the decode roofline,
+        # recompiles, the memory peak
+        comp = self._fetch_optional("/compute")
+        roof = comp.get("roofline", {}) or {}
+        doc["decode_membw_util"] = (ledger.get("membw_util")
+                                    if ledger.get("membw_util") is not None
+                                    else roof.get("membw_util"))
+        doc["decode_bound"] = (ledger.get("bound")
+                               if ledger.get("bound") is not None
+                               else roof.get("bound"))
+        doc["recompiles"] = comp.get("recompiles_total")
+        doc["hbm_peak_bytes"] = (comp.get("hbm", {}) or {}).get(
+            "peak_bytes")
         if extra:
             doc.update(extra)
         with open(path, "w") as f:

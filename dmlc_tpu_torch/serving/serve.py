@@ -3,8 +3,8 @@
 Builds the model (random weights from ``--seed``), the paged KV cache
 and the continuous-batching engine on the CUDA card, then serves
 POST /generate and the telemetry endpoints (/metrics, /healthz,
-/requests, /slo, /goodput, /trace, /spans) until interrupted.  SIGTERM
-drains: new requests get 503 + Retry-After, in-flight ones finish
+/requests, /slo, /goodput, /compute, /trace, /spans) until interrupted.
+SIGTERM drains: new requests get 503 + Retry-After, in-flight ones finish
 within ``DMLC_SERVE_DRAIN_S``, then the process exits.  Capacity knobs
 come from the ``DMLC_SERVE_*`` environment family and SLOs from
 ``DMLC_SLO_*``, as in the JAX package's ``bin/dmlc-serve``.

@@ -23,7 +23,8 @@ Endpoints:
                    carries the trace context (DMLC_TRACE_FLEET)
   GET  /metrics    Prometheus exposition: the registry (serving, feed,
                    checkpoint and the step ledger's ``step`` families)
-                   plus the hand-rendered ``dmlc_slo_*`` and
+                   plus the hand-rendered ``dmlc_slo_*``,
+                   ``dmlc_compute_*`` (per site) and
                    ``dmlc_availability_*`` families
   GET  /healthz    ``{"status": "ok", **engine.stats()}``: queues, KV
                    pool, counters, launches, ledger + request summaries
@@ -32,6 +33,9 @@ Endpoints:
                    requests, decode-iteration ring
   GET  /slo        SLO burn-rate document; the GET forces an evaluation
   GET  /goodput    the availability ledger's report
+  GET  /compute    the compute ledger (``telemetry.compute.report``):
+                   sites, traces, recompiles, each site's counted cost,
+                   card memory, decode phase shares, the step roofline
   GET  /trace      this replica's Chrome trace: engine threads, one row
                    per request, SLO violations as instant markers
   GET  /spans      incremental span export (``?since=N&limit=M`` →
@@ -39,8 +43,7 @@ Endpoints:
 
 Every /generate response increments a per-status-code counter
 (``dmlc_serving_http_<code>``); a POST to an unknown path counts as
-``http_404``, a GET 404 is not counted.  The reference's ``/compute``
-(cost analysis, memory samples) is ROADMAP.md Queue 1 item 9.
+``http_404``, a GET 404 is not counted.
 """
 
 from __future__ import annotations
@@ -152,6 +155,7 @@ class ServingHTTPServer:
                 if path == "/metrics":
                     text = (telemetry.to_prometheus_text()
                             + eng.slo.prometheus_text()
+                            + telemetry.compute.prometheus_text()
                             + eng.availability.prometheus_text())
                     self._send(200,
                                "text/plain; version=0.0.4; charset=utf-8",
@@ -160,6 +164,8 @@ class ServingHTTPServer:
                     self._send_json(200, {"status": "ok", **eng.stats()})
                 elif path == "/goodput":
                     self._send_json(200, eng.availability.report())
+                elif path == "/compute":
+                    self._send_json(200, telemetry.compute.report())
                 elif path == "/requests":
                     self._send_json(200, eng.requests.report())
                 elif path == "/slo":

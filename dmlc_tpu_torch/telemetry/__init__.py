@@ -29,9 +29,14 @@ generator read either package).
   * ``postmortem``   crash dumps (snapshot + open/last spans + event
                      tail) that the launcher collects after a failure
 
-Left for later (ROADMAP.md Queue 1 item 9): ``compute`` (cost analysis
-and memory samples), the anomaly watchdog, the flight recorder,
-forensics, the decision log and the fleet trace store.
+  * ``compute``      the site ledger (traces, hits, recompiles, storms),
+                     each site's counted FLOPs and bytes (the step's
+                     roofline), card memory samples and decode phase
+                     shares, behind /compute (``profiled_site``)
+
+Left for later (ROADMAP.md Queue 1 items 9a and 9c): the anomaly
+watchdog, the flight recorder, forensics, the decision log and the
+fleet trace store.
 
 Typical use::
 
@@ -45,6 +50,7 @@ Typical use::
 
 from . import (  # noqa: F401
     clock,
+    compute,
     core,
     events,
     exporters,
@@ -57,6 +63,7 @@ from . import (  # noqa: F401
     tracecontext,
 )
 from .clock import ClockOffsetEstimator, offset_from_timestamps  # noqa: F401
+from .compute import profiled_site  # noqa: F401
 from .core import (  # noqa: F401
     DEFAULT_BOUNDS,
     Histogram,
@@ -143,6 +150,7 @@ __all__ = [
     "observe_duration",
     "offset_from_timestamps",
     "open_spans",
+    "profiled_site",
     "record_event",
     "record_span",
     "reset",

@@ -362,8 +362,9 @@ class TelemetryHTTPServer:
     ``goodput_source`` (zero-arg callable, e.g.
     ``GoodputAggregator.report``) enables ``GET /goodput``: the cluster
     wall-clock decomposition.  The JAX server's ``/trace``,
-    ``/anomalies``, ``/compute`` and ``/incidents`` wait for their
-    sources (ROADMAP.md Queue 1 items 9a-9b)."""
+    ``/anomalies``, ``/compute`` (the watchdog's view of the beats'
+    ``compute`` field) and ``/incidents`` wait for their sources
+    (ROADMAP.md Queue 1 item 9a)."""
 
     def __init__(self, aggregator: TelemetryAggregator,
                  host: str = "127.0.0.1", port: int = 0,
@@ -519,9 +520,7 @@ class HeartbeatSender:
         # self-heal remediation status (resilience.selfheal): a few
         # scalar fields riding every beat once a guard has acted, so
         # the tracker watchdog can show WHAT the worker did about a
-        # flagged step (the /anomalies `remediation` field).  The JAX
-        # worker's beat also carries `compute` (ROADMAP.md Queue 1 item
-        # 9b); the port has none yet
+        # flagged step (the /anomalies `remediation` field)
         from ..resilience import selfheal
 
         sh = selfheal.status()
@@ -536,6 +535,14 @@ class HeartbeatSender:
         slo_doc = slo_mod.status()
         if slo_doc:
             doc["slo"] = slo_doc
+        # compute ledger status (telemetry.compute): trace/recompile
+        # totals, the recompile-storm verdict and the headline memory
+        # gauges — the tracker watchdog's recompile_storm signal
+        from . import compute as compute_mod
+
+        compute_doc = compute_mod.status()
+        if compute_doc:
+            doc["compute"] = compute_doc
         # goodput ledger status (telemetry.goodput): the wall-clock
         # decomposition, cumulative per-bucket seconds re-shipped fully
         # every beat (self-correcting across drops/remaps), the recent

@@ -326,10 +326,10 @@ class StepLedger:
         """Close the open step and append its record; returns it (None
         when no step was open).  ``tokens``/``flops``/``bytes_fed``
         default to declared-FLOPs × tokens and the feed-counter delta.
-        ``bytes_accessed`` (bytes the step moves, from a cost analysis;
-        the port's callers have none yet, ROADMAP.md Queue 1 item 9b)
-        adds the bandwidth half of the roofline: ``membw_util`` and the
-        ``bound`` verdict.
+        ``bytes_accessed`` (bytes the step moves, from the cost pass of
+        its site, ``telemetry.compute``; the train step and the serving
+        engine pass it) adds the bandwidth half of the roofline:
+        ``membw_util`` and the ``bound`` verdict.
         ``tokens_per_step`` (committed tokens per batch row — > 1 only
         when speculative decoding lands drafts) and
         ``spec_accept_rate`` (accepted / proposed drafts in [0, 1])
@@ -609,6 +609,30 @@ class StepLedger:
                if r.get("spec_accept_rate") is not None]
         out["spec_accept_rate"] = sum(acc) / len(acc) if acc else None
         return out
+
+    def roofline_summary(self) -> Dict:
+        """The roofline view /compute reports: resolved peaks + the
+        window's utilization figures and latest bound verdict."""
+        recs = self.records()
+        with self._lock:
+            dtype = self._dtype
+        latest = next((r for r in reversed(recs)
+                       if r.get("flops") and r.get("bytes_accessed")),
+                      None)
+        mfus = [r["mfu"] for r in recs if r.get("mfu") is not None]
+        mbs = [r["membw_util"] for r in recs
+               if r.get("membw_util") is not None]
+        return {
+            "dtype": dtype,
+            "peak_flops": self.peak_flops(),
+            "peak_membw_bytes_per_s": self.peak_membw(),
+            "mfu": sum(mfus) / len(mfus) if mfus else None,
+            "membw_util": sum(mbs) / len(mbs) if mbs else None,
+            "intensity": (latest["flops"] / latest["bytes_accessed"])
+            if latest else None,
+            "bound": next((r["bound"] for r in reversed(recs)
+                           if r.get("bound") is not None), None),
+        }
 
     def reset(self) -> None:
         with self._lock:
