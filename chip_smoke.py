@@ -125,7 +125,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
             step 21: 2 skips, a rollback, the replay) equal to it, a run
             with one transient skip and a drift run (that skip, then a
             rollback) equal to it, having replayed the 21 batches
-            snapshotted at the commit; the ``dmlc_selfheal_*`` counters
+            snapshotted at the commit; the ``dmlc_selfheal_*`` counters;
+            then the faulted run again under a port ``RabitTracker`` at
+            world 1 (``DMLC_ELASTIC=1``, in this process), held to the
+            oracle the same way, the tracker's ``/anomalies`` showing
+            rank 0's remediation (``rollback``, 2 skips, 1 rollback)
    elastic  the port's elastic LM trainer under ``build/elastic``
             (removed after): the flagship's widths at depth 2 (243M
             params, bf16, ``save_flash``, seed 0) on ``make_data``'s
@@ -144,13 +148,30 @@ Phases, each printing one JSON line (any failure exits non-zero):
             evaluation on every rank, /goodput's per-rank and cluster
             buckets summing to wall within 2% with ``resize`` and
             ``checkpoint_restore`` non-zero and ``unattributed`` under
-            10%, no process or ``/dev/shm/dmlc*`` segment left.  Numbers:
-            step p50 at world 3, 2 and 3, the ledger's collective and
-            feed-wait shares, kill → first step after the resync and
-            /resize → first step at world 3, each state broadcast's
-            bytes and seconds and rank 0's restore, every goodput
-            bucket's fraction per rank; job logs in
-            ``chiprun_out/elastic_*.log``
+            10%, no process or ``/dev/shm/dmlc*`` segment left.  The
+            tracker's endpoints are read once a second through the job
+            (an error status fails the smoke); gates on the last good
+            reading: ``/trace`` a row per shipping rank (pid = rank +
+            1) and the tracker's at pid 0, a ``step`` span of every live
+            rank, spans in the order they ended within a (pid, thread);
+            ``/anomalies`` every live rank with steps and a finite
+            positive step time, every flag's kind a watchdog kind;
+            ``/compute`` every live rank traced (its own ledger naming
+            ``train.step``), no storm; ``/incidents`` an incident of the
+            kill (its window, reached back by the shm wait the survivors
+            take to see the death plus 2 s, holds the kill's wall time)
+            with ``resize`` or ``preempted`` badput and the
+            ``world_resized`` event; ``/metrics`` valid exposition text
+            with every family registered.  Numbers: step p50 at world
+            3, 2 and 3, the ledger's collective and feed-wait shares,
+            kill → first step after the resync and /resize → first step
+            at world 3, each state broadcast's bytes and seconds and
+            rank 0's restore, every goodput bucket's fraction per rank;
+            spans held per rank, ``/trace``'s bytes and read ms, the
+            flags and verdicts against the kill time, the incidents'
+            windows and buckets (``tracker``); job logs in
+            ``chiprun_out/elastic_*.log``, the tracker's last documents
+            in ``chiprun_out/elastic_tracker_docs.json``
    mesh     the sharded flagship over ``torch.distributed`` (under
             ``build/mesh``, removed after): first K1 alone at the mesh
             train step's ring-step shape (B=2, T_local=2048, 8 heads,
@@ -2800,11 +2821,17 @@ def selfheal_phase(fa):
     poisoned steps at step 25, whose rollback replays the 21 batches
     snapshotted at the step-20 commit and so equals the transient run.
     Trajectories are held bit-equal where they are, else within 1e-6
-    relative; the ``dmlc_selfheal_*`` counters are read per run."""
+    relative; the ``dmlc_selfheal_*`` counters are read per run.  Then
+    the faulted run once more under a port tracker at world 1
+    (``DMLC_ELASTIC=1``, the trainer's elastic mode, in this process):
+    its trajectory held to the oracle's the same way, and the tracker's
+    ``/anomalies`` showing rank 0's remediation (2 skips, the
+    rollback)."""
     from dmlc_tpu_torch import telemetry as tele
     from dmlc_tpu_torch.examples import train_lm_recordio as ex
     from dmlc_tpu_torch.resilience import (install_injector, reset_injector,
                                            reset_selfheal)
+    from dmlc_tpu_torch.tracker import RabitTracker
     import contextlib
     import io
 
@@ -2817,7 +2844,7 @@ def selfheal_phase(fa):
     kernels = (fa.FLASH_FWD, fa.FLASH_BWD_DKV, fa.FLASH_BWD_DQ)
     os.environ["DMLC_SELFHEAL_MAX_SKIPS"] = "2"
 
-    def run(tag, spec):
+    def run(tag, spec, env=None):
         reset_injector()
         reset_selfheal()
         if spec:
@@ -2825,6 +2852,7 @@ def selfheal_phase(fa):
         c0 = [tele.core.counter_value("selfheal", n) for n in names]
         k0 = [k.launches for k in kernels]
         buf = io.StringIO()
+        os.environ.update(env or {})
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(buf):
@@ -2833,11 +2861,33 @@ def selfheal_phase(fa):
                                 device="cuda")
         finally:
             reset_injector()
+            for key in env or {}:
+                os.environ.pop(key, None)
         return {"losses": losses, "out": buf.getvalue(),
                 "wall_s": time.perf_counter() - t0,
                 "counters": {n: tele.core.counter_value("selfheal", n) - c
                              for n, c in zip(names, c0)},
                 "launches": [k.launches - n for k, n in zip(kernels, k0)]}
+
+    def tracked(spec):
+        """The run under a port tracker at world 1 (the JAX integrity
+        smoke's setup); its ``/anomalies`` and ``/metrics`` read after
+        the trainer's last beat."""
+        tracker = RabitTracker("127.0.0.1", 1, metrics_port=0, elastic=True)
+        tracker.start(1)
+        base = f"http://127.0.0.1:{tracker.metrics_port}"
+        try:
+            r = run("tracked", spec, {
+                "DMLC_ELASTIC": "1", "DMLC_TRACKER_URI": "127.0.0.1",
+                "DMLC_TRACKER_PORT": str(tracker.port), "DMLC_TASK_ID": "0"})
+            r["anomalies"] = json.loads(urllib.request.urlopen(
+                base + "/anomalies", timeout=30).read())
+            r["metrics"] = urllib.request.urlopen(
+                base + "/metrics", timeout=30).read().decode()
+            tracker.join(timeout=60)
+        finally:
+            tracker.close()
+        return r
 
     try:
         runs = {"oracle": run("oracle", None),
@@ -2846,7 +2896,8 @@ def selfheal_phase(fa):
                 "transient": run("transient",
                                  "selfheal.loss@step:15=corrupt::1"),
                 "drift": run("drift", "selfheal.loss@step:15=corrupt::1;"
-                                      "selfheal.loss@step:25=corrupt::3")}
+                                      "selfheal.loss@step:25=corrupt::3"),
+                "tracked": tracked("selfheal.loss@step:21=corrupt::3")}
     finally:
         os.environ.pop("DMLC_SELFHEAL_MAX_SKIPS", None)
         shutil.rmtree(root, ignore_errors=True)
@@ -2860,7 +2911,12 @@ def selfheal_phase(fa):
           in f["out"], f"faulted run: {f['out'][-2000:]}")
     check("rolled back to committed step 20; replaying 21 batches"
           in d["out"], f"drift run: {d['out'][-2000:]}")
+    check(re.search(r"rolled back to committed step 20 \(rank 0\)",
+                    runs["tracked"]["out"])
+          and "replaying 20 batches" in runs["tracked"]["out"],
+          f"tracked run: {runs['tracked']['out'][-2000:]}")
     want = {"faulted": {"skips": 2, "rollbacks": 1, "nonfinite_steps": 3},
+            "tracked": {"skips": 2, "rollbacks": 1, "nonfinite_steps": 3},
             "transient": {"skips": 1, "rollbacks": 0, "nonfinite_steps": 1},
             "drift": {"skips": 3, "rollbacks": 1, "nonfinite_steps": 4}}
     for tag, counts in want.items():
@@ -2868,12 +2924,24 @@ def selfheal_phase(fa):
               f"{tag} counters {runs[tag]['counters']}, want {counts}")
     doc = {"phase": "selfheal", "steps": SELFHEAL_STEPS,
            "oracle_losses": o["losses"]}
-    for tag, ref in (("faulted", o), ("drift", t)):
+    for tag, ref in (("faulted", o), ("drift", t), ("tracked", o)):
         bits, rel = _same_trajectory(runs[tag]["losses"], ref["losses"])
         check(bits or rel <= SELFHEAL_RTOL,
               f"{tag} trajectory off by {rel}: {runs[tag]['losses']}")
         doc[f"{tag}_bit_equal"] = bits
         doc[f"{tag}_max_rel_diff"] = rel
+    # the tracker saw what the guard did (scripts/integrity_smoke.py's
+    # gate on the JAX tracker)
+    rank0 = runs["tracked"]["anomalies"].get("ranks", {}).get("0", {})
+    remed = rank0.get("remediation") or {}
+    check(remed.get("last_action") == "rollback"
+          and remed.get("skips") == 2 and remed.get("rollbacks") == 1,
+          f"tracked run: /anomalies remediation {remed}")
+    check(rank0.get("steps", 0) > 0,
+          f"tracked run: /anomalies rank 0 {rank0}")
+    doc["tracked_remediation"] = remed
+    doc["tracked_anomalies_rank0"] = {
+        k: rank0.get(k) for k in ("steps", "step_time_s", "flags")}
     for tag, r in runs.items():
         check(all(n > 0 for n in r["launches"]),
               f"{tag}: K1-K3 launches {r['launches']}")
@@ -2968,7 +3036,7 @@ def elastic_worker(argv) -> int:
     from dmlc_tpu_torch.examples import train_lm_recordio as ex
     from dmlc_tpu_torch.models import transformer as tfm
     from dmlc_tpu_torch.ops import flash_attention as fa
-    from dmlc_tpu_torch.telemetry import goodput
+    from dmlc_tpu_torch.telemetry import compute, goodput
 
     shard, steps, ckpt, out = argv[0], int(argv[1]), argv[2], argv[3]
     # a joiner is started early, so that its start overlaps the world-2
@@ -3035,7 +3103,11 @@ def elastic_worker(argv) -> int:
                  "loss_calls": calls[0],
                  "launches": {n: k.launches for n, k in kernels.items()},
                  "records": recs, "ledger": tele.ledger().summary(),
-                 "goodput": goodput.status(), "sha256": h.hexdigest()}, "w")
+                 "goodput": goodput.status(), "sha256": h.hexdigest(),
+                 "compute_sites": {
+                     site: st["traces"]
+                     for site, st in compute.report()["sites"].items()}},
+         "w")
     return 0
 
 
@@ -3046,13 +3118,166 @@ def _jsonl(path):
         return [json.loads(ln) for ln in f if ln.strip()]
 
 
-def _poll(cond, what, deadline, job):
+class TrackerPolls:
+    """The elastic job's tracker read once a second: the last good
+    reading of each endpoint, the wall time of each ``/trace`` read (the
+    render plus the localhost transfer) and its size, and every anomaly
+    flag seen active in any reading with its first ``since``.  A read
+    the server answers with an error status fails the smoke; a refused
+    connection is the tracker closing with the job's end."""
+
+    PATHS = ("/metrics", "/goodput", "/trace", "/anomalies", "/compute",
+             "/incidents")
+
+    def __init__(self, base):
+        self.base = base
+        self.last = {}
+        self.flags = {}          # (rank, kind) -> since
+        self.trace_reads = []    # (ms, bytes)
+        self._t = 0.0
+
+    def __call__(self):
+        if time.monotonic() - self._t < 1.0:
+            return
+        self._t = time.monotonic()
+        for path in self.PATHS:
+            t0 = time.perf_counter()
+            try:
+                body = urllib.request.urlopen(self.base + path,
+                                              timeout=10).read()
+            except urllib.error.HTTPError as e:
+                check(False, f"elastic: tracker {path} answered {e.code}")
+            except OSError:
+                return   # the tracker closes with the job's end
+            ms = (time.perf_counter() - t0) * 1e3
+            doc = body.decode() if path == "/metrics" else json.loads(body)
+            self.last[path] = doc
+            if path == "/trace":
+                self.trace_reads.append((ms, len(body)))
+            elif path == "/anomalies":
+                for a in doc["active"]:
+                    self.flags.setdefault((a["rank"], a["kind"]),
+                                          a.get("since"))
+
+
+def _poll(cond, what, deadline, job, tick=None):
     while not cond():
         check(job.poll() is None,
               f"elastic: the job ended ({job.returncode}) before {what} "
               f"(chiprun_out/elastic_job.log)")
         check(time.monotonic() < deadline, f"elastic: timed out: {what}")
+        if tick is not None:
+            tick()
         time.sleep(0.2)
+
+
+def tracker_docs_check(polls, docs, alive, t_kill, t_grow_done):
+    """The gates on the tracker's documents at the elastic job's last
+    good reading (``alive``: the final rank of each live task); returns
+    the numbers for the phase's line."""
+    from dmlc_tpu_torch.telemetry import anomaly
+    from dmlc_tpu_torch.telemetry.exporters import validate_exposition_text
+    from dmlc_tpu_torch.telemetry.metric_names import METRIC_NAMES
+
+    missing = [p for p in TrackerPolls.PATHS if p not in polls.last]
+    check(not missing, f"elastic: no good reading of {missing}")
+    trace, an = polls.last["/trace"], polls.last["/anomalies"]
+    comp, inc = polls.last["/compute"], polls.last["/incidents"]
+    # /trace: one process row per rank that shipped (pid = rank + 1) and
+    # the tracker's at pid 0; every live rank with trainer step spans;
+    # within a pid and thread, spans in the order they ended
+    rows = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"]
+            if e["ph"] == "M" and e["name"] == "process_name"}
+    spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    check(rows.get(0) == "tracker", f"elastic: /trace rows {rows}")
+    shipped = {e["pid"] for e in spans} - {0}
+    check(all(rows.get(p, "").startswith(f"rank {p - 1}") for p in shipped),
+          f"elastic: /trace rows {rows} for pids {sorted(shipped)}")
+    held = {}
+    for e in spans:
+        held[e["pid"]] = held.get(e["pid"], 0) + 1
+    for r in alive.values():
+        check(any(e["pid"] == r + 1 and e["name"] == "step" for e in spans),
+              f"elastic: /trace has no step span of rank {r}: {held}")
+    ends, backwards = {}, 0
+    for e in spans:
+        end, key = e["ts"] + e["dur"], (e["pid"], e["tid"])
+        if end < ends.get(key, end) - 0.01:   # 0.01 us: the ts rounding
+            backwards += 1
+        ends[key] = max(ends.get(key, end), end)
+    check(backwards == 0, f"elastic: {backwards} spans out of order")
+    # /anomalies: every live rank with steps and a step time; known kinds
+    kinds = set(anomaly.ANOMALY_KINDS + anomaly.SLO_KINDS
+                + anomaly.COMPUTE_KINDS + anomaly.FLEET_KINDS
+                + anomaly.GOODPUT_KINDS)
+    step_s = {}
+    for t, r in alive.items():
+        st = an["ranks"].get(str(r)) or {}
+        wall = st.get("step_time_s")
+        check(st.get("steps", 0) > 0 and isinstance(wall, float)
+              and math.isfinite(wall) and wall > 0,
+              f"elastic: /anomalies rank {r} {st}")
+        own = [rec["wall_s"] for rec in docs[t]["records"]
+               if rec["t_wall"] > t_grow_done]
+        step_s[str(r)] = {"steps": st["steps"], "step_time_s": wall,
+                          "ledger_p50_world3_again_s":
+                              median(own) if own else None}
+    seen = sorted(polls.flags.items())
+    check(all(k in kinds for (_, k), _s in seen)
+          and all(v["kind"] in kinds for v in an["recent_verdicts"]),
+          f"elastic: unknown anomaly kinds {seen}")
+    # /compute: every live rank's ledger shipped, its trainer's site
+    # traced (the worker's own ledger names it), no storm
+    for t, r in alive.items():
+        check((comp["ranks"].get(str(r)) or {}).get("traces", 0) >= 1
+              and docs[t]["compute_sites"].get("train.step", 0) >= 1,
+              f"elastic: /compute rank {r} {comp['ranks'].get(str(r))}, "
+              f"sites {docs[t]['compute_sites']}")
+    check(comp["storming_ranks"] == []
+          and not any(a["kind"] == "recompile_storm" for a in an["active"]),
+          f"elastic: recompile storm {comp['storming_ranks']}")
+    # /incidents: the shrink's episode.  The survivors bill ``resize``
+    # from the moment their collective gives up on the dead peer
+    # (DMLC_COLL_SHM_TIMEOUT_S after the kill), so its window, reached
+    # back by that wait and the reporter's 2 s margin, holds the kill
+    wait = float(ELASTIC_ENV["DMLC_COLL_SHM_TIMEOUT_S"]) + 2.0
+    shrink = [i for i in inc["incidents"]
+              if i["t0"] - wait <= t_kill <= i["t1"]]
+    check(any((i["buckets"].get("resize", 0) > 0
+               or i["buckets"].get("preempted", 0) > 0)
+              and any(e["kind"] == "world_resized" for e in i["events"])
+              for i in shrink),
+          f"elastic: no incident of the kill at {t_kill}: "
+          f"{[(i['t0'], i['t1'], i['buckets']) for i in inc['incidents']]}")
+    # /metrics: exposition text, every family registered
+    text = polls.last["/metrics"]
+    validate_exposition_text(text)
+    families = set(re.findall(r"^# TYPE (\S+) ", text, re.M))
+    check(families <= METRIC_NAMES,
+          f"elastic: unregistered families {families - METRIC_NAMES}")
+    ms, nbytes = polls.trace_reads[-1]
+    return {"spans_per_rank": {("tracker" if p == 0 else str(p - 1)): n
+                               for p, n in sorted(held.items())},
+            "trace_bytes": nbytes, "trace_read_ms": ms,
+            "trace_read_ms_max": max(m for m, _ in polls.trace_reads),
+            "trace_reads": len(polls.trace_reads),
+            "anomalies_ranks": step_s,
+            "flags_seen": [{"rank": r, "kind": k,
+                            "since_minus_kill_s":
+                                None if since is None else since - t_kill}
+                           for (r, k), since in seen],
+            "verdicts": [{"rank": v["rank"], "kind": v["kind"],
+                          "t_minus_kill_s": v["t"] - t_kill}
+                         for v in an["recent_verdicts"]],
+            "compute_ranks": comp["ranks"],
+            "incidents": [{"t0_minus_kill_s": i["t0"] - t_kill,
+                           "t1_minus_kill_s": i["t1"] - t_kill,
+                           "buckets": i["buckets"],
+                           "events": sorted({e["kind"]
+                                             for e in i["events"]}),
+                           "anomalies": i["anomalies"]}
+                          for i in inc["incidents"]],
+            "families": len(families)}
 
 
 def elastic_phase(smi):
@@ -3095,7 +3320,7 @@ def elastic_phase(smi):
         cwd=ROOT, env=env, stdout=job_log, stderr=subprocess.STDOUT,
         start_new_session=True)
     joiner = None
-    polls = {}
+    polls = TrackerPolls(base)
     try:
         def progress(task, after=0.0):
             doc = _jsonl(os.path.join(out, f"progress.{task}"))
@@ -3108,7 +3333,7 @@ def elastic_phase(smi):
         _poll(lambda: progress(2) >= ELASTIC_KILL_AT
               and os.path.exists(os.path.join(ckpt, "step_00000020",
                                               "manifest.json")),
-              "the first commit and the kill step", deadline, job)
+              "the first commit and the kill step", deadline, job, polls)
         victim = _jsonl(os.path.join(out, "pid.2"))[0]
         os.kill(victim["pid"], 9)
         t_kill = time.time()
@@ -3122,10 +3347,10 @@ def elastic_phase(smi):
                      DMLC_TRACKER_PORT=victim["port"], DMLC_ROLE="worker"),
             start_new_session=True)
         _poll(lambda: synced(0, 2) and synced(1, 2), "the shrink", deadline,
-              job)
+              job, polls)
         t_shrunk = time.time()
         _poll(lambda: progress(0, synced(0, 2)[0]) >= ELASTIC_GROW_AT,
-              "steps at world 2", deadline, job)
+              "steps at world 2", deadline, job, polls)
         req = urllib.request.Request(
             base + "/resize", data=json.dumps({"world": 3}).encode(),
             headers={"Content-Type": "application/json"})
@@ -3138,14 +3363,8 @@ def elastic_phase(smi):
             check(joiner.poll() in (None, 0),
                   f"elastic: the joiner exited {joiner.returncode} "
                   f"(chiprun_out/elastic_joiner.log)")
-            try:
-                polls["metrics"] = urllib.request.urlopen(
-                    base + "/metrics", timeout=10).read().decode()
-                polls["goodput"] = json.loads(urllib.request.urlopen(
-                    base + "/goodput", timeout=10).read())
-            except (OSError, ValueError):
-                pass   # the tracker closes with the job's end
-            time.sleep(1.0)
+            polls()
+            time.sleep(0.2)
     finally:
         for proc in (job, joiner):
             if proc is not None and proc.poll() is None:
@@ -3179,7 +3398,8 @@ def elastic_phase(smi):
     check([s["world"] for s in docs[3]["syncs"]] == [3],
           f"elastic: joiner syncs {docs[3]['syncs']}")
     m = re.search(r'^dmlc_elastic_resizes_total\{rank="tracker"\} '
-                  r'([0-9.eE+-]+)$', polls.get("metrics", ""), re.MULTILINE)
+                  r'([0-9.eE+-]+)$', polls.last.get("/metrics", ""),
+                  re.MULTILINE)
     check(m is not None and float(m.group(1)) >= 2,
           f"elastic: /metrics resizes {m and m.group(1)}")
     # every step's loss is one allreduced value on every rank that took it
@@ -3203,7 +3423,7 @@ def elastic_phase(smi):
               f"elastic: task {t} launches {d['launches']} for "
               f"{d['loss_calls']} loss evaluations")
     # goodput: every second named, the episode attributed
-    good = polls.get("goodput") or {}
+    good = polls.last.get("/goodput") or {}
     cl = good.get("cluster", {})
     check(good.get("per_rank"), f"elastic: /goodput empty {good}")
     for doc in list(good["per_rank"].values()) + [cl]:
@@ -3230,6 +3450,15 @@ def elastic_phase(smi):
         for name, at in (("shrink", shrink_done), ("grow", grow_done))}
     restores = [s for d in docs.values() for s in d["syncs"]
                 if s["rank"] == 0]
+    with open(os.path.join(logs, "elastic_tracker_docs.json"), "w") as f:
+        json.dump({"t_kill": t_kill, "flags": sorted(
+            [list(k), v] for k, v in polls.flags.items()),
+            "trace_reads": polls.trace_reads,
+            **{p: polls.last.get(p) for p in TrackerPolls.PATHS
+               if p != "/trace"}}, f)
+    tracker_doc = tracker_docs_check(
+        polls, docs, {t: d["syncs"][-1]["rank"] for t, d in docs.items()},
+        t_kill, grow_done)
     led = docs[0]["ledger"]
     doc = {"phase": "elastic", "card": smi, "model": "flagship",
            "n_layers": cfg.n_layers, "params": tfm.count_params(cfg),
@@ -3258,6 +3487,7 @@ def elastic_phase(smi):
                r: {b: v / d["wall_s"] for b, v in d["buckets"].items()}
                for r, d in good["per_rank"].items()},
            "goodput_cluster_fractions": cl["fractions"],
+           "tracker": tracker_doc,
            "losses_first_last": [losses[0], losses[-1]],
            "launches": {n: sum(d["launches"][n] for d in docs.values())
                         for n in docs[0]["launches"]},

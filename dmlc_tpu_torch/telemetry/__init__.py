@@ -21,11 +21,20 @@ generator read either package).
                      clock in one bucket per instant, shipped with
                      heartbeats), its tracker-side aggregator behind
                      /goodput, and the serving availability ledger
-  * ``tracecontext`` the X-DMLC-Trace header helpers
+  * ``tracecontext`` the X-DMLC-Trace header helpers and the decision
+                     audit log (``DecisionLog``, ``record_decision``)
   * ``heartbeat``    worker heartbeats over the rendezvous protocol,
                      the tracker-side aggregator (/metrics, /healthz,
                      straggler flags) and its HTTP server
   * ``clock``        NTP-style per-rank clock-offset estimation
+  * ``flight``       the tracker's flight recorder: per-rank span
+                     stores and the merged, clock-corrected /trace
+  * ``anomaly``      the tracker's online watchdog over shipped step
+                     records and status docs (/anomalies, /compute,
+                     ``dmlc_anomaly_*``)
+  * ``forensics``    incidents: badput episodes joined with decisions,
+                     events and anomaly flags (/incidents)
+  * ``metric_names`` the registry of every ``dmlc_*`` metric family
   * ``postmortem``   crash dumps (snapshot + open/last spans + event
                      tail) that the launcher collects after a failure
 
@@ -34,9 +43,7 @@ generator read either package).
                      roofline), card memory samples and decode phase
                      shares, behind /compute (``profiled_site``)
 
-Left for later (ROADMAP.md Queue 1 items 9a and 9c): the anomaly
-watchdog, the flight recorder, forensics, the decision log and the
-fleet trace store.
+Left for later (ROADMAP.md Queue 1 item 9c): the fleet trace store.
 
 Typical use::
 
@@ -49,19 +56,24 @@ Typical use::
 """
 
 from . import (  # noqa: F401
+    anomaly,
     clock,
     compute,
     core,
     events,
     exporters,
+    flight,
+    forensics,
     goodput,
     heartbeat,
+    metric_names,
     postmortem,
     requests,
     slo,
     steps,
     tracecontext,
 )
+from .anomaly import Watchdog  # noqa: F401
 from .clock import ClockOffsetEstimator, offset_from_timestamps  # noqa: F401
 from .compute import profiled_site  # noqa: F401
 from .core import (  # noqa: F401
@@ -89,6 +101,11 @@ from .events import (  # noqa: F401
     record_event,
     reset_events,
 )
+from .flight import FlightRecorder  # noqa: F401
+from .forensics import (  # noqa: F401
+    IncidentReporter,
+    build_incidents,
+)
 from .exporters import (  # noqa: F401
     export_json,
     to_chrome_trace,
@@ -107,6 +124,11 @@ from .heartbeat import (  # noqa: F401
     TelemetryHTTPServer,
 )
 from .requests import RequestLedger  # noqa: F401
+from .tracecontext import (  # noqa: F401
+    DecisionLog,
+    decision_log,
+    record_decision,
+)
 from .slo import SLOMonitor  # noqa: F401
 from .steps import (  # noqa: F401
     StepLedger,
@@ -125,18 +147,24 @@ __all__ = [
     "AvailabilityLedger",
     "ClockOffsetEstimator",
     "DEFAULT_BOUNDS",
+    "DecisionLog",
+    "FlightRecorder",
     "GoodputAggregator",
     "GoodputLedger",
     "HeartbeatSender",
     "Histogram",
+    "IncidentReporter",
     "RequestLedger",
     "SLOMonitor",
     "StepLedger",
     "TelemetryAggregator",
     "TelemetryHTTPServer",
+    "Watchdog",
     "anchor_epoch",
     "annotate",
+    "build_incidents",
     "counters_snapshot",
+    "decision_log",
     "declare_dtype",
     "declare_flops_per_token",
     "declare_peak_flops",
@@ -151,6 +179,7 @@ __all__ = [
     "offset_from_timestamps",
     "open_spans",
     "profiled_site",
+    "record_decision",
     "record_event",
     "record_span",
     "reset",

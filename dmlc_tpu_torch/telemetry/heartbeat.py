@@ -12,6 +12,10 @@ HTTP endpoint:
                    plus cluster-merged families (``rank="all"``)
     GET /healthz   JSON: rank count, per-rank heartbeat age
 
+and, where the tracker binds their sources, the merged /trace, the
+watchdog's /anomalies and /compute, /goodput and /incidents
+(:class:`TelemetryHTTPServer`).
+
 Straggler flagging: for the configured histogram keys (feed stalls,
 step time by default), a rank whose p90 exceeds a configurable multiple
 of the cluster median is reported through ``logging.warning`` — once
@@ -353,23 +357,45 @@ class TelemetryAggregator:
 
 
 class TelemetryHTTPServer:
-    """Lightweight /metrics + /healthz (+ /goodput, POST /resize) surface.
+    """Lightweight /metrics + /healthz (+ /trace, /anomalies, /compute,
+    /goodput, /incidents, POST /resize) surface.
 
-    ``resize_handler`` (a callable taking the parsed JSON body, returning
-    a JSON-able dict) enables ``POST /resize`` — the elastic tracker's
-    operator scale-up endpoint; a ``ValueError`` from the handler maps to
-    400, a ``RuntimeError`` (e.g. tracker not elastic) to 409.
-    ``goodput_source`` (zero-arg callable, e.g.
+    ``trace_source`` (zero-arg callable returning a Chrome-trace dict,
+    e.g. ``FlightRecorder.to_chrome_trace``) enables ``GET /trace``:
+    the cluster-merged, clock-corrected timeline, downloadable straight
+    into Perfetto / chrome://tracing.  ``anomaly_source`` (zero-arg
+    callable returning a JSON-able dict, e.g. ``Watchdog.report``)
+    enables ``GET /anomalies``: the live per-rank step-health and
+    anomaly-flag document that ``dmlc top`` polls.  ``resize_handler``
+    (a callable taking the parsed JSON body, returning a JSON-able
+    dict) enables ``POST /resize`` — the elastic tracker's operator
+    scale-up endpoint; a ``ValueError`` from the handler maps to 400, a
+    ``RuntimeError`` (e.g. tracker not elastic) to 409.
+    ``compute_source`` (zero-arg callable returning a JSON-able dict,
+    e.g. ``Watchdog.compute_report``) enables ``GET /compute``: the
+    cluster view of the per-rank compile/roofline/HBM ledgers shipped
+    with heartbeats.  ``goodput_source`` (zero-arg callable, e.g.
     ``GoodputAggregator.report``) enables ``GET /goodput``: the cluster
-    wall-clock decomposition.  The JAX server's ``/trace``,
-    ``/anomalies``, ``/compute`` (the watchdog's view of the beats'
-    ``compute`` field) and ``/incidents`` wait for their sources
-    (ROADMAP.md Queue 1 item 9a)."""
+    wall-clock decomposition; ``incidents_source`` (zero-arg callable,
+    e.g. ``IncidentReporter.report``) enables ``GET /incidents``: the
+    forensics join of badput episodes with decisions/events/anomalies.
+    A source that raises is logged and answered with a 503; the server
+    keeps serving."""
 
     def __init__(self, aggregator: TelemetryAggregator,
                  host: str = "127.0.0.1", port: int = 0,
-                 resize_handler=None, goodput_source=None):
+                 trace_source=None, anomaly_source=None,
+                 resize_handler=None, compute_source=None,
+                 goodput_source=None, incidents_source=None):
         agg = aggregator
+        # path -> (source, what a failed render is called in the 503)
+        sources = {path: (src, what) for path, src, what in (
+            ("/trace", trace_source, "trace"),
+            ("/anomalies", anomaly_source, "anomaly"),
+            ("/compute", compute_source, "compute"),
+            ("/goodput", goodput_source, "goodput"),
+            ("/incidents", incidents_source, "incidents"))
+            if src is not None}
 
         class Handler(BaseHTTPRequestHandler):
             def _send(self, code: int, ctype: str, body: bytes) -> None:
@@ -388,13 +414,14 @@ class TelemetryHTTPServer:
                 elif path == "/healthz":
                     self._send(200, "application/json",
                                json.dumps(agg.healthz()).encode())
-                elif path == "/goodput" and goodput_source is not None:
+                elif path in sources:
+                    source, what = sources[path]
                     try:
-                        body = json.dumps(goodput_source()).encode()
+                        body = json.dumps(source()).encode()
                     except Exception as e:  # noqa: BLE001 - no 500s
-                        logger.warning("/goodput render failed: %r", e)
+                        logger.warning("%s render failed: %r", path, e)
                         self._send(503, "text/plain",
-                                   b"goodput render failed\n")
+                                   f"{what} render failed\n".encode())
                         return
                     self._send(200, "application/json", body)
                 else:

@@ -1,5 +1,6 @@
-"""Trace-context propagation for serving requests (the header half of
-``dmlc_tpu/telemetry/tracecontext.py``).
+"""Trace-context propagation for serving requests and the decision
+audit log (the port of ``dmlc_tpu/telemetry/tracecontext.py``, less its
+fleet trace store).
 
 A ``(trace_id, parent_span_id)`` pair rides every ``/generate`` hop in
 the ``X-DMLC-Trace`` header (``<32 hex>-<16 hex>``).  The trace id is
@@ -11,8 +12,15 @@ span ``args``, and ``GET /spans?since=N`` exports them.
 
 Per-request tracing is dark behind ``DMLC_TRACE_FLEET=1`` (default
 off): when disabled, :func:`enabled` is the only call on the hot path.
-The decision audit log and the fleet trace store of the JAX package
-belong to the fleet (ROADMAP.md Queue 1 item 9).
+
+:class:`DecisionLog` is a bounded ring of structured cluster-brain
+decision records (autoscaler verdicts, preemption chains, tenant
+rejections) with the ``records_since`` incremental-export contract of
+the request ledger; the decision ring is control-plane rate and
+therefore ALWAYS on (like ``events.record_event``).  The tracker's
+incident reporter reads its tail (telemetry.forensics).  The fleet
+trace store of the JAX package belongs to the router (ROADMAP.md
+Queue 1 item 9c).
 """
 
 from __future__ import annotations
@@ -20,9 +28,12 @@ from __future__ import annotations
 import hashlib
 import os
 import re
-from typing import Optional, Tuple
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..base import get_env
+from ..concurrency import make_lock
 
 __all__ = [
     "TRACE_HEADER",
@@ -31,6 +42,10 @@ __all__ = [
     "new_span_id",
     "format_header",
     "parse_header",
+    "DecisionLog",
+    "decision_log",
+    "record_decision",
+    "reset_decisions",
 ]
 
 #: the propagation header: ``X-DMLC-Trace: <trace_id>-<parent_span_id>``
@@ -81,3 +96,88 @@ def parse_header(value: Optional[str]) -> Optional[Tuple[str, str]]:
     if not m:
         return None
     return m.group(1), m.group(2)
+
+
+# ---------------------------------------------------------------------------
+# decision audit log
+# ---------------------------------------------------------------------------
+
+class DecisionLog:
+    """Bounded ring of structured cluster-brain decision records.
+
+    Each record is a small JSON-able dict ``{"seq", "t", "kind",
+    ...fields}`` with a monotone ``seq`` (1-based, never reused), the
+    same incremental-export contract as ``RequestLedger.records_since``
+    so pollers (``GET /decisions?since=N``) never re-read history.
+    Recording is control-plane rate (scale events, preemptions,
+    tenant rejections) — cheap, always on, bounded by
+    ``DMLC_TRACE_MAX_DECISIONS`` (default 1024).
+    """
+
+    def __init__(self, capacity: Optional[int] = None):
+        if capacity is None:
+            capacity = get_env("DMLC_TRACE_MAX_DECISIONS", 1024)
+        self._lock = make_lock("DecisionLog._lock")
+        # dmlc-check: guarded-by(_lock)
+        self._recs: deque = deque(maxlen=max(1, int(capacity)))
+        # dmlc-check: guarded-by(_lock)
+        self._seq = 0
+
+    def record(self, kind: str, **fields: Any) -> Dict:
+        """Append one decision; returns the recorded dict.  Fields must
+        be JSON-serializable (callers pass strings/numbers)."""
+        rec = {"kind": str(kind), "t": time.time()}
+        rec.update(fields)
+        with self._lock:
+            self._seq += 1
+            rec["seq"] = self._seq
+            self._recs.append(rec)
+        return rec
+
+    def records_since(self, after_seq: int = 0,
+                      limit: int = 256) -> Tuple[List[Dict], int]:
+        """Records with ``seq > after_seq`` (oldest first, capped at
+        the OLDEST ``limit``) plus the ring's latest seq for the next
+        poll cursor."""
+        with self._lock:
+            out = [dict(r) for r in self._recs if r["seq"] > after_seq]
+            last = self._seq
+        if limit is not None and len(out) > limit:
+            out = out[:int(limit)]
+        return out, last
+
+    def tail(self, n: int = 64) -> List[Dict]:
+        """Newest ``n`` records, oldest first."""
+        with self._lock:
+            recs = list(self._recs)
+        return [dict(r) for r in recs[-int(n):]]
+
+    def reset(self) -> None:
+        """Clear the ring (test isolation); seq keeps going."""
+        with self._lock:
+            self._recs.clear()
+
+
+_default_log: Optional[DecisionLog] = None
+_default_log_lock = make_lock("tracecontext._default_log_lock")
+
+
+def decision_log() -> DecisionLog:
+    """The process-default decision ring (what ``/decisions`` serves)."""
+    global _default_log
+    with _default_log_lock:
+        if _default_log is None:
+            _default_log = DecisionLog()
+        return _default_log
+
+
+def record_decision(kind: str, **fields: Any) -> Dict:
+    """Record one decision on the process-default ring."""
+    return decision_log().record(kind, **fields)
+
+
+def reset_decisions() -> None:
+    """Drop the process-default ring (test isolation)."""
+    global _default_log
+    with _default_log_lock:
+        _default_log = None

@@ -205,15 +205,18 @@ class RabitTracker:
     and ``metrics_port`` (or ``DMLC_TRACKER_METRICS_PORT``; 0 =
     ephemeral) serves the merged view over HTTP ``/metrics``
     (Prometheus text) + ``/healthz`` (+ ``POST /resize``), with
-    straggler ranks flagged via ``logging.warning``.  The heartbeats'
-    clock samples feed a :class:`ClockOffsetEstimator` (``/healthz``
-    ``clock_offsets``).  The beats' ``goodput`` sub-docs feed a
-    :class:`GoodputAggregator`: the cluster wall-clock decomposition on
-    ``GET /goodput`` and the ``dmlc_goodput_*`` families on /metrics.
-    The JAX tracker's flight recorder, anomaly watchdog and incident
-    reporter (``/trace``, ``/anomalies``, ``/compute``, ``/incidents``)
-    are not ported yet (ROADMAP.md Queue 1 item 9a): the heartbeat fields
-    they read are accepted and ignored.
+    straggler ranks flagged via ``logging.warning``.  Each beat is
+    parsed once and its fields fan out: the ``trace`` sub-doc's spans
+    and clock sample to a :class:`FlightRecorder` (the merged,
+    clock-corrected ``GET /trace``; its estimator is ``/healthz``
+    ``clock_offsets``), the trace's step records and the ``selfheal``,
+    ``compute`` and ``goodput`` fields to a :class:`Watchdog`
+    (``GET /anomalies``, ``GET /compute``, the ``dmlc_anomaly_*``
+    families on /metrics, instant markers on /trace), and ``goodput``
+    to a :class:`GoodputAggregator` (``GET /goodput``, the
+    ``dmlc_goodput_*`` families).  An :class:`IncidentReporter` joins
+    the aggregator's badput intervals with the decision log, the event
+    ring and the watchdog's flags into ``GET /incidents``.
 
     Failure detection: with a positive ``miss_window_s`` (or
     ``DMLC_TRACKER_MISS_WINDOW_S``; default 0 = disabled) a monitor
@@ -322,8 +325,11 @@ class RabitTracker:
         # dmlc-check: unguarded(start/close control-thread lifecycle)
         self._monitor: Optional[threading.Thread] = None
         self._monitor_stop = threading.Event()
-        from ..telemetry import ClockOffsetEstimator, GoodputAggregator, \
-            TelemetryAggregator, exporters
+        from ..telemetry import (FlightRecorder, GoodputAggregator,
+                                 IncidentReporter, TelemetryAggregator,
+                                 Watchdog, exporters, forensics, spans,
+                                 tracecontext)
+        from ..telemetry.events import events as _events
 
         # local_snapshot: the tracker process IS the launcher for local
         # jobs — its own registry carries restart/retry counters that no
@@ -336,14 +342,32 @@ class RabitTracker:
             "dead_ranks": self._dead_snapshot(),
             "clock_offsets": self._clock_snapshot(),
             "elastic": self._elastic_snapshot()}
-        # per-rank clock offsets from the samples each heartbeat's trace
-        # sub-document carries (TrackerClient.clock_ping)
-        self.clock = ClockOffsetEstimator()
-        # goodput aggregator: consumes the heartbeat ``goodput`` sub-docs
-        # into the cluster wall-clock decomposition (/goodput,
-        # dmlc_goodput_* gauges on /metrics)
+        # flight recorder: workers ship span rings incrementally with
+        # their heartbeats; /trace serves the clock-corrected merge,
+        # with the tracker's own spans riding along as the reference
+        # row.  Its estimator holds the per-rank clock offsets from the
+        # samples each trace sub-document carries (TrackerClient.clock_ping)
+        self.flight = FlightRecorder(local_spans=spans, log=logger)
+        # anomaly watchdog: consumes the step-ledger records riding the
+        # same heartbeats; its dmlc_anomaly_active gauges join /metrics
+        # and its verdicts mark the merged /trace timeline
+        self.watchdog = Watchdog(log=logger)
+        # goodput aggregator: consumes the heartbeat ``goodput``
+        # sub-docs into the cluster wall-clock decomposition (/goodput,
+        # dmlc_goodput_* gauges); the forensics reporter joins its
+        # badput intervals with the decision log, the event ring and
+        # the watchdog's flags into /incidents
         self.goodput = GoodputAggregator()
-        self.telemetry.extra_text = self.goodput.prometheus_text
+        self.incidents = IncidentReporter(
+            intervals_source=self.goodput.badput_intervals,
+            decisions_source=lambda: tracecontext.decision_log().tail(256),
+            events_source=_events,
+            anomalies_source=lambda: forensics.watchdog_anomaly_records(
+                self.watchdog.report()))
+        self.telemetry.extra_text = lambda: (
+            self.watchdog.prometheus_text()
+            + self.goodput.prometheus_text())
+        self.flight.marker_source = self.watchdog.trace_markers
         # dmlc-check: unguarded(built pre-start; closed by the control thread)
         self.metrics_server = None
         self.metrics_port: Optional[int] = None
@@ -354,11 +378,16 @@ class RabitTracker:
 
             self.metrics_server = TelemetryHTTPServer(
                 self.telemetry, host=host_ip, port=metrics_port,
+                trace_source=self.flight.to_chrome_trace,
+                anomaly_source=self.watchdog.report,
                 resize_handler=self._http_resize,
-                goodput_source=self.goodput.report)
+                compute_source=self.watchdog.compute_report,
+                goodput_source=self.goodput.report,
+                incidents_source=self.incidents.report)
             self.metrics_port = self.metrics_server.port
-            logger.info("tracker /metrics + /healthz + /goodput + /resize "
-                        "on %s:%d", host_ip, self.metrics_port)
+            logger.info("tracker /metrics + /trace + /anomalies + "
+                        "/compute + /goodput + /incidents on %s:%d",
+                        host_ip, self.metrics_port)
         logger.info("tracker listening on %s:%d", host_ip, self.port)
 
     def worker_envs(self) -> Dict[str, str]:
@@ -579,14 +608,24 @@ class RabitTracker:
         # age must not be split between its old and new rank ids (the
         # failure detector would re-declare phantom deaths)
         self.telemetry.remap_ranks(rank_map)
-        # clock relations move with the surviving process too
-        self.clock.remap_ranks(rank_map)
+        # span stores + clock relations move with the surviving process
+        # too — else /trace renders a survivor's history under a pid a
+        # different worker now owns (see FlightRecorder.remap_ranks)
+        self.flight.remap_ranks(rank_map)
         # goodput docs are cumulative and re-shipped fully every beat,
         # so the remap is self-correcting — but moving them now keeps
         # /goodput truthful between the renumbering and the next beat.
         # The remap drops every rank it does not map (the removed ones);
         # a drop by OLD number after it would hit a survivor's new one
         self.goodput.remap_ranks(rank_map)
+        # the watchdog is not remapped: a renumbered rank's baselines
+        # start over under its new number (its verdict history stays in
+        # the ring), and a removed rank's go
+        for old, new in rank_map.items():
+            if old != new:
+                self.watchdog.drop(old)
+        for r in remove:
+            self.watchdog.drop(r)
         telemetry.inc("elastic", "resizes_total")
         telemetry.inc("elastic", "shrinks_total"
                       if target < old_world else "grows_total")
@@ -669,10 +708,13 @@ class RabitTracker:
                     continue
                 if w.cmd == "metrics":
                     # telemetry heartbeat: latest snapshot for this rank
-                    # (short session, like print; never fails the job).
-                    # Parsed ONCE here — beats run up to
-                    # DMLC_TELEMETRY_MAX_BEAT_BYTES and this loop also
-                    # serves rendezvous/clock traffic
+                    # (short session, like print; never fails the job);
+                    # any shipped trace sub-document feeds the flight
+                    # recorder's per-rank span store and the anomaly
+                    # watchdog's step-record stream.  Parsed ONCE here —
+                    # beats run up to DMLC_TELEMETRY_MAX_BEAT_BYTES and
+                    # this loop also serves rendezvous/clock traffic, so
+                    # four consumers must not mean four json.loads
                     payload = w.sock.recv_str()
                     try:
                         doc = json.loads(payload)
@@ -693,24 +735,33 @@ class RabitTracker:
                     if doc is None:
                         continue
                     self.telemetry.update(w.rank, doc)
+                    sh = doc.get("selfheal")
+                    if isinstance(sh, dict):
+                        # self-heal remediation status: /anomalies (and
+                        # dmlc top) show what the worker DID about a
+                        # flagged step, not just that one fired
+                        self.watchdog.ingest_remediation(w.rank, sh)
+                    comp = doc.get("compute")
+                    if isinstance(comp, dict):
+                        # compile-ledger status: feeds the watchdog's
+                        # recompile_storm flag and the /compute view
+                        self.watchdog.ingest_compute(w.rank, comp)
                     gd = doc.get("goodput")
                     if isinstance(gd, dict):
-                        # goodput decomposition: /goodput aggregation
+                        # goodput decomposition: /goodput aggregation +
+                        # the watchdog's effective-goodput collapse gate
                         self.goodput.ingest(w.rank, gd)
-                    # the selfheal/compute fields and the trace's spans
-                    # and steps feed consumers not ported yet (ROADMAP.md
-                    # Queue 1 item 9a); its clock sample feeds the
-                    # offset estimator
+                        self.watchdog.ingest_goodput(w.rank, gd)
                     trace = doc.get("trace")
-                    clk = trace.get("clock") if isinstance(trace, dict) \
-                        else None
-                    if isinstance(clk, dict):
-                        try:
-                            self.clock.update(w.rank,
-                                              float(clk["offset_s"]),
-                                              float(clk["rtt_s"]))
-                        except (KeyError, TypeError, ValueError):
-                            pass
+                    if isinstance(trace, dict):
+                        # spans + clock sample to the flight recorder,
+                        # step records to the watchdog
+                        self.flight.ingest(w.rank, trace, host=w.host)
+                        steps = trace.get("steps")
+                        if steps:
+                            self.watchdog.ingest(
+                                w.rank, steps,
+                                anchor=trace.get("anchor"))
                     continue
                 if w.cmd == "clock":
                     # NTP-style ping: stamp receipt (t1) and reply send
@@ -869,7 +920,7 @@ class RabitTracker:
             return sorted(self.dead_ranks)
 
     def _clock_snapshot(self) -> Dict[str, Dict[str, float]]:
-        return {str(r): s for r, s in self.clock.snapshot().items()}
+        return {str(r): s for r, s in self.flight.clock.snapshot().items()}
 
     def _note_admitted(self, rank: int, cmd: str) -> None:
         """A worker finished brokering under ``rank``: if that rank was
@@ -911,6 +962,9 @@ class RabitTracker:
             entry.sock.close()  # usually already closed by the worker
         if self._registry is not None:
             self._registry.drop(rank)
+        # the replacement's step baselines start over (fresh process,
+        # fresh compile warmup); its anomaly history stays in the ring
+        self.watchdog.drop(rank)
         # goodput: the dead rank's wall keeps running as ``preempted``
         # until a relaunched process reports under this rank (or the
         # rank is evicted by a shrink, which drops it)

@@ -354,11 +354,41 @@ class _Worker(threading.Thread):
             self._halt.set()
 
 
+def _trace_beat(tag, first=1):
+    """A beat whose trace sub-doc names its worker: three spans called
+    after ``tag`` (the worker's first rank) and three step records from
+    seq ``first``, on the worker's own anchor."""
+    i = sum(map(ord, tag))
+    seqs = range(first, first + 3)
+    spans = [{"name": f"work.{tag}", "ts": 1e6 * s, "dur": 10.0,
+              "tid": 1, "seq": s} for s in seqs]
+    steps = [{"seq": s, "wall_s": 0.01, "t_wall": 1000.0 + s}
+             for s in seqs]
+    return json.dumps({"counters": {}, "trace": {
+        "anchor": 900.0 + i, "seq": seqs[-1], "spans": spans, "steps": steps,
+        "clock": {"offset_s": 0.0, "rtt_s": 0.001}}})
+
+
+def _rows(tracker):
+    """The workers' rows of the tracker's /trace (span names by pid) and
+    its /anomalies ranks (steps)."""
+    rows = {}
+    for e in tracker.flight.to_chrome_trace()["traceEvents"]:
+        if e["ph"] == "X" and e["pid"] != 0:   # 0: the tracker's own
+            rows.setdefault(e["pid"], set()).add(e["name"])
+    steps = {r: st["steps"]
+             for r, st in tracker.watchdog.report()["ranks"].items()}
+    return {p: sorted(n) for p, n in rows.items()}, steps
+
+
 def _shrink_then_grow(tracker_kind, classes):
     """Four ranks; rank 1 vanishes, the grace window evicts it and the
     survivors resize into [0, 3); then an operator grow to 4 admits a
-    joiner.  Returns ({old_rank: (shrunk_rank, grown_rank)}, joiner
-    rank, tracker generation)."""
+    joiner.  Each worker ships a trace beat when it joins and the
+    survivors one more after the grow.  Returns ({old_rank:
+    (shrunk_rank, grown_rank)}, joiner rank, tracker generation, the
+    tracker's /trace rows and /anomalies steps once the world of 3 has
+    formed and at the end)."""
     tracker = _tracker(tracker_kind, 4, miss_window_s=MISS, elastic=True,
                        elastic_grace_s=GRACE)
     barrier = threading.Barrier(4)
@@ -377,6 +407,8 @@ def _shrink_then_grow(tracker_kind, classes):
     def fn(c):
         wr = ptr.WorldResized if isinstance(c, ptr.TrackerClient) \
             else jtr.WorldResized
+        tag = f"r{c.rank}"
+        c.send_metrics(_trace_beat(tag))
         assert float(c.allreduce_sum(np.asarray([1.0]))[0]) == 4.0
         barrier.wait(timeout=20)
         old = c.rank
@@ -397,12 +429,14 @@ def _shrink_then_grow(tracker_kind, classes):
             c.send_metrics('{"counters": {}}')
         wait_resized(c, wr, beat)
         c.resize()
+        c.send_metrics(_trace_beat(tag, first=4))
         assert c.world_size == 4
         assert float(c.allreduce_sum(np.asarray([c.rank + 1.0]))[0]) == 10.0
         c.shutdown()
         return (old, mid, c.rank)
 
     def joiner(c):
+        c.send_metrics(_trace_beat("join"))
         assert c.world_size == 4
         assert float(c.allreduce_sum(np.asarray([c.rank + 1.0]))[0]) == 10.0
         c.shutdown()
@@ -413,6 +447,8 @@ def _shrink_then_grow(tracker_kind, classes):
     for w in workers:
         w.start()
     assert ready.wait(40), "the survivors never re-formed at world 3"
+    # the survivors' side beats carry no trace: this is the renumbering
+    rows_mid = _rows(tracker)
     tracker.request_resize(world=4, reason="test_grow")
     grown.set()
     j = _Worker(classes[0], tracker.port, "el-join", joiner)
@@ -422,21 +458,36 @@ def _shrink_then_grow(tracker_kind, classes):
     errors = [w.error for w in workers + [j] if w.error is not None]
     assert not errors, errors
     tracker.join(timeout=30)
+    rows = _rows(tracker)
     tracker.close()
     ranks = {w.result[0]: w.result[1:] for w in workers}
-    return ranks, j.result, tracker.gen
+    return ranks, j.result, tracker.gen, rows_mid, rows
 
 
 def test_elastic_generations_renumber_as_jax():
     """The port's tracker renumbers a shrink and a grow exactly as the
-    JAX tracker does, with JAX and port clients in the world."""
+    JAX tracker does, with JAX and port clients in the world: the same
+    ranks, and each survivor's spans on /trace and its steps on
+    /anomalies under its new number (its baselines started over, the
+    evicted rank's gone) as soon as the generation opens."""
     want = _shrink_then_grow("jax", [jtr.TrackerClient] * 4)
     got = _shrink_then_grow("port", _mixed(4))
     assert got == want
-    ranks, joiner_rank, gen = got
+    ranks, joiner_rank, gen, (rows_mid, steps_mid), (rows, steps) = got
     assert ranks[1] == (None, None)
     assert sorted(v[0] for r, v in ranks.items() if r != 1) == [0, 1, 2]
     assert joiner_rank == 3 and gen == 2
+    owner = {grown: f"r{old}" for old, (_, grown) in ranks.items()
+             if grown is not None}
+    owner[joiner_rank] = "join"
+    assert rows == {r + 1: [f"work.{job}"] for r, job in owner.items()}
+    mid = {v[0]: f"r{old}" for old, v in ranks.items() if v[0] is not None}
+    assert rows_mid == {r + 1: [f"work.{job}"] for r, job in mid.items()}
+    # only rank 0 kept its number, and so its baselines: 3 steps before
+    # the shrink and 3 after the grow; a renumbered survivor counts only
+    # the 3 after, the joiner its own 3
+    assert steps_mid == {"0": 3}
+    assert steps == {str(r): 6 if r == 0 else 3 for r in owner}
 
 
 def _http(url, doc=None):
@@ -454,9 +505,10 @@ def _http(url, doc=None):
 
 
 def test_metrics_server_and_resize_endpoint():
-    """The port tracker's HTTP surface: /metrics and /healthz, POST
-    /resize validated as the JAX tracker validates it (400), refused by
-    a non-elastic tracker (409); the unported endpoints are 404s."""
+    """The port tracker's HTTP surface: /metrics and /healthz, /trace,
+    /anomalies, /compute, /goodput and /incidents as JSON, POST /resize
+    validated as the JAX tracker validates it (400), refused by a
+    non-elastic tracker (409); an unknown path is a 404."""
     for elastic in (True, False):
         t = ptr.RabitTracker("127.0.0.1", 2, metrics_port=0,
                              elastic=elastic)
@@ -468,7 +520,11 @@ def test_metrics_server_and_resize_endpoint():
             health = json.loads(body)
             assert code == 200 and health["elastic"]["enabled"] is elastic
             assert health["dead_ranks"] == [] == list(health["clock_offsets"])
-            assert _http(base + "/trace")[0] == 404
+            for path in ("/trace", "/anomalies", "/compute", "/goodput",
+                         "/incidents"):
+                code, body = _http(base + path)
+                assert code == 200 and isinstance(json.loads(body), dict)
+            assert _http(base + "/spans")[0] == 404
             assert _http(base + "/resize", {"world": 0})[0] == 400
             code, body = _http(base + "/resize", {"world": 3})
             if elastic:
