@@ -298,12 +298,43 @@ Phases, each printing one JSON line (any failure exits non-zero):
             count, the free /dev/shm and the shm group's chunk.  Gates:
             no launched process and no new ``/dev/shm/dmlc*`` segment
             left behind
+   router   the fleet router (after the telemetry line, the smoke's own
+            serving models freed): two replicas, each ``python -m
+            dmlc_tpu_torch.serving.serve --model flagship --seed 0`` (full
+            width and depth, bf16, KV pool 256 x 16, max_active 8,
+            ``DMLC_TRACE_FLEET=1``, 2 OMP threads) sharing the card, each
+            warmed by one request, behind ``python -m
+            dmlc_tpu_torch.serving.route`` (health every 0.25 s, probe
+            backoff 0.25..2 s); the port's ``LoadGenerator`` (8 streams x
+            2 prompts of 17..511 tokens, 32 new tokens, seed 0) runs
+            (1) straight at replica A, (2) at the router, (3) at the
+            router with B SIGKILLed after the 4th completion, then (4) B
+            restarts on its old port and bursts of 4 requests go through
+            the router until one is served by B, and (5) a run at the
+            router with SIGTERM to A after the 4th completion.  Gates:
+            every request of runs 1-3 and 5 answered 200 at its first try
+            (no 429, no 503); /metrics valid exposition text with
+            ``dmlc_router_failovers_total`` >= 1 after run 3; a torn
+            request is one trace (``/trace/<id>``: ``router.dispatch`` on
+            both replicas, the survivor's serving spans) and the merged
+            ``/trace`` holds ``ph:"s"/"f"`` flow arrows; B ``healthy``
+            within the probe backoff of listening again and then serving;
+            A drained and exited 0, the router's ``dmlc_router_http_503``
+            0; K1 and K4 launched in every replica that served (its
+            ``/healthz`` ``kernel_launches`` from its warm-up on); no
+            process, port or ``/dev/shm/dmlc*`` segment left.  Numbers:
+            client TTFT p50/p99, latency p99 and tokens/s of runs 1-3, the
+            router's latency p50/p99 and the ms it adds a request (client
+            minus replica latency, routed minus direct), kill -> B
+            ``down`` and -> the first failed-over completion, restart ->
+            ``healthy``, drain -> last 200 and -> A's exit, K1 and K4
+            launches per replica; logs in ``chiprun_out/router_*.log``
 9. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
             its path (and on the spine's timed steps, and in
             ``path_launches`` on the gather path, the routed serving and
             train paths, the self-heal runs, the elastic job, the mesh
-            phase's ring, Ulysses and train runs and the mesh5 gangs'
-            timed steps),
+            phase's ring, Ulysses and train runs, the mesh5 gangs'
+            timed steps and the router phase's replicas),
             max error, times and roofline bound; K1's ``ring_step`` and
             ``mesh5_shapes`` rows
 
@@ -320,6 +351,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -4451,6 +4483,380 @@ def mesh5_phase(smi, fa):
     return line, rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8c: the fleet router over two flagship replicas sharing the card
+
+ROUTER_LOAD = dict(n_streams=8, requests_per_stream=2, prompt_len=(17, 511),
+                   max_tokens=32, seed=0)
+ROUTER_HEALTH_S, ROUTER_PROBE_MAX_S = 0.25, 2.0
+
+
+class _FleetProc:
+    """One process of the fleet (a replica or the router) in a session of
+    its own, its output in ``chiprun_out/router_<name>.log``; ``url`` is
+    read from the line it prints once it listens (``--port 0`` or a
+    given port)."""
+
+    def __init__(self, name, argv, env):
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        self.name = name
+        self.log_path = os.path.join(ROOT, "chiprun_out",
+                                     f"router_{name}.log")
+        self.log = open(self.log_path, "w")
+        self.t_spawn = time.monotonic()
+        self.p = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
+                                  env=env, stdout=self.log,
+                                  stderr=subprocess.STDOUT,
+                                  start_new_session=True)
+        self.url = None
+        self.t_listen = None
+
+    def wait_url(self, word, timeout=300):
+        deadline = time.monotonic() + timeout
+        while self.url is None:
+            with open(self.log_path) as f:
+                m = re.search(rf"{word}.*?(http://[0-9.]+:[0-9]+)", f.read())
+            if m:
+                self.url, self.t_listen = m.group(1), time.monotonic()
+                break
+            check(self.p.poll() is None,
+                  f"router phase: {self.name} exited {self.p.returncode} "
+                  f"before it listened (chiprun_out/router_{self.name}.log)")
+            check(time.monotonic() < deadline,
+                  f"router phase: {self.name} never listened")
+            time.sleep(0.05)
+        return self.url
+
+    @property
+    def port(self):
+        return int(self.url.rsplit(":", 1)[1])
+
+    def kill(self):
+        """Kill the process's whole session; True if anything was left."""
+        try:
+            os.killpg(self.p.pid, 0)
+        except ProcessLookupError:
+            left = False
+        else:
+            left = True
+            os.killpg(self.p.pid, signal.SIGKILL)
+        self.p.wait(timeout=60)
+        self.log.close()
+        return left
+
+
+def _fleet_env():
+    env = dict(os.environ)
+    env.update({
+        "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", ""),
+        "OMP_NUM_THREADS": "2", "DMLC_TRACE_FLEET": "1",
+        # the smoke's serving settings
+        "DMLC_SERVE_KV_BLOCKS": "256", "DMLC_SERVE_KV_BLOCK_SIZE": "16",
+        "DMLC_SERVE_MAX_ACTIVE": "8", "DMLC_SERVE_QUEUE_DEPTH": "64",
+        # a kill and a restart show within a second or two
+        "DMLC_ROUTER_HEALTH_INTERVAL_S": str(ROUTER_HEALTH_S),
+        "DMLC_ROUTER_PROBE_BASE_S": str(ROUTER_HEALTH_S),
+        "DMLC_ROUTER_PROBE_MAX_S": str(ROUTER_PROBE_MAX_S),
+        "DMLC_ROUTER_PROBE_TIMEOUT_S": "2.0"})
+    return env
+
+
+def _replica(name, env, port=0):
+    return _FleetProc(name, ["dmlc_tpu_torch.serving.serve", "--model",
+                             "flagship", "--seed", "0", "--port", str(port)],
+                      env)
+
+
+def _replica_state(router_url, url):
+    _, reps = http(router_url + "/replicas", timeout=30)
+    return next(v for v in reps if v["url"] == url)
+
+
+def _metric(text, name):
+    m = re.search(rf"^{name} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def _launches(url, into=None):
+    """A replica's K1/K4 launch counts from its /healthz (which must show
+    the card); ``into`` also gets its active and waiting counts."""
+    code, hz = http(url + "/healthz", timeout=30)
+    check(code == 200 and str(hz["device"]).startswith("cuda"),
+          f"router phase: replica {url} /healthz {code} on "
+          f"{hz.get('device') if isinstance(hz, dict) else hz}")
+    if into is not None:
+        into.update(active=hz["active"], waiting=hz["waiting"])
+    return dict(hz["kernel_launches"])
+
+
+def _dispatches(router_url, trace_ids, names, t_ref):
+    """Every ``router.dispatch`` of the given traces: (replica name, kind,
+    outcome, status, start and end in s after the wall time ``t_ref``),
+    in start order."""
+    rows = []
+    for tid in trace_ids:
+        _, tl = http(router_url + f"/trace/{tid}")
+        for e in tl["events"]:
+            if e["name"] == "router.dispatch":
+                a = e["args"]
+                rows.append((names.get(a.get("replica"), a.get("replica")),
+                             a.get("kind"), a.get("outcome"), a.get("status"),
+                             e["t_wall"] - t_ref,
+                             e["t_wall"] + e["dur_s"] - t_ref))
+    return sorted(rows, key=lambda r: r[4])
+
+
+def _load_run(serving, url, vocab, on_done=None):
+    """The port's LoadGenerator (8 streams x 2 prompts of 17..511 tokens,
+    32 new tokens, seed 0) at ``url``; each completion is stamped, and
+    ``on_done(n)`` runs after the n-th.  Gates: every request answered
+    200 at its first try."""
+    stamps = []
+
+    class Stamped(serving.LoadGenerator):
+        def _post(self, doc, headers=None):
+            out = super()._post(doc, headers)
+            with self._lock:
+                stamps.append((time.monotonic(), out.get("trace_id"),
+                               out.get("served_by")))
+                n = len(stamps)
+            if on_done is not None:
+                on_done(n)
+            return out
+
+    gen = Stamped(url, vocab=vocab, **ROUTER_LOAD)
+    load = gen.run()
+    n = ROUTER_LOAD["n_streams"] * ROUTER_LOAD["requests_per_stream"]
+    check(load["n_requests_ok"] == n and not gen.failures
+          and load["n_rejections_429"] == 0 and load["n_backoffs_503"] == 0,
+          f"router phase: load at {url}: {load} {gen.failures[:2]}")
+    return load, gen, stamps
+
+
+def _load_numbers(load):
+    return {k: load[k] for k in (
+        "wall_s", "total_generated_tokens", "aggregate_tokens_per_s",
+        "p50_ttft_s", "p99_ttft_s", "p50_latency_s", "e2e_latency_p50_s",
+        "e2e_latency_p99_s", "client_server_delta_p50_s",
+        "client_server_delta_p99_s", "tokens_per_s_per_user")}
+
+
+def router_phase(smi, serving, vocab):
+    """Two flagship replicas share the card behind the port's router:
+    the load straight at one, then through the router, then with a
+    replica SIGKILLed, restarted and a replica drained (see the module
+    docstring for the gates)."""
+    from dmlc_tpu_torch.telemetry.exporters import validate_exposition_text
+
+    t_phase = time.perf_counter()
+    shm0 = _dmlc_shm()
+    env = _fleet_env()
+    procs = {}
+    line = {"phase": "router", "card": smi, "load": dict(ROUTER_LOAD)}
+    try:
+        procs["A"], procs["B"] = _replica("A", env), _replica("B", env)
+        A, B = procs["A"].wait_url("serve:"), procs["B"].wait_url("serve:")
+        line["replica_start_s"] = {n: procs[n].t_listen - procs[n].t_spawn
+                                   for n in ("A", "B")}
+        # one request each, so the first cost passes land before the runs
+        for url in (A, B):
+            code, doc = http(url + "/generate", {"prompt": list(range(1, 18)),
+                                                 "max_tokens": 8})
+            check(code == 200, f"router phase: warm-up at {url}: {doc}")
+        base = {"A": _launches(A), "B": _launches(B)}
+        procs["R"] = _FleetProc(
+            "router", ["dmlc_tpu_torch.serving.route", "--replicas",
+                       f"{A},{B}", "--port", "0"], env)
+        R = procs["R"].wait_url("dmlc-router:", timeout=120)
+        deadline = time.monotonic() + 60
+        while http(R + "/healthz")[1]["healthy"] != 2:
+            check(time.monotonic() < deadline, "router: replicas not healthy")
+            time.sleep(0.05)
+
+        # 1. direct  2. routed
+        direct, _, _ = _load_run(serving, A, vocab)
+        routed, routed_gen, _ = _load_run(serving, R, vocab)
+        _, rstats = http(R + "/healthz")
+        by = [r.get("served_by") for r in routed_gen.results]
+        line["direct"] = _load_numbers(direct)
+        line["routed"] = dict(_load_numbers(routed),
+                              served_by={"A": by.count(A),
+                                         "B": by.count(B)},
+                              router_latency_p50_s=rstats["latency_p50_s"],
+                              router_latency_p99_s=rstats["latency_p99_s"])
+        line["router_adds_ms"] = {
+            q: (routed[f"client_server_delta_{q}_s"]
+                - direct[f"client_server_delta_{q}_s"]) * 1e3
+            for q in ("p50", "p99")}
+
+        # 3. failover: B SIGKILLed after the run's 4th completion
+        kill = {}
+
+        def watch_down():
+            while _replica_state(R, B)["state"] != "down":
+                time.sleep(0.005)
+            kill["down"] = time.monotonic()
+
+        def kill_b(n):
+            if n == 4:
+                kill["launches"] = _launches(B)
+                os.kill(procs["B"].p.pid, signal.SIGKILL)
+                kill["t"], kill["wall"] = time.monotonic(), time.time()
+                kill["watch"] = threading.Thread(target=watch_down,
+                                                 daemon=True)
+                kill["watch"].start()
+
+        failover, fo_gen, stamps = _load_run(serving, R, vocab, kill_b)
+        check("t" in kill, "router phase: B was never killed")
+        kill["watch"].join(timeout=60)
+        check("down" in kill, "router phase: B never marked down")
+        procs["B"].p.wait(timeout=60)
+        _, metrics = http(R + "/metrics")
+        validate_exposition_text(metrics)
+        failovers = _metric(metrics, "dmlc_router_failovers_total")
+        check(failovers >= 1, f"router phase: {failovers} failovers")
+        # the torn requests: a dispatch to B cut on the wire
+        _, chrome = http(R + "/trace")
+        torn = sorted({e["args"]["trace_id"] for e in chrome
+                       if e.get("name") == "router.dispatch"
+                       and (e.get("args") or {}).get("replica") == B
+                       and e["args"].get("outcome") == "transport"})
+        check(torn, "router phase: no torn dispatch to B in /trace")
+        check({"s", "f"} <= {e.get("ph") for e in chrome},
+              "router phase: /trace without flow arrows")
+        one_trace = None
+        for tid in torn:
+            _, tl = http(R + f"/trace/{tid}")
+            disp = {e["args"].get("replica"): e["args"].get("outcome")
+                    for e in tl["events"] if e["name"] == "router.dispatch"}
+            on_a = [e["name"] for e in tl["events"] if e["source"] == A
+                    and str(e["cat"]).startswith("serving")]
+            if disp.get(B) == "transport" and disp.get(A) == "ok" and on_a:
+                one_trace = {"trace_id": tid, "sources": tl["sources"],
+                             "dispatches": disp,
+                             "survivor_spans": sorted(set(on_a)),
+                             "summary": tl["summary"]}
+                break
+        check(one_trace is not None,
+              f"router phase: no torn request is one trace over {torn}")
+        moved = [t for t, tid, _ in stamps if tid in set(torn)]
+        line["failover"] = dict(
+            _load_numbers(failover), failovers_total=failovers,
+            torn_requests=len(torn), one_trace=one_trace,
+            kill_to_down_s=kill["down"] - kill["t"],
+            kill_to_first_failed_over_s=min(moved) - kill["t"],
+            chrome_events=len(chrome))
+
+        # 4. recovery: B again on its old port; the probe closes the circuit
+        procs["B2"] = _replica("B2", env, port=procs["B"].port)
+        procs["B2"].wait_url("serve:")
+        deadline = time.monotonic() + 60
+        while _replica_state(R, B)["state"] != "healthy":
+            check(time.monotonic() < deadline, "router phase: B never "
+                  "healthy again")
+            time.sleep(0.005)
+        t_healthy = time.monotonic()
+        listen_to_healthy = t_healthy - procs["B2"].t_listen
+        check(listen_to_healthy <= ROUTER_PROBE_MAX_S
+              + 2 * ROUTER_HEALTH_S + 1.0,
+              f"router phase: B healthy {listen_to_healthy:.2f} s after it "
+              f"listened (probe backoff at most {ROUTER_PROBE_MAX_S} s)")
+        rng = np.random.default_rng(1)
+        served, bursts = [], 0
+        while B not in served:
+            check(bursts < 10, f"router phase: B served none of {served}")
+            bursts += 1
+            res = {}
+            ts = [threading.Thread(target=lambda i=i: res.setdefault(i, http(
+                R + "/generate", {"prompt": rng.integers(
+                    0, vocab, 17 + 8 * i).tolist(), "max_tokens": 8})))
+                for i in range(4)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(timeout=300)
+            check(len(res) == 4 and all(c == 200 for c, _ in res.values()),
+                  f"router phase: recovery burst {res}")
+            served += [d["served_by"] for _, d in res.values()]
+        line["recovery"] = {
+            "restart_to_listen_s": procs["B2"].t_listen - procs["B2"].t_spawn,
+            "restart_to_healthy_s": t_healthy - procs["B2"].t_spawn,
+            "listen_to_healthy_s": listen_to_healthy,
+            "requests_until_b": len(served)}
+
+        # 5. drain: SIGTERM to A after the run's 4th completion
+        drain = {}
+
+        def term_a(n):
+            if n == 4:
+                drain["launches"] = _launches(A, into=drain)
+                os.kill(procs["A"].p.pid, signal.SIGTERM)
+                drain["t"], drain["wall"] = time.monotonic(), time.time()
+
+        drained, dr_gen, stamps = _load_run(serving, R, vocab, term_a)
+        check("t" in drain, "router phase: A was never drained")
+        rc_a = procs["A"].p.wait(timeout=120)
+        t_exit = time.monotonic()
+        with open(procs["A"].log_path) as f:
+            a_log = f.read()
+        _, metrics = http(R + "/metrics")
+        validate_exposition_text(metrics)
+        http_503 = _metric(metrics, "dmlc_router_http_503")
+        check(rc_a == 0 and "drained, exiting" in a_log and http_503 == 0,
+              f"router phase: drain: A exit {rc_a}, {http_503} 503s")
+        after = [t for t, _, _ in stamps if t > drain["t"]]
+        from_a = [t for t, _, by_ in stamps if t > drain["t"] and by_ == A]
+        line["drain"] = dict(
+            _load_numbers(drained), http_503=http_503,
+            failovers_total=_metric(metrics, "dmlc_router_failovers_total"),
+            a_at_sigterm={k: drain[k] for k in ("active", "waiting")},
+            # what each request of the run met, from its trace
+            dispatches=_dispatches(R, sorted({tid for _, tid, _ in stamps}),
+                                   {A: "A", B: "B"}, drain["wall"]),
+            drain_shifts=_metric(metrics, "dmlc_router_drain_shifts"),
+            drain_to_last_200_s=max(after) - drain["t"],
+            drain_to_last_200_from_a_s=(max(from_a) - drain["t"]
+                                        if from_a else None),
+            drain_to_exit_s=t_exit - drain["t"])
+
+        # K1 and K4 in every replica that served, from its warm-up on
+        final_b2 = _launches(procs["B2"].url)
+        per = {"A": {k: drain["launches"][k] - base["A"][k]
+                     for k in base["A"]},
+               "B": {k: kill["launches"][k] - base["B"][k]
+                     for k in base["B"]},
+               "B2": final_b2}
+        check(all(v > 0 for d in per.values() for v in d.values()),
+              f"router phase: a replica without K1 or K4 launches: {per}")
+        line["launches"] = per
+        launches = {k: sum(d[k] for d in per.values()) for k in per["A"]}
+        line["counters"] = {k: _metric(metrics, f"dmlc_router_{k}")
+                            for k in ("requests", "completed", "dispatches",
+                                      "retries", "failovers_total",
+                                      "replica_down_total",
+                                      "probe_recoveries", "drain_shifts",
+                                      "failed")}
+        os.kill(procs["R"].p.pid, signal.SIGTERM)
+        os.kill(procs["B2"].p.pid, signal.SIGTERM)
+        line["exit_codes"] = {n: procs[n].p.wait(timeout=120)
+                              for n in ("R", "B2")}
+        check(line["exit_codes"] == {"R": 0, "B2": 0},
+              f"router phase: exits {line['exit_codes']}")
+    finally:
+        left = [n for n, p in procs.items() if p.kill()]
+    for url in (A, B, R):
+        try:
+            http(url + "/healthz", timeout=5)
+            still = True
+        except (urllib.error.URLError, OSError):
+            still = False
+        check(not still, f"router phase: {url} still answers")
+    check(not left, f"router phase: processes left behind: {left}")
+    check(_dmlc_shm() <= shm0, "router phase: /dev/shm/dmlc* left behind")
+    line["wall_s"] = time.perf_counter() - t_phase
+    return line, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -4600,6 +5006,14 @@ def main() -> int:
                             spine_docs[0]["first_batch_byte_exact"]):
         emit(doc)
     emit({"phase": "telemetry", "card": smi, **TELEMETRY})
+
+    # 8c. the fleet router: two flagship replicas share the card behind
+    # the port's router (direct, routed, a kill, a restart, a drain)
+    gc.collect()
+    torch.cuda.empty_cache()
+    router_doc, option_launches["router"] = router_phase(smi, serving,
+                                                         cfg.vocab)
+    emit(router_doc)
 
     # 9. the kernels line: each kernel's launches on its own path (K1 and
     # K4 serving, K2 and K3 training; K1 also runs 16 times per train

@@ -11,16 +11,22 @@
                    and drain on SIGTERM
   * ``loadgen``    N-stream closed-loop load against a server
   * ``serve``      ``python -m dmlc_tpu_torch.serving.serve``
+  * ``router``     the fleet front door over N replicas: health circuit,
+                   least-loaded placement, idempotent retry and
+                   failover, hedging, drain shift, tenant fairness, the
+                   fleet trace store behind /trace
+  * ``route``      ``python -m dmlc_tpu_torch.serving.route``
 """
 
 from .engine import (AdmissionFull, EngineDraining, InferenceEngine,  # noqa: F401
                      RequestTooLarge)
 from .kv_cache import BlockAllocator, PagedKVCache  # noqa: F401
 from .loadgen import LoadGenerator  # noqa: F401
+from .router import Router, RouterHTTPServer, discover_replicas  # noqa: F401
 from .scheduler import ContinuousBatchScheduler, Request  # noqa: F401
 from .server import ServingHTTPServer  # noqa: F401
 
 __all__ = ["AdmissionFull", "BlockAllocator", "ContinuousBatchScheduler",
            "EngineDraining", "InferenceEngine", "LoadGenerator",
-           "PagedKVCache", "Request", "RequestTooLarge",
-           "ServingHTTPServer"]
+           "PagedKVCache", "Request", "RequestTooLarge", "Router",
+           "RouterHTTPServer", "ServingHTTPServer", "discover_replicas"]

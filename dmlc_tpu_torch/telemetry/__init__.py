@@ -21,8 +21,10 @@ generator read either package).
                      clock in one bucket per instant, shipped with
                      heartbeats), its tracker-side aggregator behind
                      /goodput, and the serving availability ledger
-  * ``tracecontext`` the X-DMLC-Trace header helpers and the decision
+  * ``tracecontext`` the X-DMLC-Trace header helpers, the decision
                      audit log (``DecisionLog``, ``record_decision``)
+                     and the router's fleet trace store
+                     (``FleetTraceStore``)
   * ``heartbeat``    worker heartbeats over the rendezvous protocol,
                      the tracker-side aggregator (/metrics, /healthz,
                      straggler flags) and its HTTP server
@@ -42,8 +44,6 @@ generator read either package).
                      each site's counted FLOPs and bytes (the step's
                      roofline), card memory samples and decode phase
                      shares, behind /compute (``profiled_site``)
-
-Left for later (ROADMAP.md Queue 1 item 9c): the fleet trace store.
 
 Typical use::
 
@@ -126,6 +126,7 @@ from .heartbeat import (  # noqa: F401
 from .requests import RequestLedger  # noqa: F401
 from .tracecontext import (  # noqa: F401
     DecisionLog,
+    FleetTraceStore,
     decision_log,
     record_decision,
 )
@@ -148,6 +149,7 @@ __all__ = [
     "ClockOffsetEstimator",
     "DEFAULT_BOUNDS",
     "DecisionLog",
+    "FleetTraceStore",
     "FlightRecorder",
     "GoodputAggregator",
     "GoodputLedger",

@@ -365,6 +365,14 @@ def _feed(kind, rounds=3, ranks=3):
             c = ptr.TrackerClient("127.0.0.1", tracker.port, jobid="beat")
             c.rank = rank
             c.send_metrics(_beat(rank, rnd))
+    # the tracker replies to a beat before it ingests it: wait until the
+    # watchdog, the last to take a beat, holds every rank's last step
+    want = {str(r): 8 * rounds for r in range(ranks)}
+    deadline = time.monotonic() + 30
+    while {r: st["last_step_seq"] for r, st in
+           tracker.watchdog.report()["ranks"].items()} != want:
+        assert time.monotonic() < deadline, "beats never ingested"
+        time.sleep(0.005)
     return tracker
 
 

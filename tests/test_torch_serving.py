@@ -230,6 +230,9 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
         f"for m in pkgutil.walk_packages({pkg}.__path__, '{pkg}.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        # the fleet front door and its entry are walked like the rest
+        f"assert {{'{pkg}.serving.router', '{pkg}.serving.route'}}"
+        " <= set(sys.modules)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'dmlc_tpu'))\n"
         # every kernel source is bound by a wrapper in a walked module

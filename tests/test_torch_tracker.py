@@ -381,16 +381,20 @@ def _rows(tracker):
     return {p: sorted(n) for p, n in rows.items()}, steps
 
 
-def _shrink_then_grow(tracker_kind, classes):
+def _shrink_then_grow(tracker_kind, classes, make_beat=_trace_beat,
+                      wrap=None):
     """Four ranks; rank 1 vanishes, the grace window evicts it and the
     survivors resize into [0, 3); then an operator grow to 4 admits a
-    joiner.  Each worker ships a trace beat when it joins and the
-    survivors one more after the grow.  Returns ({old_rank:
-    (shrunk_rank, grown_rank)}, joiner rank, tracker generation, the
-    tracker's /trace rows and /anomalies steps once the world of 3 has
-    formed and at the end)."""
+    joiner.  Each worker ships a ``make_beat`` beat when it joins and the
+    survivors one more after the grow; ``wrap(tracker)`` runs before
+    any worker connects.  Returns ({old_rank: (shrunk_rank,
+    grown_rank)}, joiner rank, tracker generation, the tracker's /trace
+    rows and /anomalies steps once the world of 3 has formed and at the
+    end)."""
     tracker = _tracker(tracker_kind, 4, miss_window_s=MISS, elastic=True,
                        elastic_grace_s=GRACE)
+    if wrap is not None:
+        wrap(tracker)
     barrier = threading.Barrier(4)
     shrunk = threading.Barrier(3)
     ready, grown = threading.Event(), threading.Event()
@@ -408,7 +412,7 @@ def _shrink_then_grow(tracker_kind, classes):
         wr = ptr.WorldResized if isinstance(c, ptr.TrackerClient) \
             else jtr.WorldResized
         tag = f"r{c.rank}"
-        c.send_metrics(_trace_beat(tag))
+        c.send_metrics(make_beat(tag))
         assert float(c.allreduce_sum(np.asarray([1.0]))[0]) == 4.0
         barrier.wait(timeout=20)
         old = c.rank
@@ -429,14 +433,14 @@ def _shrink_then_grow(tracker_kind, classes):
             c.send_metrics('{"counters": {}}')
         wait_resized(c, wr, beat)
         c.resize()
-        c.send_metrics(_trace_beat(tag, first=4))
+        c.send_metrics(make_beat(tag, first=4))
         assert c.world_size == 4
         assert float(c.allreduce_sum(np.asarray([c.rank + 1.0]))[0]) == 10.0
         c.shutdown()
         return (old, mid, c.rank)
 
     def joiner(c):
-        c.send_metrics(_trace_beat("join"))
+        c.send_metrics(make_beat("join"))
         assert c.world_size == 4
         assert float(c.allreduce_sum(np.asarray([c.rank + 1.0]))[0]) == 10.0
         c.shutdown()
@@ -488,6 +492,97 @@ def test_elastic_generations_renumber_as_jax():
     # the 3 after, the joiner its own 3
     assert steps_mid == {"0": 3}
     assert steps == {str(r): 6 if r == 0 else 3 for r in owner}
+
+
+def _rich_beat(tag, first=1):
+    """A beat with every sub-document the tracker hands its watchdog:
+    six step records (``r2`` five times slower, a feed wait on ``r3``),
+    a self-heal status, a compute status (a storm on ``r0`` after the
+    grow) and a goodput window (collapsed after the grow)."""
+    grown = first > 1
+    seqs = range(10 * first, 10 * first + 6)
+    wall = 0.05 if tag == "r2" else 0.01
+    steps = [{"seq": s, "wall_s": wall * (1 + 0.01 * (s % 3)),
+              "t_wall": 1000.0 + s,
+              "feed_wait_s": 0.008 if tag == "r3" else 0.0,
+              "goodput_tokens_per_s": 100.0 / (1 + s % 4)}
+             for s in seqs]
+    eff = 10.0 if grown else 90.0
+    return json.dumps({
+        "counters": {},
+        "trace": {"anchor": 900.0 + sum(map(ord, tag)), "seq": seqs[-1],
+                  "spans": [], "steps": steps},
+        "selfheal": {"last_action": "skip" if grown else "none",
+                     "step": seqs[-1], "skips": int(grown), "rollbacks": 0},
+        "compute": {"traces": 3, "hits": 40, "recompiles": int(grown),
+                    "storm": {"active": grown and tag == "r0",
+                              "sites": [{"site": "train.step"}]}},
+        "goodput": {"goodput_fraction": eff / 100.0,
+                    "current": "resize" if grown else "productive",
+                    "window": {"effective_tokens_per_s": eff,
+                               "in_step_tokens_per_s": 100.0}}})
+
+
+class _TeeWatchdog:
+    """The port tracker's watchdog with every ingest and drop the tracker
+    makes repeated on a JAX ``Watchdog``; everything else is the
+    port's."""
+
+    CALLS = ("ingest", "ingest_goodput", "ingest_remediation",
+             "ingest_compute", "drop")
+
+    def __init__(self, port_wd):
+        from dmlc_tpu.telemetry.anomaly import Watchdog
+
+        self.port, self.ref = port_wd, Watchdog()
+        self.calls = []
+
+    def __getattr__(self, name):
+        fn = getattr(self.port, name)
+        if name not in self.CALLS:
+            return fn
+        ref = getattr(self.ref, name)
+
+        def both(*args, **kw):
+            self.calls.append(name)
+            ref(*json.loads(json.dumps(args)), **json.loads(json.dumps(kw)))
+            return fn(*args, **kw)
+        return both
+
+
+def _flags(wd):
+    rep = wd.report()
+    return {"ranks": {r: (st["steps"], st["last_step_seq"], st["flags"],
+                          st["remediation"], st["compute"],
+                          st["goodput"])
+                      for r, st in rep["ranks"].items()},
+            "active": [(a["rank"], a["kind"]) for a in rep["active"]],
+            "verdicts": [(v["rank"], v["kind"], v["step_seq"],
+                          v["t_step"]) for v in rep["recent_verdicts"]],
+            "compute": wd.compute_report()}
+
+
+def test_watchdog_calls_through_an_elastic_gang_equal_jax():
+    """Every call the port tracker makes on its watchdog through a kill,
+    a shrink and a grow, teed into the JAX package's ``Watchdog``: the
+    same flags by rank, kind and step, the same steps and sub-documents
+    per rank, the same storming ranks."""
+    tees = []
+
+    def wrap(tracker):
+        tees.append(_TeeWatchdog(tracker.watchdog))
+        tracker.watchdog = tees[0]
+
+    ranks, joiner_rank, gen, _, (_, steps) = _shrink_then_grow(
+        "port", _mixed(4), make_beat=_rich_beat, wrap=wrap)
+    tee = tees[0]
+    assert gen == 2 and joiner_rank == 3
+    assert set(tee.calls) == set(_TeeWatchdog.CALLS), set(tee.calls)
+    got, want = _flags(tee.port), _flags(tee.ref)
+    assert got == want
+    kinds = {k for _, k, _, _ in got["verdicts"]}
+    assert {"straggler", "effective_goodput_collapse",
+            "recompile_storm"} <= kinds, kinds
 
 
 def _http(url, doc=None):
