@@ -140,7 +140,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
             SIGKILLed after the step-20 commit, the survivors shrink to
             2, ``POST /resize {"world": 3}`` and a fresh worker (started
             at the kill, entering the job after the request) grow the
-            world back, 40 steps in all.  Gates: both resizes on every
+            world back, 30 steps in all.  Gates: both resizes on every
             survivor (resynced at step 20, then at world 3), /metrics
             ``dmlc_elastic_resizes_total`` >= 2, every step's loss one
             value on every rank, finite and falling, equal final-param
@@ -276,11 +276,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    tracker  dmlc-core's tracker, launcher and host collectives, run as
             ``python -m dmlc_tpu_torch.tracker.submit --cluster local
             --num-workers 4`` jobs on the sparse phase's files before
-            they are removed: ``train_libsvm`` on the Criteo-shaped file
-            (2 epochs, a [2^20] weight on the card, an 8 MB f64 gradient
-            allreduced every step) — gates: every rank logs both epochs,
-            the mean epoch loss falls, the four final-weight SHA-256s
-            are equal, every gradient allreduce ran on ``hier``; the
+            they are removed: ``train_libsvm`` on the first 393216 rows
+            of the Criteo-shaped file (half of it: the smoke's time
+            limit; 2 epochs, a [2^20] weight on the card,
+            an 8 MB f64 gradient allreduced every step) — gates: every
+            rank logs both epochs, the mean epoch loss falls, the four
+            final-weight SHA-256s are equal, every gradient allreduce ran
+            on ``hier``; the
             rendezvous seconds (the tracker's listen to its last rank
             assigned), steps/s, epoch seconds, allreduce ms p50/p99 and
             share of the step; the same job on the file's first 32768
@@ -329,12 +331,55 @@ Phases, each printing one JSON line (any failure exits non-zero):
             ``down`` and -> the first failed-over completion, restart ->
             ``healthy``, drain -> last 200 and -> A's exit, K1 and K4
             launches per replica; logs in ``chiprun_out/router_*.log``
+   fleet    the fleet control plane (after ``router``, under
+            ``build/fleet``, removed after): a 2-rank elastic job beside
+            the fleet — each rank ``chip_smoke.py --fleet-worker`` under
+            an in-process port ``RabitTracker(elastic=True)``: full-batch
+            least squares on 240 records of 7 features in a RecordIO
+            shard, the gradient in float64 on the card summed by
+            ``TrackerClient.allreduce_sum``, lr 0.05, 60 steps 0.2 s
+            apart, rank 0 checkpointing every step, both ranks parked at
+            steps 20 and 40 until the phase lets them on; two replicas
+            as in ``router`` (A, B) behind the port's ``Router`` in this
+            process (``TenantGovernor(rate=0)``, paid weight 50, free 1)
+            and its ``RouterHTTPServer(fleet_source=)``, with the port's
+            ``Autoscaler`` (interval 0.3 s, water 0.7 / 0.15, hysteresis
+            2, cooldown 3 s, 2..3 replicas) over a
+            ``TrainingPreemptingProvider``.  Spike: 16 streams x 6
+            prompts of 17..511 tokens, 32 new tokens, each stream's last
+            request held until the scaled replica is registered; the
+            controller kills rank 1 (parked), posts the shrink with it
+            on the remove list and starts replica C.  Gates: one
+            scale-up, 3 replicas, the job at world 1 after one
+            preemption, every request 200, C served some and launched
+            K1/K4 after its warm-up.  Tail: 2 streams x 10 such
+            requests while the controller drains C (``set_draining``,
+            SIGTERM, the relaunched rank, the grow resize); gates: one
+            scale-down, every request 200, no 503 at the client or the
+            router, C exits 0 after its drain line.  Regrow: the world
+            back at 2, rank 1 exited by SIGKILL and the others 0, rank
+            0's 60 losses within 1e-6 relative of the numpy oracle and
+            the final weights within rtol 1e-6, atol 1e-9.  Tenants (the
+            bucket at 2 requests/s a weight): 3 paid and 3 free streams
+            x 8 prompts; free absorbs a 429, paid none.  Exposition:
+            /metrics valid with ``dmlc_fleet_*`` (2 replicas, 0 owned,
+            1 scale-up, 1 scale-down) and ``dmlc_tenant_*``; /fleet's
+            counters; /decisions holds the preemption chain and then the
+            restore chain in order; /incidents one incident with the
+            chain.  Numbers: verdict -> registered split into kill,
+            resize ack, spawn -> listening and warm-up; spike and tail
+            TTFT and latency; requests by replica; ``set_draining`` ->
+            C's exit; K1/K4 launches per replica (A and B from their
+            warm-up, C to its drain); logs in
+            ``chiprun_out/router_{A,B,C}.log`` and
+            ``chiprun_out/fleet_worker_*.log``
 9. kernels  one line ``{"kernels": [...]}``: per kernel its launches on
             its path (and on the spine's timed steps, and in
             ``path_launches`` on the gather path, the routed serving and
             train paths, the self-heal runs, the elastic job, the mesh
             phase's ring, Ulysses and train runs, the mesh5 gangs'
-            timed steps and the router phase's replicas),
+            timed steps, the router phase's replicas and the fleet
+            phase's three),
             max error, times and roofline bound; K1's ``ring_step`` and
             ``mesh5_shapes`` rows
 
@@ -2310,6 +2355,7 @@ TRACKER_WORKERS = 4
 GBDT_TOL = 1e-4   # relative: the tree allreduce's fold order vs a local sum
 PARITY_ROWS = 32768   # the head of the Criteo-shaped file, card vs CPU
 PARITY_RTOL = 1e-5    # per-rank epoch losses, card vs --device cpu
+LIBSVM_ROWS = 393216  # train_libsvm's head of the file: half of its rows
 
 
 def _dmlc_shm():
@@ -2419,15 +2465,21 @@ def _job_report(name, err, word, epochs, want_algo):
             "sha256": shas.pop()}
 
 
+def _head(svm, rows):
+    """The first ``rows`` lines of ``svm`` in a file beside it."""
+    head = svm + f".head{rows}"
+    with open(svm, "rb") as f, open(head, "wb") as g:
+        g.writelines(itertools.islice(f, rows))
+    return head
+
+
 def _libsvm_parity(svm):
     """The same 4-worker ``train_libsvm`` job on the head of the
     Criteo-shaped file, once on the card and once with ``--device cpu``:
     every rank's unrounded epoch losses agree within ``PARITY_RTOL``, so
     the card's gradient (the int64 gather and its backward) is the
     CPU's, not only one that lowers the loss."""
-    head = svm + f".head{PARITY_ROWS}"
-    with open(svm, "rb") as f, open(head, "wb") as g:
-        g.writelines(itertools.islice(f, PARITY_ROWS))
+    head = _head(svm, PARITY_ROWS)
     argv = [sys.executable, "-m", "dmlc_tpu_torch.examples.train_libsvm",
             head, "2"]
     try:
@@ -2481,11 +2533,15 @@ def tracker_phase(smi, svm, csv):
            "host_cpus": os.cpu_count(), "workers": TRACKER_WORKERS,
            "dev_shm_free_bytes": shm_free, "shm_group_chunk_bytes": chunk}
 
-    _, err, wall = _submit("libsvm", [sys.executable, "-m",
-                                      "dmlc_tpu_torch.examples.train_libsvm",
-                                      svm, "2"], 600)
-    doc["libsvm"] = {"launcher_wall_s": wall, **_job_report(
-        "libsvm", err, "loss", 2, "hier")}
+    head = _head(svm, LIBSVM_ROWS)
+    try:
+        _, err, wall = _submit("libsvm", [
+            sys.executable, "-m", "dmlc_tpu_torch.examples.train_libsvm",
+            head, "2"], 600)
+    finally:
+        os.unlink(head)
+    doc["libsvm"] = {"rows": LIBSVM_ROWS, "launcher_wall_s": wall,
+                     **_job_report("libsvm", err, "loss", 2, "hier")}
     doc["libsvm_vs_cpu"] = _libsvm_parity(svm)
     _, err, wall = _submit("csv", [sys.executable, "-m",
                                    "dmlc_tpu_torch.examples.train_csv",
@@ -3030,7 +3086,7 @@ def model_options_phase(tfm, serving, fa, pa, tele, cfg, prompts, looping):
 # ---------------------------------------------------------------------------
 
 ELASTIC_WORKERS = 3
-ELASTIC_STEPS = 40
+ELASTIC_STEPS = 30       # bounded by the smoke's time limit
 ELASTIC_KILL_AT = 21     # a worker is SIGKILLed once this step is seen
 ELASTIC_GROW_AT = 23     # the world grows once world 2 has reached it
 ELASTIC_LAYERS = 2       # the flagship's widths at depth 2 (see the phase)
@@ -4497,11 +4553,11 @@ class _FleetProc:
     read from the line it prints once it listens (``--port 0`` or a
     given port)."""
 
-    def __init__(self, name, argv, env):
-        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    def __init__(self, name, argv, env, log_dir=None):
+        log_dir = log_dir or os.path.join(ROOT, "chiprun_out")
+        os.makedirs(log_dir, exist_ok=True)
         self.name = name
-        self.log_path = os.path.join(ROOT, "chiprun_out",
-                                     f"router_{name}.log")
+        self.log_path = os.path.join(log_dir, f"router_{name}.log")
         self.log = open(self.log_path, "w")
         self.t_spawn = time.monotonic()
         self.p = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT,
@@ -4521,7 +4577,7 @@ class _FleetProc:
                 break
             check(self.p.poll() is None,
                   f"router phase: {self.name} exited {self.p.returncode} "
-                  f"before it listened (chiprun_out/router_{self.name}.log)")
+                  f"before it listened ({self.log_path})")
             check(time.monotonic() < deadline,
                   f"router phase: {self.name} never listened")
             time.sleep(0.05)
@@ -4561,10 +4617,10 @@ def _fleet_env():
     return env
 
 
-def _replica(name, env, port=0):
-    return _FleetProc(name, ["dmlc_tpu_torch.serving.serve", "--model",
-                             "flagship", "--seed", "0", "--port", str(port)],
-                      env)
+def _replica(name, env, port=0, model=("--model", "flagship"), log_dir=None):
+    return _FleetProc(name, ["dmlc_tpu_torch.serving.serve", *model,
+                             "--seed", "0", "--port", str(port)],
+                      env, log_dir)
 
 
 def _replica_state(router_url, url):
@@ -4857,6 +4913,612 @@ def router_phase(smi, serving, vocab):
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8d: the fleet — the port's autoscaler over the port's router funds a
+# third flagship replica by preempting a rank of a background elastic
+# training job, drains it when the load is gone, and the job grows back
+# ---------------------------------------------------------------------------
+
+FLEET_FEATURES, FLEET_RECORDS, FLEET_STEPS = 7, 240, 60
+FLEET_HOLDS = (20, 40)     # both ranks park at each until the harness says go
+FLEET_LR, FLEET_PACE_S = 0.05, 0.2
+FLEET_LOSS_RTOL = 1e-6                    # rank 0's losses vs the oracle
+FLEET_W_TOL = dict(rtol=1e-6, atol=1e-9)  # the final weights vs the oracle
+FLEET_SCALER = dict(interval_s=0.3, high_water=0.7, low_water=0.15,
+                    hysteresis=2, cooldown_s=3.0, min_replicas=2,
+                    max_replicas=3)
+# the job's own tracker: a beat late by seconds on a loaded host must not
+# declare a parked rank dead (the victim leaves by the remove list)
+FLEET_MISS_WINDOW_S, FLEET_GRACE_S = 6.0, 2.0
+FLEET_JOB_ENV = {"DMLC_COLL_SHM_TIMEOUT_S": "12",
+                 "DMLC_CLIENT_OP_TIMEOUT_S": "120"}
+FLEET_SPIKE = dict(n_streams=16, requests_per_stream=6, prompt_len=(17, 511),
+                   max_tokens=32, seed=0)
+FLEET_TAIL = dict(n_streams=2, requests_per_stream=10, prompt_len=(17, 511),
+                  max_tokens=32, seed=1)
+FLEET_TENANT_STREAMS, FLEET_TENANT_REQUESTS = 3, 8   # a tenant, a stream
+FLEET_TIMEOUT_S = 300     # bound on each wait of the phase
+#: the card's run; ``tests/test_torch_fleet.py`` passes a tiny model on the
+#: CPU, with ``dir`` and ``log_dir`` under its own temporary directory
+FLEET_RUN = dict(model=("--model", "flagship"), device="cuda", dir=None,
+                 log_dir=None)
+FLEET_CHAIN = ("autoscale_verdict", "preempt_acquire", "preempt_kill_rank",
+               "preempt_resize", "preempt_replica_added", "scale_up")
+FLEET_RESTORE = ("autoscale_verdict", "preempt_release",
+                 "preempt_relaunch_rank", "preempt_restore_resize",
+                 "scale_down")
+
+
+def fleet_rows():
+    """The job's records: 7 features and a label a row, float32, from seed
+    42 (the reference fleet smoke's data)."""
+    rng = np.random.default_rng(42)
+    w_true = rng.standard_normal(FLEET_FEATURES)
+    x = rng.standard_normal((FLEET_RECORDS, FLEET_FEATURES))
+    y = x @ w_true + 0.01 * rng.standard_normal(FLEET_RECORDS)
+    return np.concatenate([x, y[:, None]], axis=1).astype(np.float32)
+
+
+def fleet_oracle(rows):
+    """The uninterrupted full-batch trajectory in numpy float64: the loss
+    before each step and the final weights."""
+    m = rows.astype(np.float64)
+    x, y = m[:, :FLEET_FEATURES], m[:, FLEET_FEATURES]
+    w = np.zeros(FLEET_FEATURES)
+    losses = []
+    for _ in range(FLEET_STEPS):
+        r = x @ w - y
+        losses.append(0.5 * float(r @ r) / len(y))
+        w = w - FLEET_LR * (x.T @ r) / len(y)
+    return losses, w
+
+
+def fleet_worker(argv) -> int:
+    """One rank of the fleet phase's background job (``chip_smoke.py
+    --fleet-worker``, env ``FLEET_DIR``, ``FLEET_DEVICE`` and the tracker's):
+    full-batch least squares over its partition of ``data.rec``, the
+    gradient and loss in float64 on ``FLEET_DEVICE`` and summed over the
+    world by ``TrackerClient.allreduce_sum``; rank 0 checkpoints every step
+    and logs its loss.  Both ranks park at each hold step until the
+    harness writes ``resume.<step>`` (a ``parked.<rank>.<step>`` file says
+    they are there), servicing resizes meanwhile."""
+    sys.path.insert(0, ROOT)
+    from dmlc_tpu_torch.checkpoint import CheckpointManager
+    from dmlc_tpu_torch.io import input_split
+    from dmlc_tpu_torch.telemetry import HeartbeatSender
+    from dmlc_tpu_torch.tracker.client import TrackerClient, WorldResized
+
+    del argv
+    root = os.environ["FLEET_DIR"]
+    device = torch.device(os.environ["FLEET_DEVICE"])
+    manager = CheckpointManager(os.path.join(root, "ckpt"), max_to_keep=3)
+
+    def load_part(rank, world):
+        split = input_split.create(os.path.join(root, "data.rec"), rank,
+                                   world, "recordio", threaded=False)
+        rows = [np.frombuffer(bytes(r), np.float32) for r in split]
+        split.close()
+        m = (np.stack(rows) if rows else
+             np.zeros((0, FLEET_FEATURES + 1), np.float32))
+        m = torch.from_numpy(m.astype(np.float64)).to(device)
+        return m[:, :FLEET_FEATURES], m[:, FLEET_FEATURES]
+
+    def grad_and_loss(x, y, w):
+        r = x @ torch.from_numpy(w).to(device) - y
+        return torch.cat([x.T @ r, x.new_tensor([len(y)]),
+                          (0.5 * (r @ r)).reshape(1)]).cpu().numpy()
+
+    c = TrackerClient().start()
+    hb = HeartbeatSender(c, interval=0.2)
+    hb.send_once()
+    w, step = np.zeros(FLEET_FEATURES), 0
+    x, y = load_part(c.rank, c.world_size)
+    need_sync = True
+    while step < FLEET_STEPS:
+        try:
+            if need_sync:
+                if c.rank == 0:
+                    got, restored = manager.restore_latest({"w": w})
+                    if got is not None:
+                        w, step = restored["w"].astype(np.float64), got
+                    payload = np.concatenate([w, [float(step)]])
+                else:
+                    payload = np.zeros(FLEET_FEATURES + 1)
+                payload = c.broadcast(payload, root=0)
+                w, step = payload[:FLEET_FEATURES], int(payload[-1])
+                x, y = load_part(c.rank, c.world_size)
+                with open(os.path.join(root, f"rank.{c.rank}"), "w") as f:
+                    f.write(str(os.getpid()))
+                need_sync = False
+            for hold in FLEET_HOLDS:
+                if step == hold and not os.path.exists(
+                        os.path.join(root, f"resume.{hold}")):
+                    open(os.path.join(root, f"parked.{c.rank}.{hold}"),
+                         "w").close()
+                    while not os.path.exists(
+                            os.path.join(root, f"resume.{hold}")):
+                        c.check_resized()
+                        time.sleep(0.1)
+            c.check_resized()
+            tot = c.allreduce_sum(grad_and_loss(x, y, w))
+        except WorldResized:
+            c.resize()
+            need_sync = True
+            continue
+        w = w - FLEET_LR * tot[:FLEET_FEATURES] / tot[FLEET_FEATURES]
+        loss = tot[FLEET_FEATURES + 1] / tot[FLEET_FEATURES]
+        step += 1
+        if c.rank == 0:
+            manager.save(step, {"w": w})
+            with open(os.path.join(root, "loss.log"), "a") as f:
+                f.write(f"{step} {loss:.17e}\n")
+        time.sleep(FLEET_PACE_S)
+    if c.rank == 0:
+        np.save(os.path.join(root, "w_final.npy"), w)
+    hb.close()
+    c.shutdown()
+    return 0
+
+
+def _fleet_losses(root):
+    losses = {}
+    path = os.path.join(root, "loss.log")
+    if os.path.exists(path):
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) == 2:
+                    losses[int(parts[0])] = float(parts[1])  # last wins
+    return losses
+
+
+def _fleet_wait(cond, what, deadline, scaler=None):
+    while not cond():
+        check(time.monotonic() < deadline, f"fleet phase: {what}"
+              + (f"; /fleet {json.dumps(scaler.report())}" if scaler else ""))
+        time.sleep(0.05)
+
+
+def _chain_at(decisions, chain, verdict, start=0):
+    """Indexes of ``chain`` as an in-order subsequence of ``decisions``
+    from ``start`` (the verdict must be ``verdict``), or None."""
+    hits, k = [], 0
+    for i in range(start, len(decisions)):
+        if k == len(chain):
+            break
+        d = decisions[i]
+        if d.get("kind") != chain[k] or (
+                chain[k] == "autoscale_verdict"
+                and d.get("verdict") != verdict):
+            continue
+        hits.append(i)
+        k += 1
+    return hits if k == len(chain) else None
+
+
+def fleet_phase(smi, serving, vocab, run=None):
+    """Two flagship replicas behind the port's ``Router`` and ``Autoscaler``
+    while a 2-rank elastic job trains beside them: a spike preempts rank 1
+    to fund a third replica, the tail sees it drained, the job grows back
+    and finishes on the oracle's losses, then two tenants share a bucket
+    (see the module docstring's ``fleet`` entry for the gates).  Returns
+    the phase's line and K1/K4 launches summed over the three replicas
+    (zeros on the CPU, where the replicas run the plain versions)."""
+    from dmlc_tpu_torch import telemetry as tele
+    from dmlc_tpu_torch.fleet import (Autoscaler, ResizeClient,
+                                      TrainingPreemptingProvider)
+    from dmlc_tpu_torch.io.recordio import RecordIOWriter
+    from dmlc_tpu_torch.io.stream import Stream
+    from dmlc_tpu_torch.serving.router import (Router, RouterHTTPServer,
+                                               TenantGovernor)
+    from dmlc_tpu_torch.telemetry import tracecontext
+    from dmlc_tpu_torch.telemetry.exporters import validate_exposition_text
+    from dmlc_tpu_torch.tracker import RabitTracker
+
+    run = {**FLEET_RUN, **(run or {})}
+    card = run["device"] == "cuda"
+    root = run["dir"] or os.path.join(ROOT, "build", "fleet")
+    log_dir = run["log_dir"] or os.path.join(ROOT, "chiprun_out")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    os.makedirs(log_dir, exist_ok=True)
+    t_phase = time.perf_counter()
+    shm0 = _dmlc_shm()
+    tele.reset()
+    tele.reset_events()
+    tracecontext.reset_decisions()
+    env = _fleet_env()
+    if not card:   # the CPU run shares its host with the caller's tests
+        env["OMP_NUM_THREADS"] = "1"
+    line = {"phase": "fleet", "card": smi, "model": run["model"][1],
+            "scaler": dict(FLEET_SCALER), "spike": dict(FLEET_SPIKE),
+            "tail": dict(FLEET_TAIL), "job": {
+                "features": FLEET_FEATURES, "records": FLEET_RECORDS,
+                "steps": FLEET_STEPS, "holds": list(FLEET_HOLDS),
+                "lr": FLEET_LR, "pace_s": FLEET_PACE_S,
+                "device": run["device"]}}
+
+    rows = fleet_rows()
+    with Stream.create(os.path.join(root, "data.rec"), "w") as s:
+        writer = RecordIOWriter(s)
+        for row in rows:
+            writer.write_record(row.tobytes())
+    oracle, oracle_w = fleet_oracle(rows)
+
+    tracker = RabitTracker("127.0.0.1", 2, metrics_port=0,
+                           miss_window_s=FLEET_MISS_WINDOW_S, elastic=True,
+                           elastic_grace_s=FLEET_GRACE_S)
+    tracker.start(2)
+    metrics_url = f"http://127.0.0.1:{tracker.metrics_port}"
+    workers, logs = [], []
+
+    def spawn_worker(task):
+        log = open(os.path.join(log_dir, f"fleet_worker_{task}.log"), "w")
+        logs.append(log)
+        wenv = dict(env, **FLEET_JOB_ENV, FLEET_DIR=root,
+                    FLEET_DEVICE=run["device"],
+                    DMLC_TRACKER_URI="127.0.0.1",
+                    DMLC_TRACKER_PORT=str(tracker.port),
+                    DMLC_TASK_ID=str(task))
+        workers.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--fleet-worker"], cwd=ROOT, env=wenv, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True))
+
+    def elastic():
+        return http(metrics_url + "/healthz", timeout=30)[1]["elastic"]
+
+    procs, marks, drained = {}, {}, {}
+    resizes = []
+    router = server = scaler = None
+
+    class TimedResize(ResizeClient):
+        def resize(self, world, remove=None):
+            t0 = time.time()
+            doc = super().resize(world, remove)
+            resizes.append({"world": world, "remove": remove, "t0": t0,
+                            "t1": time.time()})
+            return doc
+
+    def kill_rank(rank):
+        with open(os.path.join(root, f"rank.{rank}")) as f:
+            pid = int(f.read())
+        marks["kill0"] = time.time()
+        os.kill(pid, signal.SIGKILL)
+        victim = next(p for p in workers if p.pid == pid)
+        victim.wait(timeout=60)
+        marks.update(kill1=time.time(), victim_pid=pid)
+
+    def launch_replica(rank):
+        del rank
+        marks["spawn"] = time.time()
+        procs["C"] = _replica("C", env, model=run["model"], log_dir=log_dir)
+        url = procs["C"].wait_url("serve:")
+        marks["listen"] = time.time()
+        code, doc = http(url + "/generate", {"prompt": list(range(1, 18)),
+                                             "max_tokens": 8})
+        marks["warm"] = time.time()
+        if card:
+            marks["c_base"] = _launches(url)
+        check(code == 200, f"fleet phase: C's warm-up {code} {doc}")
+        return url
+
+    def stop_replica(url):
+        marks["stop"] = time.time()
+        if card:
+            marks["c_end"] = _launches(url)
+        os.kill(procs["C"].p.pid, signal.SIGTERM)
+        drained["rc"] = procs["C"].p.wait(timeout=240)
+        marks["exit"] = time.time()
+        with open(procs["C"].log_path) as f:
+            drained["line"] = "drained, exiting" in f.read()
+
+    def relaunch_rank(rank):
+        marks["relaunch"] = time.time()
+        spawn_worker(10 + rank)
+
+    try:
+        for task in range(2):
+            spawn_worker(task)
+        procs["A"] = _replica("A", env, model=run["model"], log_dir=log_dir)
+        procs["B"] = _replica("B", env, model=run["model"], log_dir=log_dir)
+        A, B = procs["A"].wait_url("serve:"), procs["B"].wait_url("serve:")
+        line["replica_start_s"] = {n: procs[n].t_listen - procs[n].t_spawn
+                                   for n in ("A", "B")}
+        for url in (A, B):
+            code, doc = http(url + "/generate", {"prompt": list(range(1, 18)),
+                                                 "max_tokens": 8})
+            check(code == 200, f"fleet phase: warm-up at {url}: {doc}")
+        base = {"A": _launches(A), "B": _launches(B)} if card else {}
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        _fleet_wait(lambda: all(os.path.exists(os.path.join(
+            root, f"parked.{r}.{FLEET_HOLDS[0]}")) for r in (0, 1)),
+            f"the job's 2 ranks never parked at step {FLEET_HOLDS[0]}",
+            deadline)
+        check(tracker.error is None, f"fleet phase: tracker {tracker.error}")
+        el0 = elastic()
+        check(el0["world"] == 2, f"fleet phase: job world {el0}")
+
+        gov = TenantGovernor(rate=0.0, burst_s=1.0,
+                             weights={"paid": 50.0, "free": 1.0})
+        router = Router([A, B], health_interval_s=ROUTER_HEALTH_S,
+                        probe_base_s=ROUTER_HEALTH_S,
+                        probe_max_s=ROUTER_PROBE_MAX_S, retries=3,
+                        dispatch_timeout_s=120.0, request_timeout_s=240.0,
+                        tenants=gov)
+        registered = threading.Event()
+        add, set_draining = router.add_replica, router.set_draining
+
+        def added(url):
+            rep = add(url)
+            marks["registered"] = time.time()
+            registered.set()
+            return rep
+
+        def draining(url):
+            marks["draining"] = time.time()
+            return set_draining(url)
+
+        router.add_replica, router.set_draining = added, draining
+        provider = TrainingPreemptingProvider(
+            TimedResize(metrics_url), full_world=2, kill_rank=kill_rank,
+            launch_replica=launch_replica, stop_replica=stop_replica,
+            relaunch_rank=relaunch_rank, min_world=1)
+        scaler = Autoscaler(router, provider, **FLEET_SCALER)
+        server = RouterHTTPServer(router, port=0,
+                                  fleet_source=lambda: scaler)
+        R = server.url
+        _fleet_wait(lambda: router.counts()["healthy"] == 2,
+                    "the router never saw 2 healthy replicas",
+                    time.monotonic() + 60)
+        scaler.start()
+
+        # the spike: each stream's last request waits until the scaled
+        # replica is registered (no wait when it landed before), so the
+        # third replica takes part of it however fast the first five are
+        waits = []
+        last = FLEET_SPIKE["requests_per_stream"]
+        mine = threading.local()
+
+        class Spike(serving.LoadGenerator):
+            def _post(self, doc, headers=None):
+                ids = mine.__dict__.setdefault("ids", set())
+                if doc["request_id"] not in ids:
+                    ids.add(doc["request_id"])
+                    if len(ids) == last and not registered.is_set():
+                        t0 = time.monotonic()
+                        registered.wait(FLEET_TIMEOUT_S)
+                        with self._lock:
+                            waits.append(time.monotonic() - t0)
+                return super()._post(doc, headers)
+
+        spike = Spike(R, vocab=vocab, **FLEET_SPIKE)
+        spike_sum = {}
+        runner = threading.Thread(target=lambda: spike_sum.update(
+            spike.run()), daemon=True)
+        runner.start()
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        _fleet_wait(lambda: scaler.report()["counters"]["scale_ups"] >= 1,
+                    "the spike never triggered a scale-up", deadline, scaler)
+        rep = scaler.report()
+        st = rep["provider"]
+        el1 = elastic()
+        check(rep["replicas"] == 3 and len(rep["owned"]) == 1
+              and st["training_world"] == 1 and st["preemptions"] == 1
+              and el1["world"] == 1,
+              f"fleet phase: scale-up: {json.dumps(rep)}, tracker {el1}")
+        C = rep["owned"][0]
+        open(os.path.join(root, f"resume.{FLEET_HOLDS[0]}"), "w").close()
+        runner.join(FLEET_TIMEOUT_S)
+        check(not runner.is_alive(), "fleet phase: the spike wedged")
+        n_spike = FLEET_SPIKE["n_streams"] * last
+        by = [r.get("served_by") for r in spike.results]
+        check(spike_sum["n_requests_ok"] == n_spike and not spike.failures
+              and spike_sum["n_backoffs_503"] == 0,
+              f"fleet phase: spike {spike_sum} {spike.failures[:2]}")
+        check(by.count(C) >= 1, "fleet phase: C served none of the spike")
+        verdict = next(d for d in tracecontext.decision_log().tail(1024)
+                       if d["kind"] == "autoscale_verdict"
+                       and d["verdict"] == "scale_up")
+        ack = resizes[0]
+        line["scale_up"] = {
+            "verdict_to_registered_s": marks["registered"] - verdict["t"],
+            "verdict_to_kill_s": marks["kill0"] - verdict["t"],
+            "kill_s": marks["kill1"] - marks["kill0"],
+            "resize_ack_s": ack["t1"] - ack["t0"],
+            "spawn_to_listening_s": marks["listen"] - marks["spawn"],
+            "warm_up_s": marks["warm"] - marks["listen"],
+            "warm_to_registered_s": marks["registered"] - marks["warm"],
+            "verdict": {k: verdict[k] for k in (
+                "util", "high_streak", "replicas")},
+            "tracker": {"world": el1["world"], "gen": el1["gen"]}}
+        line["spike"].update(
+            _load_numbers(spike_sum), served_by={
+                n: by.count(u) for n, u in (("A", A), ("B", B), ("C", C))},
+            streams_held=len(waits), held_s_max=max(waits, default=0.0))
+
+        # the tail: the controller drains C and gives the rank back
+        tail = serving.LoadGenerator(R, vocab=vocab, **FLEET_TAIL)
+        tail_sum = {}
+        runner = threading.Thread(target=lambda: tail_sum.update(
+            tail.run()), daemon=True)
+        runner.start()
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        _fleet_wait(lambda: scaler.report()["counters"]["scale_downs"] >= 1,
+                    "scale-down never fired", deadline, scaler)
+        _fleet_wait(lambda: elastic()["gen"] > el1["gen"],
+                    "the grow generation never opened", deadline)
+        marks["grow"] = time.time()
+        open(os.path.join(root, f"resume.{FLEET_HOLDS[1]}"), "w").close()
+        runner.join(FLEET_TIMEOUT_S)
+        check(not runner.is_alive(), "fleet phase: the tail wedged")
+        _, metrics = http(R + "/metrics")
+        n_tail = FLEET_TAIL["n_streams"] * FLEET_TAIL["requests_per_stream"]
+        http_503 = _metric(metrics, "dmlc_router_http_503")
+        check(tail_sum["n_requests_ok"] == n_tail and not tail.failures
+              and tail_sum["n_backoffs_503"] == 0 and http_503 == 0,
+              f"fleet phase: tail {tail_sum} {tail.failures[:2]}, router "
+              f"503s {http_503}")
+        check(drained.get("rc") == 0 and drained.get("line"),
+              f"fleet phase: C's drain: exit {drained.get('rc')}, drain "
+              f"line {drained.get('line')} ({procs['C'].log_path})")
+        rep = scaler.report()
+        check(rep["replicas"] == 2 and not rep["owned"],
+              f"fleet phase: after the scale-down {json.dumps(rep)}")
+        by = [r.get("served_by") for r in tail.results]
+        line["tail"].update(
+            _load_numbers(tail_sum),
+            served_by={n: by.count(u) for n, u in (("A", A), ("B", B),
+                                                   ("C", C))},
+            http_503=http_503,
+            drain_shifts=_metric(metrics, "dmlc_router_drain_shifts"),
+            draining_to_exit_s=marks["exit"] - marks["draining"],
+            draining_to_sigterm_s=marks["stop"] - marks["draining"])
+
+        # the job grows back to 2 and finishes on the oracle's numbers
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        _fleet_wait(lambda: elastic()["world"] == 2,
+                    "the job never grew back to world 2", deadline)
+        el2 = elastic()
+        exits = {}
+        for p in workers:
+            try:
+                exits[p.pid] = p.wait(timeout=max(
+                    1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                at = max(_fleet_losses(root), default=0)
+                check(False, f"fleet phase: worker {p.pid} never finished "
+                      f"(loss log at step {at})")
+        victim = marks["victim_pid"]
+        others = [rc for pid, rc in exits.items() if pid != victim]
+        check(exits.get(victim) == -signal.SIGKILL and others == [0, 0],
+              f"fleet phase: worker exits {exits} (victim {victim})")
+        losses = _fleet_losses(root)
+        check(sorted(losses) == list(range(1, FLEET_STEPS + 1)),
+              f"fleet phase: loss log steps {sorted(losses)}")
+        worst = max(abs(losses[s + 1] - oracle[s]) / abs(oracle[s])
+                    for s in range(FLEET_STEPS))
+        w_final = np.load(os.path.join(root, "w_final.npy"))
+        check(worst <= FLEET_LOSS_RTOL and np.allclose(
+            w_final, oracle_w, **FLEET_W_TOL),
+            f"fleet phase: loss max rel {worst} (<= {FLEET_LOSS_RTOL}); "
+            f"weights {w_final} vs {oracle_w}")
+        line["job"].update(
+            max_rel_loss_err=worst,
+            max_abs_w_err=float(np.abs(w_final - oracle_w).max()),
+            worlds=[el0["world"], el1["world"], el2["world"]],
+            gens=[el0["gen"], el1["gen"], el2["gen"]],
+            resizes=[{k: r[k] for k in ("world", "remove")}
+                     | {"ack_s": r["t1"] - r["t0"]} for r in resizes],
+            relaunch_to_grow_s=marks["grow"] - marks["relaunch"],
+            exits=sorted(exits.values()))
+
+        # two tenants under an enforcing bucket
+        gov.rate = 2.0
+        fair = serving.LoadGenerator(
+            R, vocab=vocab, prompt_len=(17, 64), max_tokens=4, seed=2,
+            requests_per_stream=FLEET_TENANT_REQUESTS,
+            tenants=[{"tenant": "paid", "streams": FLEET_TENANT_STREAMS,
+                      "priority": "interactive"},
+                     {"tenant": "free", "streams": FLEET_TENANT_STREAMS,
+                      "priority": "batch"}])
+        fair_sum = fair.run()
+        gov.rate = 0.0
+        per = fair_sum.get("tenants") or {}
+        check(not fair.failures and {"paid", "free"} <= set(per)
+              and per["free"]["n_rejections_429"] >= 1
+              and per["paid"]["n_rejections_429"] == 0,
+              f"fleet phase: tenants {json.dumps(per)} {fair.failures[:2]}")
+        line["tenants"] = {t: {k: per[t][k] for k in (
+            "n_requests_ok", "n_rejections_429", "p50_ttft_s", "p99_ttft_s")}
+            for t in ("paid", "free")}
+
+        # what the front door shows
+        _, text = http(R + "/metrics")
+        validate_exposition_text(text)
+        for needle in ("dmlc_fleet_replicas 2", "dmlc_fleet_owned_replicas 0",
+                       "dmlc_fleet_scale_ups_total 1",
+                       "dmlc_fleet_scale_downs_total 1",
+                       'dmlc_tenant_admitted_total{tenant="paid"}',
+                       'dmlc_tenant_rejected_total{tenant="free"}',
+                       'dmlc_tenant_rejected_total{tenant="paid"} 0'):
+            check(needle in text, f"fleet phase: {needle} not on /metrics")
+        _, fleet_doc = http(R + "/fleet")
+        check(fleet_doc["counters"]["scale_ups"] == 1
+              and fleet_doc["counters"]["scale_downs"] == 1
+              and fleet_doc["provider"]["restores"] == 1,
+              f"fleet phase: /fleet {json.dumps(fleet_doc)[:600]}")
+        _, dec_doc = http(R + "/decisions")
+        dec = dec_doc["decisions"]
+        up = _chain_at(dec, FLEET_CHAIN, "scale_up")
+        down = up and _chain_at(dec, FLEET_RESTORE, "scale_down",
+                                up[-1] + 1)
+        check(up and down and dec[up[2]]["victim_rank"] == 1
+              and any(d["kind"] == "tenant_rejected"
+                      and d.get("tenant") == "free" for d in dec),
+              f"fleet phase: /decisions {[d['kind'] for d in dec]}")
+        _, inc_doc = http(R + "/incidents")
+        episodes = [inc for inc in inc_doc.get("incidents") or ()
+                    if set(FLEET_CHAIN) <= set(inc.get("decision_kinds")
+                                               or ())]
+        check(len(episodes) == 1 and episodes[0].get("summary"),
+              f"fleet phase: /incidents {json.dumps(inc_doc)[:800]}")
+        line["exposition"] = {
+            "fleet": {k: fleet_doc[k] for k in ("counters", "provider",
+                                                "last_decision")},
+            "decisions": len(dec),
+            "chain_seqs": [dec[i]["seq"] for i in up + down],
+            "incident": {k: episodes[0].get(k) for k in (
+                "id", "duration_s", "summary", "decision_kinds")}}
+
+        # K1 and K4 in all three replicas: A and B from their warm-up on,
+        # C from its warm-up to its drain
+        launches = {"flash_fwd": 0, "paged_attention": 0}
+        if card:
+            per_rep = {n: {k: v - base[n][k] for k, v in
+                           _launches(u).items()}
+                       for n, u in (("A", A), ("B", B))}
+            per_rep["C"] = marks["c_end"]
+            check(all(v > 0 for d in per_rep.values() for v in d.values())
+                  and all(marks["c_end"][k] > marks["c_base"][k]
+                          for k in launches),
+                  f"fleet phase: K1/K4 launches {per_rep}, C after its "
+                  f"warm-up {marks['c_base']}")
+            line["launches"] = per_rep
+            launches = {k: sum(d[k] for d in per_rep.values())
+                        for k in launches}
+        scaler.close()
+        for n in ("A", "B"):
+            os.kill(procs[n].p.pid, signal.SIGTERM)
+        line["exit_codes"] = {n: procs[n].p.wait(timeout=120)
+                              for n in ("A", "B")}
+        check(line["exit_codes"] == {"A": 0, "B": 0},
+              f"fleet phase: exits {line['exit_codes']}")
+    finally:
+        if scaler is not None:
+            scaler.close()
+        if server is not None:
+            server.close()
+        if router is not None:
+            router.close()
+        left = [n for n, p in procs.items() if p.kill()]
+        for p in workers:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+                left.append(p.pid)
+            except ProcessLookupError:
+                pass
+            p.wait(timeout=60)
+        for log in logs:
+            log.close()
+        tracker.close()
+    check(not left, f"fleet phase: processes left behind: {left}")
+    check(_dmlc_shm() <= shm0, "fleet phase: /dev/shm/dmlc* left behind")
+    shutil.rmtree(root, ignore_errors=True)
+    line["wall_s"] = time.perf_counter() - t_phase
+    return line, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs on the GPU",
@@ -5015,6 +5677,14 @@ def main() -> int:
                                                          cfg.vocab)
     emit(router_doc)
 
+    # 8d. the fleet: the port's autoscaler funds a third replica by
+    # preempting a rank of a background elastic job, drains it, and the
+    # job grows back
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet_doc, option_launches["fleet"] = fleet_phase(smi, serving, cfg.vocab)
+    emit(fleet_doc)
+
     # 9. the kernels line: each kernel's launches on its own path (K1 and
     # K4 serving, K2 and K3 training; K1 also runs 16 times per train
     # step), and on the spine's, the routed flagship's and the self-heal
@@ -5078,6 +5748,8 @@ if __name__ == "__main__":
         sys.exit(mesh_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--mesh5-worker"]:
         sys.exit(mesh5_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        sys.exit(fleet_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--gloo-probe"]:
         sys.exit(gloo_probe_worker(sys.argv[2:]))
     sys.exit(main())

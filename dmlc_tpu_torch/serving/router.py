@@ -1361,8 +1361,15 @@ class RouterHTTPServer:
             def log_message(self, fmt, *args):
                 logger.debug("router http: " + fmt, *args)
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
-        self._httpd.daemon_threads = True
+        class _Server(ThreadingHTTPServer):
+            # a burst of simultaneous client connects (every stream of a
+            # load spike at once) overflows the 5-entry default listen
+            # backlog and the kernel resets the overflow; size it as the
+            # replicas' server does
+            daemon_threads = True
+            request_queue_size = 128
+
+        self._httpd = _Server((host, port), Handler)
         self.host = host
         self.port = self._httpd.server_address[1]
         self.router = router

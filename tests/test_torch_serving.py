@@ -231,7 +231,8 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         # the fleet front door and its entry are walked like the rest
-        f"assert {{'{pkg}.serving.router', '{pkg}.serving.route'}}"
+        f"assert {{'{pkg}.serving.router', '{pkg}.serving.route',"
+        f" '{pkg}.fleet.autoscaler', '{pkg}.fleet.preempt'}}"
         " <= set(sys.modules)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'dmlc_tpu'))\n"
