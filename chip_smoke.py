@@ -140,7 +140,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
             SIGKILLed after the step-20 commit, the survivors shrink to
             2, ``POST /resize {"world": 3}`` and a fresh worker (started
             at the kill, entering the job after the request) grow the
-            world back, 30 steps in all.  Gates: both resizes on every
+            world back, 26 steps in all.  Gates: both resizes on every
             survivor (resynced at step 20, then at world 3), /metrics
             ``dmlc_elastic_resizes_total`` >= 2, every step's loss one
             value on every rank, finite and falling, equal final-param
@@ -239,6 +239,41 @@ Phases, each printing one JSON line (any failure exits non-zero):
             memory, pp bytes staged, all-reduce bytes, buckets and the
             exposed (dp, sp) wait a step a rank, save and restore
             seconds
+   shard_serve  sharded serving (after ``mesh5``, under
+            ``build/shard_serve``, removed after): first K1 (B=1, T=512)
+            and K4 (B=8, S in {1, 4}, the paged phase's engine lengths)
+            at a tp=2 rank's 8 heads, bf16, against their plain versions,
+            timed beside SDPA; then 4 workers of the port's launcher
+            sharing the card over gloo (each ``chip_smoke.py
+            --shard-serve-worker``: ``initialize_distributed()``,
+            ``build_mesh(dp=2, tp=2)``), the flagship at full width and
+            depth from seed 0 as the slice phase builds it, each rank
+            its shards (8 heads, half of d_ff and vocab).  Each run
+            builds ``InferenceEngine(model, mesh=mesh)`` on every rank:
+            rank 0 serves it behind the port's HTTP server, ranks 1-3
+            run ``follow()``.  After one short warm-up request (as the
+            slice phase's), runs: the slice phase's 8 requests on
+            ``auto`` (the gather path, the batch padded to 8 and split
+            over dp) at spec_k 0, its 8 looping ones at spec_k 3, the 8
+            again under ``DMLC_SERVE_PAGED_ATTN=on`` (K4 on each rank's
+            heads, the batch whole on each dp rank).  Gates: every
+            request 200 with 32 tokens; on every rank, counted from 0
+            just before each run, K1 ``n_layers`` a prefill, K4 none on
+            the gather runs and ``n_layers`` a decode step on the paged
+            one; every rank exits 0 and no process is left; a float32
+            copy at depth 2 on the same mesh (gather at spec_k 0 and 3,
+            paged at 0) gives the greedy tokens of a one-card f32
+            engine on rank 0, and its sharded prefill (T=512) and decode
+            step (B=8, contexts 17..511, both paths) are within 1e-4
+            relative of the one-card forwards.  Numbers: tokens/s, TTFT
+            p50/p99, decode step p50, gap p99 per run beside the
+            one-card slice and gather runs; the bf16 streams' agreement
+            with the slice's (reported); rank 0's collective calls and
+            bytes per decode step and the bytes the port stages through
+            pinned host memory (per run, and one counted step a path at
+            full depth) and its counted decode cost over the global
+            step's FLOPs (reported); spawn → first request served; the
+            phase wall
    telemetry  the port's ``LoadGenerator`` drives the port's server (the
             flagship, spec_k=3, seed 0): 8 streams x 2 requests, prompts
             of 17..511 tokens, 32 new tokens; gates: /metrics parses as
@@ -276,8 +311,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    tracker  dmlc-core's tracker, launcher and host collectives, run as
             ``python -m dmlc_tpu_torch.tracker.submit --cluster local
             --num-workers 4`` jobs on the sparse phase's files before
-            they are removed: ``train_libsvm`` on the first 393216 rows
-            of the Criteo-shaped file (half of it: the smoke's time
+            they are removed: ``train_libsvm`` on the first 196608 rows
+            of the Criteo-shaped file (a quarter of it: the smoke's time
             limit; 2 epochs, a [2^20] weight on the card,
             an 8 MB f64 gradient allreduced every step) — gates: every
             rank logs both epochs, the mean epoch loss falls, the four
@@ -378,10 +413,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
             ``path_launches`` on the gather path, the routed serving and
             train paths, the self-heal runs, the elastic job, the mesh
             phase's ring, Ulysses and train runs, the mesh5 gangs'
-            timed steps, the router phase's replicas and the fleet
-            phase's three),
-            max error, times and roofline bound; K1's ``ring_step`` and
-            ``mesh5_shapes`` rows
+            timed steps, the shard_serve ranks' three runs, the router
+            phase's replicas and the fleet phase's three),
+            max error, times and roofline bound; K1's ``ring_step``,
+            ``mesh5_shapes`` and ``shard_serve_shape`` rows, K4's
+            ``shard_serve_shapes``
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits with code 2 and prints no result.  Details go to
@@ -764,7 +800,8 @@ def flash_bwd_phase(fa):
 # phase 4: K4
 # ---------------------------------------------------------------------------
 
-def paged_case(pa, gen, *, dtype, s_w, lengths, w, b=8, h=16, d=128, bs=16):
+def paged_case(pa, gen, *, dtype, s_w, lengths, w, b=8, h=16, d=128, bs=16,
+               phase="paged"):
     n_blocks = b * w
     kp = torch.randn((n_blocks, bs, h, d), generator=gen,
                      device="cuda").to(dtype)
@@ -803,7 +840,7 @@ def paged_case(pa, gen, *, dtype, s_w, lengths, w, b=8, h=16, d=128, bs=16):
                 for n in lengths)
     bnd, by = bound_ms(flops, nbytes, dtype)
     row = {
-        "phase": "paged", "dtype": str(dtype).split(".")[1], "B": b,
+        "phase": phase, "dtype": str(dtype).split(".")[1], "B": b,
         "S": s_w, "H": h, "D": d, "block_size": bs, "W": w,
         "lengths": list(lengths), "max_abs_err": mx, "mean_abs_err": mean,
         "bit_identical": same,
@@ -846,6 +883,51 @@ def _site_stats(tele):
             for name, site in tele.compute.sites().items()}
 
 
+def post_prompts(url, prompts, max_tokens):
+    """POST every prompt to ``url``'s /generate at once (one client thread
+    each) and check that each answer is 200 with ``max_tokens`` tokens;
+    returns ``(results, wall seconds, time.time() of the first 200)``
+    with ``results`` the ``(status, document)`` of each prompt."""
+    results = [None] * len(prompts)
+    first = []
+
+    def post(i, prompt):
+        body = json.dumps({"prompt": prompt,
+                           "max_tokens": max_tokens}).encode()
+        req = urllib.request.Request(url + "/generate", data=body,
+                                     headers={"Content-Type":
+                                              "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                results[i] = (r.status, json.loads(r.read()))
+                first.append(time.time())
+        except (OSError, ValueError) as e:   # HTTPError is an OSError
+            results[i] = (None, repr(e))
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=post, args=(i, p))
+               for i, p in enumerate(prompts)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=600)
+    wall = time.perf_counter() - t0
+    for code, doc in results:
+        check(code == 200, f"/generate answered {code}: {doc}")
+        check(doc["state"] == "done" and doc["n_generated"] == max_tokens,
+              f"request {doc['id']}: {doc['state']} {doc['n_generated']}")
+    return results, wall, min(first)
+
+
+def slice_prompts(vocab, prompt_lens):
+    """The slice phase's prompts from seed 0: random ids of each length,
+    and looping ones (a 7-token cycle) for speculative decoding."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
+    loop = rng.integers(0, vocab, 7).tolist()
+    return prompts, [(loop * (n // 7 + 1))[:n] for n in prompt_lens]
+
+
 def serve_batch(serving, model, prompts, spec_k):
     """Start an engine and its HTTP server on the card, POST every prompt
     to /generate at once (one client thread each), and check that each
@@ -866,33 +948,8 @@ def serve_batch(serving, model, prompts, spec_k):
                                   queue_depth=64, spec_k=spec_k)
     eng.start()
     srv = serving.ServingHTTPServer(eng)
-    results = [None] * len(prompts)
-
-    def post(i, prompt):
-        body = json.dumps({"prompt": prompt, "max_tokens": 32}).encode()
-        req = urllib.request.Request(srv.url + "/generate", data=body,
-                                     headers={"Content-Type":
-                                              "application/json"})
-        try:
-            with urllib.request.urlopen(req, timeout=600) as r:
-                results[i] = (r.status, json.loads(r.read()))
-        except (OSError, ValueError) as e:   # HTTPError is an OSError
-            results[i] = (None, repr(e))
-
     try:
-        t0 = time.perf_counter()
-        clients = [threading.Thread(target=post, args=(i, p))
-                   for i, p in enumerate(prompts)]
-        for c in clients:
-            c.start()
-        for c in clients:
-            c.join(timeout=600)
-        wall = time.perf_counter() - t0
-        for code, doc in results:
-            check(code == 200, f"/generate answered {code}: {doc}")
-            check(doc["state"] == "done" and doc["n_generated"] == 32,
-                  f"request {doc['id']}: {doc['state']} "
-                  f"{doc['n_generated']}")
+        results, wall, _ = post_prompts(srv.url, prompts, 32)
         ttft = sorted(doc["ttft_s"] for _, doc in results)
         tokens = sum(doc["n_generated"] for _, doc in results)
         code, comp = http(srv.url + "/compute")
@@ -903,6 +960,7 @@ def serve_batch(serving, model, prompts, spec_k):
         out = {"requests": len(prompts), "spec_k": spec_k, "wall_s": wall,
                "tokens": tokens, "tokens_per_s": tokens / wall,
                "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+               "ttft_p99_s": pctl(ttft, 99),
                "step_p50_s": pctl([r["wall_s"] for r in recs], 50),
                "gap_p99_s": reqs["tbt_p99_s"],
                "compute": compute_doc(model, comp, recs, cost, before,
@@ -1127,36 +1185,38 @@ def telemetry_serving(serving, tele, fa, model, cfg):
         **ledger_cost(tele)}
 
 
-def slice_inputs(cfg):
+def slice_inputs(cfg, device="cuda"):
     """Inputs of one prefill (T=512) and one decode step (B=8, every row
     on the prefilled context, lengths 17..511) at flagship shapes."""
-    gen = torch.Generator("cuda").manual_seed(3)
+    gen = torch.Generator(device).manual_seed(3)
     t, b, w = 512, 8, 40
     return {
         "ids": torch.randint(0, cfg.vocab, (1, t), generator=gen,
-                             device="cuda"),
+                             device=device),
         "dids": torch.randint(0, cfg.vocab, (b, 1), generator=gen,
-                              device="cuda"),
+                              device=device),
         "lengths": torch.tensor([17, 64, 100, 200, 255, 300, 400, 511],
-                                dtype=torch.int32, device="cuda"),
-        "tables": torch.arange(b * w, device="cuda", dtype=torch.int32
+                                dtype=torch.int32, device=device),
+        "tables": torch.arange(b * w, device=device, dtype=torch.int32
                                ).reshape(b, w),
     }
 
 
-def prefill(tfm, model, inp, impl=None):
-    t = inp["ids"].shape[1]
+def prefill(tfm, model, inp, impl=None, **shard):
+    """One prefill of ``inp``'s ids (``shard``: ``axes`` and ``mesh``)."""
+    ids = inp["ids"]
     with torch.inference_mode():
         return tfm.forward_prefill_last(
-            model, inp["ids"], torch.tensor([t - 1], device="cuda"),
-            impl=impl)
+            model, ids, torch.tensor([ids.shape[1] - 1], device=ids.device),
+            impl=impl, **shard)
 
 
-def decode_pools(cfg, k, v, inp, bs=16):
-    """Pools where every decode row holds the prefilled context."""
+def decode_pools(k, v, inp, bs=16):
+    """Pools where every decode row holds the prefilled context ``k``/``v``
+    ``[L, 1, T, H, D]`` (``H`` the heads the caller holds)."""
     b, w = inp["tables"].shape
-    shape = (cfg.n_layers, b * w, bs, cfg.n_heads, cfg.head_dim)
-    kp = torch.zeros(shape, dtype=k.dtype, device="cuda")
+    shape = (k.shape[0], b * w, bs, k.shape[3], k.shape[4])
+    kp = torch.zeros(shape, dtype=k.dtype, device=k.device)
     vp = torch.zeros_like(kp)
     n = k.shape[2] // bs
     for i in range(b):
@@ -1165,11 +1225,11 @@ def decode_pools(cfg, k, v, inp, bs=16):
     return kp, vp
 
 
-def decode(tfm, model, inp, kp, vp, impl=None):
+def decode(tfm, model, inp, kp, vp, impl=None, **shard):
     with torch.inference_mode():
         return tfm.forward_decode_paged(
             model, inp["dids"], inp["lengths"].long()[:, None], kp, vp,
-            inp["tables"], inp["lengths"], impl=impl)
+            inp["tables"], inp["lengths"], impl=impl, **shard)
 
 
 def slice_logits(tfm, model, cfg):
@@ -1179,7 +1239,7 @@ def slice_logits(tfm, model, cfg):
     out = {}
     for impl in (None, "torch"):
         lp, k, v = prefill(tfm, model, inp, impl)
-        kp, vp = decode_pools(cfg, k, v, inp)
+        kp, vp = decode_pools(k, v, inp)
         out[impl] = (lp.float(), decode(tfm, model, inp, kp, vp, impl).float())
     check(all(bool(torch.isfinite(x).all()) for x in out[None]),
           "non-finite logits")
@@ -1214,7 +1274,7 @@ def profile_phase(tfm, model, cfg, train_steps):
 
     inp = slice_inputs(cfg)
     _, k, v = prefill(tfm, model, inp)
-    kp, vp = decode_pools(cfg, k, v, inp)
+    kp, vp = decode_pools(k, v, inp)
     steps = {"prefill": lambda: prefill(tfm, model, inp),
              "decode": lambda: decode(tfm, model, inp, kp, vp),
              **train_steps}
@@ -1360,7 +1420,7 @@ def gather_phase(serving, fa, pa, tfm, model, prompts, looping, paged):
           f"{_agreement(f32['paged'][0], f32['gather'][0])}")
     inp = slice_inputs(cfg2)
     _, k, v = prefill(tfm, m2, inp)
-    kp, vp = decode_pools(cfg2, k, v, inp)
+    kp, vp = decode_pools(k, v, inp)
     b, w = inp["tables"].shape
     with torch.inference_mode():
         got = decode(tfm, m2, inp, kp.clone(), vp.clone())[:, 0]
@@ -2355,18 +2415,19 @@ TRACKER_WORKERS = 4
 GBDT_TOL = 1e-4   # relative: the tree allreduce's fold order vs a local sum
 PARITY_ROWS = 32768   # the head of the Criteo-shaped file, card vs CPU
 PARITY_RTOL = 1e-5    # per-rank epoch losses, card vs --device cpu
-LIBSVM_ROWS = 393216  # train_libsvm's head of the file: half of its rows
+LIBSVM_ROWS = 196608  # train_libsvm's head of the file: a quarter of it
 
 
 def _dmlc_shm():
     return {n for n in os.listdir("/dev/shm") if n.startswith("dmlc")}
 
 
-def _submit(name, argv, timeout, workers=TRACKER_WORKERS):
+def _submit(name, argv, timeout, workers=TRACKER_WORKERS, log_dir=None):
     """One ``python -m dmlc_tpu_torch.tracker.submit --cluster local`` job
     in a session of its own (so a job cut at its timeout is killed whole);
-    its output goes to ``chiprun_out/tracker_<name>.log``.  Fails unless
-    it exits 0 and leaves no process of its session behind."""
+    its output goes to ``tracker_<name>.log`` in ``log_dir`` (default
+    ``chiprun_out``).  Fails unless it exits 0 and leaves no process of
+    its session behind."""
     cmd = [sys.executable, "-m", "dmlc_tpu_torch.tracker.submit",
            "--cluster", "local", "--num-workers", str(workers),
            "--max-attempts", "1", "--host-ip", "127.0.0.1", "--", *argv]
@@ -2382,9 +2443,9 @@ def _submit(name, argv, timeout, workers=TRACKER_WORKERS):
         os.killpg(proc.pid, 9)
         out, err = proc.communicate()
     wall = time.perf_counter() - t0
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", f"tracker_{name}.log"),
-              "w") as f:
+    log_dir = log_dir or os.path.join(ROOT, "chiprun_out")
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, f"tracker_{name}.log"), "w") as f:
         f.write(f"$ {' '.join(cmd)}\nexit {proc.returncode}\n"
                 f"--- stdout\n{out}\n--- stderr\n{err}")
     try:
@@ -3086,7 +3147,7 @@ def model_options_phase(tfm, serving, fa, pa, tele, cfg, prompts, looping):
 # ---------------------------------------------------------------------------
 
 ELASTIC_WORKERS = 3
-ELASTIC_STEPS = 30       # bounded by the smoke's time limit
+ELASTIC_STEPS = 26       # bounded by the smoke's time limit
 ELASTIC_KILL_AT = 21     # a worker is SIGKILLed once this step is seen
 ELASTIC_GROW_AT = 23     # the world grows once world 2 has reached it
 ELASTIC_LAYERS = 2       # the flagship's widths at depth 2 (see the phase)
@@ -3372,8 +3433,8 @@ def elastic_phase(smi):
     """The port's elastic trainer on the card (see the module docstring):
     3 workers under the port's launcher, one SIGKILLed after the first
     commit, the survivors' shrink, ``POST /resize`` and a fresh worker's
-    grow back to 3, 40 steps.  Returns the phase's line and the K1-K3
-    launches summed over the workers."""
+    grow back to 3, ``ELASTIC_STEPS`` steps.  Returns the phase's line
+    and the K1-K3 launches summed over the workers."""
     from dmlc_tpu_torch.examples import train_lm_recordio as ex
     from dmlc_tpu_torch.models import transformer as tfm
     from dmlc_tpu_torch.tracker.rendezvous import free_port
@@ -4013,22 +4074,25 @@ def mesh_worker(argv) -> int:
     return 0
 
 
-def mesh_job(name, flag, conf, timeout):
+def mesh_job(name, flag, conf, timeout, root=None, log_dir=None,
+             env=MESH_ENV):
     """``MESH_WORKERS`` workers of the port's launcher sharing the card,
-    each ``chip_smoke.py <flag> build/<name>`` (with ``MESH_ENV``), given
-    ``conf`` as ``config.json``; returns the ranks' ``<name>.<rank>.json``
-    docs and the job's seconds.  ``build/<name>`` is removed after."""
-    root = os.path.join(ROOT, "build", name)
+    each ``chip_smoke.py <flag> <root>`` (with ``env``; ``root`` defaults
+    to ``build/<name>``), given ``conf`` as ``config.json``; returns the
+    ranks' ``<name>.<rank>.json`` docs and the job's seconds.  ``root``
+    is removed after; the job's log goes to ``log_dir`` (see
+    :func:`_submit`)."""
+    root = root or os.path.join(ROOT, "build", name)
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     with open(os.path.join(root, "config.json"), "w") as f:
         json.dump(dict(conf, ckpt=os.path.join(root, "ckpt")), f)
-    env_old = {k: os.environ.get(k) for k in MESH_ENV}
-    os.environ.update(MESH_ENV)
+    env_old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         _, _, job_s = _submit(
             name, [sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
-                   root], timeout, workers=MESH_WORKERS)
+                   root], timeout, workers=MESH_WORKERS, log_dir=log_dir)
     finally:
         for k, v in env_old.items():
             if v is None:
@@ -4537,6 +4601,347 @@ def mesh5_phase(smi, fa):
         line["gangs"][gang] = doc
     line["wall_s"] = time.time() - t_start
     return line, rows, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7f: sharded serving — the flagship's engine on a dp x tp mesh
+# ---------------------------------------------------------------------------
+
+SHARD_MESH = {"dp": 2, "tp": 2}
+SHARD_H = 8   # the flagship's 16 heads over tp=2
+SHARD_TIMEOUT_S = 300
+SHARD_F32_LAYERS = 2
+SHARD_LOGIT_TOL = 1e-4   # the gather phase's: f32, summation order only
+#: the phase's model and requests: the flagship with the slice phase's
+#: prompts on the card; ``tests/test_torch_shard_serve.py`` runs it with
+#: the serving entry's tiny model on the CPU
+SHARD_RUN = dict(model="flagship", device="cuda", dir=None, log_dir=None,
+                 prompt_lens=[int(x) for x in np.linspace(17, 511, 8)],
+                 max_tokens=32, n_blocks=256)
+SHARD_RUNS = (("gather", "auto", 0), ("gather_spec", "auto", 3),
+              ("paged", "on", 0))
+SHARD_F32_RUNS = (("gather", "off", 0), ("gather_spec", "off", 3),
+                  ("paged", "on", 0))
+SHARD_OPS = ("all_reduce", "all_gather", "broadcast")
+SHARD_KERNELS = ("flash_fwd", "paged_attention")
+
+
+def shard_kernel_rows(fa, pa, prompt_lens):
+    """K1 and K4 at the shapes a tp=2 rank of the flagship gives them (8
+    of its 16 heads), against their plain versions, beside SDPA
+    (yardstick only): K1 at B=1, T=512, causal, bf16; K4 at B=8, S in
+    {1, 4}, bf16 pools, block 16, on the paged phase's engine lengths.
+    Returns ``(K1's row, K4's rows)``."""
+    gen = torch.Generator("cuda").manual_seed(5)
+    b, t, h, d = 1, 512, SHARD_H, 128
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    mx, mean = fwd_check(fa, q, k, v, fa.flash_attention(q, k, v,
+                                                         causal=True))
+    k1 = fwd_timing(fa, q, k, v, b, t, h, d, phase="shard_flash")
+    k1.update(max_abs_err=mx, mean_abs_err=mean)
+    w = math.ceil((max(prompt_lens) + 32 + 3) / 16)
+    k4 = [paged_case(pa, gen, dtype=torch.bfloat16, s_w=s_w, w=w, h=h,
+                     lengths=[n + 16 for n in prompt_lens],
+                     phase="shard_paged") for s_w in (1, 4)]
+    return k1, k4
+
+
+def shard_model_config(name):
+    """The phase's model: the flagship, or ``serving.serve``'s tiny one."""
+    from dmlc_tpu_torch.models import transformer as tfm
+    from dmlc_tpu_torch.serving import serve
+
+    return tfm.flagship_config() if name == "flagship" else serve.TINY
+
+
+def _counters(tele):
+    """This rank's collective calls and bytes by op, and (as ``staged``)
+    the bytes the port copies through pinned host memory itself."""
+    out = {op: [tele.core.counter_value("collective", f"{op}_calls"),
+                tele.core.counter_value("collective", f"{op}_bytes")]
+           for op in SHARD_OPS}
+    out["staged"] = [0.0, tele.core.counter_value(
+        "collective", "ppermute_staged_bytes")]
+    return out
+
+
+def _delta(after, before, n=1):
+    return {op: {"calls": (after[op][0] - before[op][0]) / n,
+                 "bytes": (after[op][1] - before[op][1]) / n}
+            for op in after}
+
+
+def shard_serve_worker(argv) -> int:
+    """One rank of the shard_serve phase (under the port's launcher):
+    ``initialize_distributed()``, ``build_mesh(dp=2, tp=2)``, the
+    flagship's shards of the seed-0 weights; the engine on the mesh for
+    each run of ``SHARD_RUNS`` (rank 0 serves it over HTTP, the others
+    follow), one sharded prefill and decode step counted, then the f32
+    depth-2 copy against one card.  Writes
+    ``<out>/shard_serve.<rank>.json``."""
+    sys.path.insert(0, ROOT)
+    from dmlc_tpu_torch import serving
+    from dmlc_tpu_torch import telemetry as tele
+    from dmlc_tpu_torch.models import transformer as tfm
+    from dmlc_tpu_torch.models.convert import (gather_params,
+                                               shard_params_from_jax)
+    from dmlc_tpu_torch.ops import flash_attention as fa
+    from dmlc_tpu_torch.ops import paged_attention as pa
+    from dmlc_tpu_torch.parallel import build_mesh, initialize_distributed
+    from dmlc_tpu_torch.tracker.client import TrackerClient
+    import torch.distributed as dist
+
+    out_dir = argv[0]
+    with open(os.path.join(out_dir, "config.json")) as f:
+        conf = json.load(f)
+    card = conf["device"] == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    client = TrackerClient()
+    client.start()
+    t0 = time.perf_counter()
+    backend = initialize_distributed(timeout_s=SHARD_TIMEOUT_S)
+    mesh = build_mesh(pp=1, sp=1, ep=1, **conf["mesh"],
+                      device=None if card else "cpu")
+    rank, dev = mesh.rank, mesh.device
+    kernels = {"flash_fwd": fa.FLASH_FWD,
+               "paged_attention": pa.PAGED_ATTENTION}
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    # the slice phase's global weights (seed 0), this rank's shards
+    cfg = shard_model_config(conf["model"])
+    glob = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tree = gather_params(glob)
+    del glob
+    model = shard_params_from_jax(tree, cfg, mesh)
+    tree2 = {**{k: tree[k] for k in ("embed", "unembed", "ln_f")},
+             "blocks": {k: x[:, :SHARD_F32_LAYERS].clone()
+                        for k, x in tree["blocks"].items()}}
+    del tree
+    if card:
+        torch.cuda.empty_cache()
+    doc = {"rank": rank, "coords": mesh.coords, "backend": backend,
+           "device": str(dev), "init_s": time.perf_counter() - t0,
+           "params_local": sum(p.numel() for p in model.parameters())}
+    prompts, looping = slice_prompts(cfg.vocab, conf["prompt_lens"])
+    shard = {"axes": tfm.SERVING_AXES, "mesh": mesh}
+
+    def serve(m, mode, spec_k, on_mesh=True, batch=None):
+        """One engine over ``m`` (on the mesh, else rank 0's one card)
+        under ``DMLC_SERVE_PAGED_ATTN=mode``, ``batch`` (default: the
+        prompts, the looping ones at spec_k > 0) POSTed to rank 0's HTTP
+        server; K1/K4 counted from 0 just before."""
+        os.environ["DMLC_SERVE_PAGED_ATTN"] = mode
+        tele.reset()
+        tele.reset_steps()
+        for kern in kernels.values():
+            kern.launches = 0
+        eng = serving.InferenceEngine(
+            m, mesh=mesh if on_mesh else None, device=dev,
+            n_blocks=conf["n_blocks"], block_size=16, max_active=8,
+            queue_depth=64, spec_k=spec_k)
+        if rank:
+            eng.follow()
+            return {"launches": {n: k.launches for n, k in kernels.items()}}
+        eng.start()
+        srv = serving.ServingHTTPServer(eng)
+        try:
+            before = _counters(tele)
+            if batch is None:
+                batch = looping if spec_k else prompts
+            results, wall, first = post_prompts(srv.url, batch,
+                                                conf["max_tokens"])
+            after = _counters(tele)
+            recs = tele.ledger().records()
+            reqs = eng.requests.summary()
+            cost = eng._decode.stats() if hasattr(eng._decode, "stats") \
+                else None
+        finally:
+            srv.close()
+            eng.close()
+        ttft = sorted(d["ttft_s"] for _, d in results)
+        tokens = sum(d["n_generated"] for _, d in results)
+        c = eng.counters
+        last = (cost or {}).get("last_cost") or {}
+        out = {"mode": mode, "spec_k": spec_k, "paged": eng._use_paged,
+               "requests": len(results),
+               "requests_200": sum(code == 200 for code, _ in results),
+               "wall_s": wall, "first_served_unix": first,
+               "tokens": tokens, "tokens_per_s": tokens / wall,
+               "ttft_p50_s": pctl(ttft, 50), "ttft_p99_s": pctl(ttft, 99),
+               "step_p50_s": pctl([r["wall_s"] for r in recs], 50),
+               "gap_p99_s": reqs["tbt_p99_s"],
+               "prefills": c["prefills"], "decode_steps": c["decode_steps"],
+               "preemptions": c["preemptions"],
+               "launches": {n: k.launches for n, k in kernels.items()},
+               "collectives_per_decode_step": _delta(
+                   after, before, max(c["decode_steps"], 1)),
+               "counted_flops": last.get("flops"),
+               "counted_over_global_flops": (
+                   last["flops"] / recs[-1]["flops"]
+                   if last.get("flops") and recs else None),
+               "outputs": [d["output_ids"] for _, d in results]}
+        return out
+
+    # 1. the flagship, bf16, full depth: one short request to warm up (as
+    # the slice phase's), then three runs on the mesh
+    doc["warmup"] = serve(model, "auto", 0, batch=[prompts[0][:17]])
+    doc["runs"] = {name: serve(model, mode, k)
+                   for name, mode, k in SHARD_RUNS}
+
+    # 2. one sharded prefill and decode step (B=8, contexts 17..511), the
+    # collectives each makes counted on this rank
+    inp = slice_inputs(cfg, dev)
+    dp, di = mesh.axis_size("dp"), mesh.axis_rank("dp")
+
+    def steps(m):
+        """``{name: (logits, ms, collectives)}`` of a sharded prefill and
+        decode steps of ``m`` on both paths (every rank calls it)."""
+        out = {}
+
+        def counted(name, fn):
+            dist.barrier()
+            sync()
+            before, ts = _counters(tele), time.perf_counter()
+            with torch.inference_mode():
+                got = fn()
+            sync()
+            out[name] = (got, (time.perf_counter() - ts) * 1e3,
+                         _delta(_counters(tele), before))
+            return got
+
+        _, k, v = counted("prefill", lambda: prefill(tfm, m, inp, **shard))
+        kp, vp = decode_pools(k, v, inp)
+        b, w = inp["tables"].shape
+        kd, vd = (x[:, inp["tables"].long()].reshape(
+            x.shape[0], b, w * 16, *x.shape[3:]).chunk(dp, dim=1)[di]
+            for x in (kp, vp))
+        lens = inp["lengths"]
+        counted("gather", lambda: tfm.forward_decode(
+            m, inp["dids"][:, 0], lens.long(), kd, vd, lens, **shard)[0])
+        counted("paged", lambda: decode(tfm, m, inp, kp, vp, **shard)[:, 0])
+        out["prefill"] = (out["prefill"][0][0],) + out["prefill"][1:]
+        return out
+
+    doc["decode_step"] = {name: {"ms": ms, "collectives": coll}
+                          for name, (_, ms, coll) in steps(model).items()}
+    del model
+    if card:
+        torch.cuda.empty_cache()
+
+    # 3. the float32 copy at depth 2: tokens and logits against one card
+    cfg2 = dataclasses.replace(cfg, dtype="float32",
+                               n_layers=SHARD_F32_LAYERS)
+    m2 = shard_params_from_jax(tree2, cfg2, mesh)
+    one = None
+    if rank == 0:
+        one = shard_params_from_jax(tree2, cfg2, None, device=dev)
+        want = [serve(one, "auto", 0, on_mesh=False)["outputs"],
+                serve(one, "auto", 3, on_mesh=False)["outputs"]]
+    got = {name: serve(m2, mode, k) for name, mode, k in SHARD_F32_RUNS}
+    sharded = steps(m2)
+    if rank == 0:
+        f32 = {"n_layers": SHARD_F32_LAYERS, "tokens_equal": all(
+            got[name]["outputs"] == want[1 if k else 0]
+            for name, _, k in SHARD_F32_RUNS)}
+        check(f32["tokens_equal"], "shard_serve: f32 tokens differ from "
+              "one card's: " + json.dumps({name: _agreement(
+                  got[name]["outputs"], want[1 if k else 0])
+                  for name, _, k in SHARD_F32_RUNS}))
+        lp, k, v = prefill(tfm, one, inp)
+        kp, vp = decode_pools(k, v, inp)
+        ref = decode(tfm, one, inp, kp, vp)[:, 0]
+
+        def rel(a, b):
+            return ((a.float() - b.float()).abs().max()
+                    / b.float().abs().max()).item()
+
+        f32["prefill_logits_rel"] = rel(sharded["prefill"][0], lp)
+        f32["decode_logits_rel"] = {n: rel(sharded[n][0], ref)
+                                    for n in ("gather", "paged")}
+        check(f32["prefill_logits_rel"] <= SHARD_LOGIT_TOL
+              and max(f32["decode_logits_rel"].values()) <= SHARD_LOGIT_TOL,
+              f"shard_serve: f32 logits against one card {f32}")
+        f32["requests"] = sum(r["requests"] for r in got.values())
+        doc["f32"] = f32
+    doc["f32_launches"] = {name: r["launches"] for name, r in got.items()}
+    doc["wall_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"shard_serve.{rank}.json"), "w") as f:
+        json.dump(doc, f)
+    client.log(f"rank {rank}: shard_serve phase done")
+    dist.destroy_process_group()
+    client.shutdown()
+    return 0
+
+
+def shard_serve_phase(smi, one_card, run=None):
+    """Sharded serving (see the module docstring): 4 workers of the
+    port's launcher sharing the card, each ``chip_smoke.py
+    --shard-serve-worker``, the flagship's engine on dp2 x tp2 behind
+    rank 0's HTTP server.  ``one_card`` has the slice and gather phases'
+    runs (numbers and bf16 token streams) to set beside these, or None.
+    Gates: every rank's K1 launches ``n_layers`` a prefill on each run,
+    K4 none on the gather runs and ``n_layers`` a decode step on the
+    paged one (0 of both on the CPU, where the plain versions run);
+    every request 200 and every rank exited 0 (``_submit``); the f32
+    depth-2 tokens and logits, in the workers.  Returns the phase's
+    line and the K1/K4 launches summed over the ranks' bf16 runs."""
+    run = {**SHARD_RUN, **(run or {})}
+    card = run["device"] == "cuda"
+    t_start = time.time()
+    cfg = shard_model_config(run["model"])
+    conf = {"mesh": SHARD_MESH, "model": run["model"],
+            "device": run["device"], "prompt_lens": run["prompt_lens"],
+            "max_tokens": run["max_tokens"], "n_blocks": run["n_blocks"]}
+    env = dict(MESH_ENV) if card else {"OMP_NUM_THREADS": "1"}
+    docs, job_s = mesh_job("shard_serve", "--shard-serve-worker", conf,
+                           SHARD_TIMEOUT_S, root=run["dir"],
+                           log_dir=run["log_dir"], env=env)
+    ctl = docs[0]
+    launches = {n: 0 for n in SHARD_KERNELS}
+    for name, _, _ in SHARD_RUNS:
+        r = ctl["runs"][name]
+        want = {"flash_fwd": cfg.n_layers * r["prefills"],
+                "paged_attention": (cfg.n_layers * r["decode_steps"]
+                                    if r["paged"] else 0)}
+        if not card:   # the CPU runs the plain versions
+            want = {n: 0 for n in want}
+        for d in docs:
+            got = d["runs"][name]["launches"]
+            check(got == want, f"shard_serve {name}: rank {d['rank']} "
+                  f"launches {got}, want {want}")
+            for n in launches:
+                launches[n] += got[n]
+        check(r["requests_200"] == r["requests"],
+              f"shard_serve {name}: {r['requests_200']}/{r['requests']}")
+    runs = {name: {k: v for k, v in ctl["runs"][name].items()
+                   if k not in ("outputs", "first_served_unix")}
+            for name, _, _ in SHARD_RUNS}
+    line = {
+        "phase": "shard_serve", "card": smi, "model": run["model"],
+        "mesh": SHARD_MESH, "workers": MESH_WORKERS,
+        "backend": ctl["backend"], "n_layers": cfg.n_layers,
+        "heads_per_rank": cfg.n_heads // SHARD_MESH["tp"],
+        "params_local": [d["params_local"] for d in docs],
+        "init_s": [d["init_s"] for d in docs], "runs": runs,
+        "decode_step_rank0": ctl["decode_step"],
+        "f32": ctl["f32"], "ranks_done": len(docs),
+        "spawn_to_first_served_s": (ctl["warmup"]["first_served_unix"]
+                                    - t_start),
+        "job_s": job_s, "wall_s": time.time() - t_start}
+    if one_card is not None:
+        line["one_card"] = {name: {k: one_card["docs"][name][k] for k in (
+            "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "step_p50_s",
+            "gap_p99_s")} for name in one_card["docs"]}
+        line["bf16_vs_one_card"] = {
+            name: _agreement(ctl["runs"][name]["outputs"],
+                             one_card["outputs"][1 if k else 0])
+            for name, _, k in SHARD_RUNS}
+    return line, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5580,10 +5985,7 @@ def main() -> int:
           "init_s": time.perf_counter() - t0,
           "bytes": sum(p.numel() * p.element_size()
                        for p in model.parameters())})
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in prompt_lens]
-    loop = rng.integers(0, cfg.vocab, 7).tolist()
-    looping = [(loop * (n // 7 + 1))[:n] for n in prompt_lens]
+    prompts, looping = slice_prompts(cfg.vocab, prompt_lens)
     serve_batch(serving, model, [prompts[0][:17]], 0)   # warm-up
     fa.FLASH_FWD.launches = 0
     pa.PAGED_ATTENTION.launches = 0
@@ -5662,6 +6064,20 @@ def main() -> int:
     mesh5_doc, mesh5_rows, option_launches["mesh5"] = mesh5_phase(smi, fa)
     emit(mesh5_doc)
 
+    # 7f. sharded serving: the flagship's engine on a dp2 x tp2 mesh, 4
+    # ranks sharing the card over gloo, K1 and K4 on each rank's 8 heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_shard = time.perf_counter()
+    shard_k1, shard_k4 = shard_kernel_rows(fa, pa, prompt_lens)
+    shard_doc, option_launches["shard_serve"] = shard_serve_phase(smi, {
+        "docs": {"slice": plain, "slice_spec": spec,
+                 "gather": gather_doc["plain"],
+                 "gather_spec": gather_doc["spec"]},
+        "outputs": (plain["outputs"], spec["outputs"])})
+    shard_doc["phase_s"] = time.perf_counter() - t_shard   # kernel rows too
+    emit(shard_doc)
+
     # 8. the sparse text path: LibSVM and CSV through libsvm_feed; then
     # the tracker phase's 4-worker jobs on the same files
     for doc in sparse_phase(smi, spine_docs[2],
@@ -5724,6 +6140,9 @@ def main() -> int:
     # the mesh5 gangs' shapes
     kernels[0]["ring_step"] = ring_rows
     kernels[0]["mesh5_shapes"] = mesh5_rows
+    # K1 and K4 at a tp=2 rank's 8 heads (the shard_serve phase)
+    kernels[0]["shard_serve_shape"] = shard_k1
+    kernels[3]["shard_serve_shapes"] = shard_k4
     # K2 and K3 held against the plain backward at the gangs' shapes
     for kern, errs in ((kernels[1], ("dk", "dv")), (kernels[2], ("dq",))):
         kern["mesh5_shapes"] = {
@@ -5750,6 +6169,8 @@ if __name__ == "__main__":
         sys.exit(mesh5_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--fleet-worker"]:
         sys.exit(fleet_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--shard-serve-worker"]:
+        sys.exit(shard_serve_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--gloo-probe"]:
         sys.exit(gloo_probe_worker(sys.argv[2:]))
     sys.exit(main())

@@ -20,8 +20,11 @@ serving forwards ``forward_prefill`` / ``forward_prefill_last``
 ``forward_decode_spec`` (:561-687, attending a dense gathered cache
 with plain products) and ``forward_decode_paged`` (:690-758), with
 ``decode_phase_flops`` (:431) for the compute ledger's phase split.
-The train step is the compute ledger's site ``train.step`` and drives
-the step ledger as the reference's does (:852-887).
+The serving forwards also run sharded (``axes=SERVING_AXES``, a model
+built on a dp × tp mesh, as the reference's engine runs its programs on
+a mesh): see :func:`forward_decode_spec`.  The train step is the
+compute ledger's site ``train.step`` and drives the step ledger as the
+reference's does (:852-887).
 
 On a mesh (``Transformer(cfg, device, mesh)``) each rank holds the
 shards ``PARAM_SPECS`` gives its coordinate: its pp stage's layers
@@ -73,8 +76,8 @@ from ..ops.core import ShardAxes, embed_lookup, rms_norm, rope, \
     rope_angles, rotate, softmax_xent, swiglu_ffn
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
-from ..parallel.collectives import all_reduce, copy_to, mean_from, \
-    reduce_from
+from ..parallel.collectives import all_gather, all_reduce, copy_to, \
+    mean_from, reduce_from
 from ..parallel.mesh import (AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP,
                              DATA_AXES, MESH_AXES, Mesh)
 from ..parallel.overlap import DeviceBucketer
@@ -85,7 +88,7 @@ __all__ = ["TransformerConfig", "flagship_config", "count_params",
            "train_flops_per_token", "train_step_flops",
            "decode_flops_per_token", "decode_phase_flops",
            "PARAM_SPEC_TREE", "PARAM_SPECS",
-           "SHARDED_AXES",
+           "SHARDED_AXES", "SERVING_AXES", "check_serving_mesh",
            "Block", "Transformer", "init_params", "forward_local",
            "unsharded_loss", "adamw", "sync_gradients", "sharded_grad_norm",
            "make_train_step", "forward_prefill",
@@ -94,6 +97,9 @@ __all__ = ["TransformerConfig", "flagship_config", "count_params",
 
 SHARDED_AXES = ShardAxes(tp=AXIS_TP, sp=AXIS_SP, ep=AXIS_EP, pp=AXIS_PP,
                          dp=AXIS_DP)
+#: the axes the serving forwards shard over: heads, ``d_ff`` and vocab
+#: over tp, a gathered decode batch's rows over dp
+SERVING_AXES = ShardAxes(tp=AXIS_TP, dp=AXIS_DP)
 
 #: ``param_specs()`` (:158-177) of the JAX tree's leaves (blocks stacked
 #: ``[S, L/S, ...]``), each spec as the reference's checkpoint manifest
@@ -799,21 +805,77 @@ def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
 # serving forwards
 # ---------------------------------------------------------------------------
 
+def check_serving_mesh(cfg: TransformerConfig, mesh: Optional[Mesh]) -> None:
+    """Raise for a mesh that sharded serving does not run yet: one with
+    pp, sp or ep > 1 (ROADMAP.md Queue 1 item 11b: the port's model on a
+    pp mesh holds only its stage's layers), and a routed config on a
+    mesh of more than one rank (item 11a: the reference counts expert
+    capacity over every token of the call, :255-256, so a route split
+    over dp would drop other tokens)."""
+    if mesh is None or mesh.world == 1:
+        return
+    wide = [a for a in (AXIS_PP, AXIS_SP, AXIS_EP) if mesh.axis_size(a) > 1]
+    if wide:
+        raise DMLCError(f"sharded serving runs on dp x tp meshes; this mesh "
+                        f"has {wide} > 1 (ROADMAP.md Queue 1 item 11b)")
+    if cfg.routed:
+        raise DMLCError("a routed (top-k MoE) config does not serve on a "
+                        "mesh yet (ROADMAP.md Queue 1 item 11a)")
+
+
+def _serving_mesh(model: Transformer, axes: ShardAxes,
+                  mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh a serving forward runs on (default: the model's), after
+    :func:`check_serving_mesh`; ``axes`` may name tp and dp only."""
+    if axes.sp is not None or axes.ep is not None or axes.pp is not None:
+        raise DMLCError("the serving forwards shard over tp and dp only "
+                        "(ROADMAP.md Queue 1 item 11b)")
+    mesh = mesh if mesh is not None else model.mesh
+    if axes.tp is not None or axes.dp is not None:
+        if mesh is None:
+            raise DMLCError("sharded serving axes without a mesh")
+        check_serving_mesh(model.cfg, mesh)
+    return mesh
+
+
+def _tp_sum(y: torch.Tensor, axes: ShardAxes,
+            mesh: Optional[Mesh]) -> torch.Tensor:
+    """Partial sums of this rank's heads combined over tp."""
+    return y if axes.tp is None else reduce_from(y, axes.tp, mesh=mesh)
+
+
+def _unembed(model: Transformer, x: torch.Tensor, axes: ShardAxes,
+             mesh: Optional[Mesh]) -> torch.Tensor:
+    """Logits of the normed ``x``; under tp this rank's vocab shard, its
+    rows gathered so every rank holds the same full rows."""
+    logits = x @ model.unembed
+    if axes.tp is None:
+        return logits
+    return all_gather(logits, axes.tp, mesh=mesh, gather_axis=-1)
+
+
 def _prefill_trunk(model: Transformer, ids: torch.Tensor,
-                   impl: Optional[str] = None):
+                   impl: Optional[str] = None,
+                   axes: ShardAxes = ShardAxes(),
+                   mesh: Optional[Mesh] = None):
     """All prefill layers through the final norm: ``(x [B, T, E], k, v
     [L, B, T, H, D])``.  Right-padding is safe: attention is causal, so
-    real positions never attend a pad token."""
+    real positions never attend a pad token.  Under ``axes.tp`` (on
+    ``mesh``, which :func:`_serving_mesh` gave) the heads are this
+    rank's and so are ``k``/``v``'s; the batch is never split over
+    dp."""
     cfg = model.cfg
     t = ids.shape[1]
     positions = torch.arange(t, device=ids.device)
-    x = embed_lookup(model.embed, ids).to(cfg.torch_dtype)
+    x = embed_lookup(model.embed, ids, axes, mesh).to(cfg.torch_dtype)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for layer in model.layers:
-        y, k, v = layer.attention(rms_norm(x, layer.ln1), positions, impl)
+        y, k, v = layer.attention(rms_norm(x, layer.ln1), positions, impl,
+                                  axes, mesh)
         x = x + y
-        x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg)
+        x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, axes=axes,
+                              mesh=mesh)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, model.ln_f)
@@ -821,22 +883,29 @@ def _prefill_trunk(model: Transformer, ids: torch.Tensor,
 
 
 def forward_prefill(model: Transformer, ids: torch.Tensor,
-                    impl: Optional[str] = None):
+                    impl: Optional[str] = None,
+                    axes: ShardAxes = ShardAxes(),
+                    mesh: Optional[Mesh] = None):
     """``ids [B, T]`` → ``(logits [B, T, V], k, v [L, B, T, H, D])`` with
-    the post-rope per-layer keys and values."""
-    x, k, v = _prefill_trunk(model, ids, impl)
-    return x @ model.unembed, k, v
+    the post-rope per-layer keys and values (``H`` this rank's heads
+    under tp)."""
+    mesh = _serving_mesh(model, axes, mesh)
+    x, k, v = _prefill_trunk(model, ids, impl, axes, mesh)
+    return _unembed(model, x, axes, mesh), k, v
 
 
 def forward_prefill_last(model: Transformer, ids: torch.Tensor,
                          last_index: torch.Tensor,
-                         impl: Optional[str] = None):
+                         impl: Optional[str] = None,
+                         axes: ShardAxes = ShardAxes(),
+                         mesh: Optional[Mesh] = None):
     """Prefill with logits at ONE position per sequence: ``(logits
     [B, V], k, v)`` for ``last_index [B]``; the unembedding runs on those
     rows only."""
-    x, k, v = _prefill_trunk(model, ids, impl)
+    mesh = _serving_mesh(model, axes, mesh)
+    x, k, v = _prefill_trunk(model, ids, impl, axes, mesh)
     rows = torch.arange(ids.shape[0], device=ids.device)
-    return x[rows, last_index.long()] @ model.unembed, k, v
+    return _unembed(model, x[rows, last_index.long()], axes, mesh), k, v
 
 
 def _rope_window(x: torch.Tensor, positions: torch.Tensor,
@@ -887,10 +956,27 @@ def _cached_window_attention(q: torch.Tensor, k_new: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _dp_rows(axes: ShardAxes, mesh: Optional[Mesh], batch: int,
+             rows: int) -> Optional[int]:
+    """The dp rank whose rows of a ``batch``-row window a gathered view
+    of ``rows`` rows holds, or None where the view is the whole batch
+    (no dp axis, or the reference's fallback for a batch that does not
+    divide dp, ``kv_cache.py`` :587-589)."""
+    if axes.dp is None or mesh is None or rows == batch:
+        return None
+    n = mesh.axis_size(axes.dp)
+    if rows * n != batch:
+        raise DMLCError(f"a gathered view of {rows} rows is neither the "
+                        f"batch of {batch} nor its share over dp={n}")
+    return mesh.axis_rank(axes.dp)
+
+
 def forward_decode_spec(model: Transformer, ids: torch.Tensor,
                         positions: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, lengths: torch.Tensor,
-                        route_tokens: Optional[int] = None):
+                        route_tokens: Optional[int] = None,
+                        axes: ShardAxes = ShardAxes(),
+                        mesh: Optional[Mesh] = None):
     """Decode window step against a dense gathered cache (:648-687), the
     gather path's speculative verify: ids / positions ``[B, S]`` are
     each row's window (position 0 the token consumed, 1..S-1 drafts),
@@ -899,10 +985,25 @@ def forward_decode_spec(model: Transformer, ids: torch.Tensor,
     V], k_new, v_new [L, B, S, H, D])``; the caller writes the prefix
     it commits into the cache.  The attention is plain products
     (the reference's einsum, no kernel).  ``route_tokens`` as in
-    :func:`forward_decode_paged`."""
+    :func:`forward_decode_paged`.
+
+    Sharded (``axes=SERVING_AXES`` on the model's mesh), the cache and
+    ``k_new``/``v_new`` hold this rank's heads and the logits are every
+    vocab shard's, gathered over tp.  A cache of ``B / dp`` rows
+    (``PagedKVCache.shard_gathered``) is this rank's dp share of the
+    batch: the rank runs those rows, and the logits, ``k_new`` and
+    ``v_new`` are gathered over dp, so every rank ends with every row's
+    (and writes every row into its pools).  A cache of ``B`` rows runs
+    the batch whole on every dp rank."""
     cfg = model.cfg
+    mesh = _serving_mesh(model, axes, mesh)
     scope = _phase_scope()
-    x = embed_lookup(model.embed, ids).to(cfg.torch_dtype)
+    r = _dp_rows(axes, mesh, ids.shape[0], k_cache.shape[1])
+    if r is not None:
+        n = mesh.axis_size(axes.dp)
+        ids, positions, lengths = (t.chunk(n, dim=0)[r]
+                                   for t in (ids, positions, lengths))
+    x = embed_lookup(model.embed, ids, axes, mesh).to(cfg.torch_dtype)
     k_news: List[torch.Tensor] = []
     v_news: List[torch.Tensor] = []
     for li, layer in enumerate(model.layers):
@@ -912,31 +1013,39 @@ def forward_decode_spec(model: Transformer, ids: torch.Tensor,
             k = _rope_window(k, positions)
             o = _cached_window_attention(q, k, v, k_cache[li], v_cache[li],
                                          lengths)
-            x = x + layer.attn_out(o)
+            x = x + _tp_sum(layer.attn_out(o), axes, mesh)
         with scope("mlp"):
-            x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, route_tokens)
+            x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, route_tokens,
+                                  axes=axes, mesh=mesh)
         k_news.append(k)
         v_news.append(v)
     with scope("unembed"):
-        logits = rms_norm(x, model.ln_f) @ model.unembed
-    return logits, torch.stack(k_news), torch.stack(v_news)
+        logits = _unembed(model, rms_norm(x, model.ln_f), axes, mesh)
+    k_new, v_new = torch.stack(k_news), torch.stack(v_news)
+    if r is not None:
+        logits = all_gather(logits, axes.dp, mesh=mesh, gather_axis=0)
+        k_new = all_gather(k_new, axes.dp, mesh=mesh, gather_axis=1)
+        v_new = all_gather(v_new, axes.dp, mesh=mesh, gather_axis=1)
+    return logits, k_new, v_new
 
 
 def forward_decode(model: Transformer, ids: torch.Tensor,
                    positions: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, lengths: torch.Tensor,
-                   route_tokens: Optional[int] = None):
+                   route_tokens: Optional[int] = None,
+                   axes: ShardAxes = ShardAxes(),
+                   mesh: Optional[Mesh] = None):
     """Single-token decode step against a dense gathered cache
     (:561-604): ids / positions / lengths ``[B]``.  Returns ``(logits
     [B, V], k_new, v_new [L, B, H, D])``.  It is
     :func:`forward_decode_spec` at S=1 (``_rope_at`` is ``_rope_window``
     at one position, ``_cached_attention`` the S=1 mask), so the two
-    agree exactly, as the reference's docstring requires of its pair.
-    Batch rows are independent: a dead row (length 0) changes no other
-    row."""
+    agree exactly, as the reference's docstring requires of its pair,
+    sharded as that one is.  Batch rows are independent: a dead row
+    (length 0) changes no other row."""
     logits, k, v = forward_decode_spec(model, ids[:, None],
                                        positions[:, None], k_cache, v_cache,
-                                       lengths, route_tokens)
+                                       lengths, route_tokens, axes, mesh)
     return logits[:, 0], k[:, :, 0], v[:, :, 0]
 
 
@@ -963,7 +1072,9 @@ def forward_decode_paged(model: Transformer, ids: torch.Tensor,
                          v_pool: torch.Tensor, block_tables: torch.Tensor,
                          lengths: torch.Tensor,
                          impl: Optional[str] = None,
-                         route_tokens: Optional[int] = None) -> torch.Tensor:
+                         route_tokens: Optional[int] = None,
+                         axes: ShardAxes = ShardAxes(),
+                         mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Decode window step attending the paged KV pool in place.
 
     ids / positions ``[B, S]`` (S=1 plain decode, S=k+1 speculative
@@ -980,13 +1091,19 @@ def forward_decode_paged(model: Transformer, ids: torch.Tensor,
     ``route_tokens`` is the token count a routed config's expert capacity
     is computed from (``Block.moe_ffn``): the reference's engine pads
     the window to ``max_active`` rows after the live ones, so its
-    capacity counts ``max_active · S`` tokens.  None counts ``B · S``."""
+    capacity counts ``max_active · S`` tokens.  None counts ``B · S``.
+
+    Sharded (``axes=SERVING_AXES`` on the model's mesh) the pools hold
+    this rank's heads, the kernel attends those, and the logits are
+    gathered over tp; the batch runs whole on every dp rank, as the
+    reference's paged program places nothing over dp."""
     cfg = model.cfg
+    mesh = _serving_mesh(model, axes, mesh)
     scope = _phase_scope()
     s_w = ids.shape[1]
     live, wb, ws = _window_addresses(lengths, block_tables, s_w,
                                      k_pool.shape[2])
-    x = embed_lookup(model.embed, ids).to(cfg.torch_dtype)
+    x = embed_lookup(model.embed, ids, axes, mesh).to(cfg.torch_dtype)
     for li, layer in enumerate(model.layers):
         with scope("attention"):
             q, k, v = layer.qkv(rms_norm(x, layer.ln1))
@@ -996,8 +1113,9 @@ def forward_decode_paged(model: Transformer, ids: torch.Tensor,
             v_pool[li, wb, ws] = v.flatten(0, 1)[live].to(v_pool.dtype)
             o = paged_attention(q, k_pool[li], v_pool[li], block_tables,
                                 lengths, impl=impl)
-            x = x + layer.attn_out(o)
+            x = x + _tp_sum(layer.attn_out(o), axes, mesh)
         with scope("mlp"):
-            x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, route_tokens)
+            x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, route_tokens,
+                                  axes=axes, mesh=mesh)
     with scope("unembed"):
-        return rms_norm(x, model.ln_f) @ model.unembed
+        return _unembed(model, rms_norm(x, model.ln_f), axes, mesh)

@@ -21,6 +21,7 @@ from .collectives import (  # noqa: F401
     axis_size,
     barrier_sum,
     broadcast,
+    broadcast_object,
     copy_to,
     initialize_distributed,
     mean_from,

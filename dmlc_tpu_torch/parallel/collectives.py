@@ -5,7 +5,8 @@ environment to ``torch.distributed``.
 Each op is keyed by an axis name of the mesh (or a tuple of names) and
 runs over that axis's process group; on an axis of one rank it is the
 identity.  ``all_reduce``, ``all_gather``, ``reduce_scatter``,
-``broadcast`` and ``barrier_sum`` are not differentiable.  The ops on
+``broadcast``, ``broadcast_object`` and ``barrier_sum`` are not
+differentiable.  The ops on
 the model's path are, each through an explicit ``autograd.Function``
 (JAX derives the same transposes from shard_map's varying-axes types):
 
@@ -35,11 +36,14 @@ H100, recorded by ``chip_smoke.py``'s ``mesh`` phase), so on gloo a
 shift (the ring's and the pipeline's) copies through pinned host memory
 explicitly and counts the bytes (``collective/ppermute_staged_bytes``);
 the other ops hand
-CUDA tensors to gloo as they are.  No op switches backends."""
+CUDA tensors to gloo as they are.  ``broadcast_object`` (a sharded
+serving engine's plan) pickles into host memory and stays there on gloo;
+on nccl it goes through the card.  No op switches backends."""
 
 from __future__ import annotations
 
 import datetime
+import pickle
 import sys
 from typing import Optional, Tuple
 
@@ -50,7 +54,8 @@ from ..base import DMLCError, get_env
 from .mesh import Mesh
 
 __all__ = ["axis_size", "axis_rank", "all_reduce", "all_gather",
-           "reduce_scatter", "broadcast", "ppermute_ring", "all_to_all",
+           "reduce_scatter", "broadcast", "broadcast_object",
+           "ppermute_ring", "all_to_all",
            "barrier_sum", "copy_to", "reduce_from", "mean_from",
            "process_rank_world", "initialize_distributed", "pick_backend"]
 
@@ -157,6 +162,37 @@ def broadcast(x: torch.Tensor, axis, root: int = 0, *,
         return out
     dist.broadcast(out, dist.get_global_rank(group, root), group=group)
     return out
+
+
+def broadcast_object(obj=None, root: int = 0, *, mesh: Mesh):
+    """``root``'s picklable ``obj`` on every rank of ``mesh`` (the whole
+    process group; ``root`` a global rank; other ranks pass nothing).
+    Two broadcasts, the pickle's length and then its bytes, each counted
+    as a ``broadcast`` call; the bytes live in host memory, and go
+    through the card only where the group's backend is nccl.  The ranks
+    are one job, so the pickle is the job's own."""
+    import torch.distributed as dist
+
+    if mesh.world == 1:
+        return obj
+    dev = mesh.device if dist.get_backend() == "nccl" else torch.device("cpu")
+    me = dist.get_rank()
+    size = torch.zeros(1, dtype=torch.int64)
+    if me == root:
+        payload = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                   dtype=torch.uint8)
+        size[0] = payload.numel()
+    size = size.to(dev)
+    _note("broadcast", size, None)
+    dist.broadcast(size, root)
+    if me != root:
+        payload = torch.empty(int(size.item()), dtype=torch.uint8)
+    payload = payload.to(dev)
+    _note("broadcast", payload, None)
+    dist.broadcast(payload, root)
+    if me == root:
+        return obj
+    return pickle.loads(payload.cpu().numpy().tobytes())
 
 
 def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """dmlc_tpu_torch.serving: the port's request-serving plane.
 
   * ``kv_cache``   paged KV pools on the device + free-list allocator
+                   (on a mesh, this rank's heads; ``kv_partition_spec``)
   * ``scheduler``  iteration-level admit/evict with preemption-by-recompute
   * ``engine``     the prefill/decode loop (flash and paged kernels),
                    greedy sampling, n-gram speculative decoding, the
                    request / SLO / availability ledgers and the decode
-                   step ledger, idempotent submits and drain
+                   step ledger, idempotent submits and drain; on a dp x
+                   tp mesh one controller (rank 0) and followers
+                   (``InferenceEngine.follow``)
   * ``server``     POST /generate + the telemetry endpoints (/metrics,
                    /healthz, /requests, /slo, /goodput, /trace, /spans)
                    and drain on SIGTERM

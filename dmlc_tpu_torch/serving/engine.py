@@ -7,9 +7,10 @@ as :func:`_programs`), ``submit``, ``generate``, ``start``, ``close``,
 data paths.  Every iteration admits what fits (prefill runs the
 flash-attention kernel) and then runs one decode window for every
 active request.  ``DMLC_SERVE_PAGED_ATTN`` picks the path: ``on`` (and
-``auto``: the engine is one card and takes no mesh) reads the pools in
-place through the paged-attention kernel; ``off`` gathers each row's
-blocks into a dense view (``PagedKVCache.gather``, the ``gather``
+``auto`` without a mesh) reads the pools in place through the
+paged-attention kernel; ``off`` (and ``auto`` on a mesh that
+``kv_partition_spec`` places the view over, :270-287) gathers each
+row's blocks into a dense view (``PagedKVCache.gather``, the ``gather``
 phase) and attends it with plain products (``forward_decode`` /
 ``forward_decode_spec``), then writes each row's committed K/V back.
 Sampling is greedy; with ``spec_k > 0`` an n-gram drafter proposes up to
@@ -53,6 +54,25 @@ and the kernels' launch counts.
 
 The engine runs on the CUDA card unless the caller passes
 ``device="cpu"`` (the tests do); with no card and no device it raises.
+
+Sharded serving (``mesh=``, a dp × tp mesh over ``torch.distributed``
+whose model ``shard_params_from_jax`` built): every rank builds the
+engine on the same arguments and holds pools of its own heads.  Rank 0
+is the controller, single as the reference's is: the scheduler, the
+allocator, sampling and the clients (``submit``, ``start``, the HTTP
+server) live there.  Each iteration it broadcasts a plan of its device
+work (a prefill's ids and cache addresses; a decode window's ids,
+positions, block tables or gather indices and lengths; the committed
+K/V's addresses) and carries it out itself, while every other rank runs
+:meth:`InferenceEngine.follow`, which carries out each plan on its own
+pools.  On the gather path the batch is padded to ``max_active``
+(:799) and split over dp (``shard_gathered``, :850-851); the paged
+program runs it whole on every dp rank.  ``close()`` (and so
+``drain()``) ends the followers; an idle controller sends an empty plan
+every second.  On a mesh an iteration that raises breaks the gang: its
+collectives cannot be resumed, so the controller fails every pending
+request and destroys the process groups, which ends any rank waiting in
+one (a follower that fails does the same and raises).
 """
 
 from __future__ import annotations
@@ -68,13 +88,17 @@ import torch
 from .. import telemetry
 from ..base import DMLCError, get_env, resolve_device
 from ..concurrency import make_lock
-from ..models.transformer import (Transformer, decode_flops_per_token,
+from ..models.transformer import (Transformer, check_serving_mesh,
+                                  decode_flops_per_token,
                                   decode_phase_flops, forward_decode,
                                   forward_decode_paged, forward_decode_spec,
                                   forward_prefill_last)
+from ..ops.core import ShardAxes
 from ..ops.flash_attention import FLASH_FWD
 from ..ops.paged_attention import PAGED_ATTENTION
-from .kv_cache import PagedKVCache
+from ..parallel.collectives import broadcast_object
+from ..parallel.mesh import AXIS_DP, AXIS_TP
+from .kv_cache import PagedKVCache, kv_partition_spec
 from .scheduler import (ACTIVE, WAITING, AlreadyFinished,
                         ContinuousBatchScheduler, Request, coerce_priority)
 
@@ -82,6 +106,11 @@ __all__ = ["InferenceEngine", "AdmissionFull", "RequestTooLarge",
            "EngineDraining", "resolve_device", "kernel_launches"]
 
 logger = logging.getLogger("dmlc_tpu_torch.serving")
+
+#: seconds an idle sharded controller waits before it sends an empty
+#: plan, so a follower's wait for the next plan never reaches the
+#: process group's timeout
+_IDLE_PLAN_S = 1.0
 
 
 class AdmissionFull(DMLCError):
@@ -233,7 +262,7 @@ class InferenceEngine:
     objectives from ``DMLC_SLO_*`` (the process-default monitor unless
     ``slo_monitor`` is given)."""
 
-    def __init__(self, model: Transformer, *, device=None,
+    def __init__(self, model: Transformer, *, device=None, mesh=None,
                  n_blocks: Optional[int] = None,
                  block_size: Optional[int] = None,
                  max_active: Optional[int] = None,
@@ -243,12 +272,30 @@ class InferenceEngine:
                  eos_id: Optional[int] = None,
                  spec_k: Optional[int] = None,
                  slo_monitor=None):
+        if mesh is not model.mesh:
+            raise DMLCError("the model's parameters were not built for "
+                            "this mesh (shard_params_from_jax builds them)")
+        check_serving_mesh(model.cfg, mesh)
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         if model.device != self.device:
             raise DMLCError(f"model is on {model.device}, engine on "
                             f"{self.device}")
         self.model = model
         self.cfg = model.cfg
+        self.mesh = mesh
+        # the programs' shard axes: those of the mesh's that are wider
+        # than one rank (SERVING_AXES' tp and dp)
+        sharded = mesh is not None and kv_partition_spec(mesh) is not None
+        self._fwd = {} if not sharded else {"mesh": mesh, "axes": ShardAxes(
+            tp=AXIS_TP if mesh.axis_size(AXIS_TP) > 1 else None,
+            dp=AXIS_DP if mesh.axis_size(AXIS_DP) > 1 else None)}
+        self._gang = mesh is not None and mesh.world > 1
+        self.is_controller = mesh is None or mesh.rank == 0
+        self._gang_ended = False
+        self._last_plan_t = time.monotonic()
+        self._window_kv = None   # the last gather window's K/V
         self.max_active = (max_active if max_active is not None
                            else get_env("DMLC_SERVE_MAX_ACTIVE", 8))
         self.admit_timeout_s = (
@@ -267,7 +314,7 @@ class InferenceEngine:
                           else get_env("DMLC_SERVE_KV_BLOCKS", 256)),
                 block_size=(block_size if block_size is not None
                             else get_env("DMLC_SERVE_KV_BLOCK_SIZE", 16)),
-                dtype=self.cfg.torch_dtype, device=self.device)
+                dtype=self.cfg.torch_dtype, device=self.device, mesh=mesh)
         self.scheduler = ContinuousBatchScheduler(
             self.cache, max_active=self.max_active)
         self._slots = _Slots(queue_depth if queue_depth is not None
@@ -276,16 +323,18 @@ class InferenceEngine:
                                  else get_env("DMLC_SERVE_SPEC_K", 0)))
         self.spec_min_ctx = max(1, get_env("DMLC_SERVE_SPEC_MIN_CTX", 4))
         self._spec_window = 1 + self.spec_k
-        # the decode data path: "auto" is the paged path, since this
-        # engine is one card and takes no mesh (the reference's auto
-        # gathers only for a mesh's dp/tp placement)
+        # the decode data path: "auto" is the paged path, except where
+        # the mesh places the gathered view over dp/tp (:282-287)
         self.paged_mode = str(get_env("DMLC_SERVE_PAGED_ATTN",
                                       "auto")).lower()
         if self.paged_mode not in ("auto", "on", "off"):
             raise ValueError(
                 f"DMLC_SERVE_PAGED_ATTN must be auto|on|off, got "
                 f"{self.paged_mode!r}")
-        self._use_paged = self.paged_mode != "off"
+        if self.paged_mode == "auto":
+            self._use_paged = not sharded
+        else:
+            self._use_paged = self.paged_mode == "on"
         self._prefill, self._decode = _programs(
             self._use_paged, self._spec_window, self.max_active)
         self._hbm_tick = 0
@@ -334,6 +383,9 @@ class InferenceEngine:
         ``tenant`` labels the request; ``trace_id`` (the X-DMLC-Trace
         context) stamps it and its ledger rows."""
         t_submit = time.perf_counter()
+        if not self.is_controller:
+            raise DMLCError("requests go to rank 0, the sharded engine's "
+                            "controller")
         if request_id is not None:
             if (not isinstance(request_id, str) or not request_id
                     or len(request_id) > 128):
@@ -418,6 +470,9 @@ class InferenceEngine:
 
     # ---- engine loop ----------------------------------------------------
     def start(self) -> None:
+        if not self.is_controller:
+            raise DMLCError("a follower rank of a sharded engine runs "
+                            "follow(), not start()")
         if self._thread is not None and self._thread.is_alive():
             return
         if self._stop.is_set():
@@ -491,13 +546,125 @@ class InferenceEngine:
                              reason="shutdown")
             except AlreadyFinished:
                 pass
+        if self._gang and self.is_controller and not self._gang_ended:
+            # the followers return from follow()
+            self._gang_ended = True
+            try:
+                self._send({"op": "stop"})
+            except RuntimeError:   # a follower is gone: no rank waits
+                logger.exception("sharded serving: stopping the followers")
+                _destroy_groups()
+
+    # ---- the sharded gang -----------------------------------------------
+    def _send(self, plan: dict) -> None:
+        """Broadcast ``plan`` to the followers (a no-op off a mesh)."""
+        if self._gang:
+            broadcast_object(plan, mesh=self.mesh)
+            self._last_plan_t = time.monotonic()
+
+    def _run(self, plan: dict):
+        """Send ``plan`` and carry it out here."""
+        self._send(plan)
+        return self._exec(plan)
+
+    def _exec(self, plan: dict):
+        """The device half of an iteration, the same on the controller
+        and on every follower, on this rank's pools: ``prefill`` (the
+        prefill program, its K/V written at the plan's addresses;
+        returns the last position's logits), ``paged`` (the paged decode
+        program; returns its logits), ``gather`` (the dense view, this
+        rank's share of it, the gather program; returns logits, k_new
+        and v_new, every window as ``[B, S, ...]``) and ``commit`` (the
+        last gather window's committed rows written at the plan's
+        addresses)."""
+        op, dev, fwd = plan["op"], self.device, self._fwd
+        if op == "prefill":
+            n = plan["n"]
+            logits, k, v = self._prefill(
+                self.model, plan["ids"].to(dev),
+                torch.tensor([n - 1], device=dev), **fwd)
+            self.cache.scatter(plan["blk"], plan["slot"], k[:, 0, :n],
+                               v[:, 0, :n])
+            return logits
+        if op == "commit":
+            k_new, v_new = self._window_kv
+            rows = plan["rows"]
+            self.cache.scatter(
+                plan["blk"], plan["slot"],
+                torch.cat([k_new[:, i, :n] for i, n in rows], dim=1),
+                torch.cat([v_new[:, i, :n] for i, n in rows], dim=1))
+            return None
+        ids, positions = plan["ids"].to(dev), plan["positions"].to(dev)
+        lengths = plan["lengths"].to(dev)
+        if op == "paged":
+            return self._decode(
+                self.model, ids, positions, self.cache.k_pool,
+                self.cache.v_pool, plan["tables"].to(dev), lengths,
+                route_tokens=plan["route"], **fwd)
+        with telemetry.compute.phase("gather"):
+            k, v = self.cache.shard_gathered(
+                *self.cache.dense(plan["idx"], plan["valid"]))
+        if ids.shape[1] > 1:
+            out = self._decode(self.model, ids, positions, k, v, lengths,
+                               route_tokens=plan["route"], **fwd)
+        else:
+            logits, k_new, v_new = self._decode(
+                self.model, ids[:, 0], positions[:, 0], k, v, lengths,
+                route_tokens=plan["route"], **fwd)
+            # the single-token program's [B, V] logits, [L, B, H, D]
+            out = logits[:, None], k_new[:, :, None], v_new[:, :, None]
+        self._window_kv = out[1:]
+        return out
+
+    def follow(self) -> None:
+        """A follower rank's side of a sharded engine: carry out each
+        plan the controller broadcasts until it ends the gang (``close``
+        returns from here).  A failure destroys this rank's process
+        groups, so no rank waits on it, and raises."""
+        if not self._gang or self.is_controller:
+            raise DMLCError("follow() runs on a follower rank (rank > 0) "
+                            "of a sharded engine")
+        try:
+            with torch.inference_mode():
+                while True:
+                    plan = broadcast_object(mesh=self.mesh)
+                    if plan["op"] == "stop":
+                        return
+                    if plan["op"] != "idle":
+                        self._exec(plan)
+        except Exception:
+            _destroy_groups()
+            raise
+
+    def _break_gang(self, e: BaseException) -> None:
+        """An iteration of a sharded engine raised: fail every pending
+        request, stop admitting, and destroy the process groups so a
+        follower waiting in a collective fails too."""
+        logger.exception("sharded serving: the gang failed")
+        self._gang_ended = True
+        self._stop.set()
+        self._slots.kill()
+        for req in self.scheduler.all_pending():
+            try:
+                self._finish(req, error=f"sharded serving gang failed: "
+                             f"{e!r}", reason="crash")
+            except AlreadyFinished:
+                pass
+        self.availability.set_state("crashed_recovering")
+        _destroy_groups()
 
     def _loop(self) -> None:
         while not self._stop.is_set():
             crashed = False
             try:
                 did = self.step()
+                if (not did and self._gang and time.monotonic()
+                        - self._last_plan_t > _IDLE_PLAN_S):
+                    self._send({"op": "idle"})
             except Exception as e:  # noqa: BLE001 - the loop must not die
+                if self._gang:
+                    self._break_gang(e)
+                    return
                 crashed = True
                 # the active set's cache state is unknown after a crash,
                 # its output is not: requeue each for recompute-resume
@@ -600,15 +767,16 @@ class InferenceEngine:
             self.requests.on_prefill_begin(req.id, t=t0, resume=resume)
             with telemetry.span("serving.prefill", stage="serving",
                                 args={"tokens": n, "req": req.id}):
-                logits, k, v = self._prefill(
-                    self.model, ids.to(self.device),
-                    torch.tensor([n - 1], device=self.device))
-                self.cache.write(req.id, k[:, 0, :n], v[:, 0, :n], start=0)
+                blk, slot = self.cache.reserve(req.id, n, start=0)
+                logits = self._run({"op": "prefill", "ids": ids, "n": n,
+                                    "blk": blk, "slot": slot})
                 logits = logits[0].float().cpu()   # waits for the card
             telemetry.observe_duration("serving", "prefill",
                                        time.perf_counter() - t0)
             telemetry.inc("serving", "prefill_tokens", n)
         except Exception as e:  # noqa: BLE001 - fail THIS request only
+            if self._gang:
+                raise   # the gang's collectives are out of step
             logger.exception("prefill of request %d failed", req.id)
             self._finish(req, error=f"prefill failed: {e!r}",
                          reason="prefill")
@@ -714,10 +882,14 @@ class InferenceEngine:
             self._flops_declared = True
         telemetry.step_begin()
         b = len(active)
+        # under a mesh the gather path pads the window to max_active rows
+        # (:799), dead ones after the live: the batch then splits over dp
+        rows = (self.max_active if self.mesh is not None
+                and not self._use_paged else b)
         # column 0 is the token each row consumes; columns 1..k carry the
         # drafter's proposals (zeros when it has none: the window mask is
         # causal, so junk columns cannot change earlier positions)
-        ids = torch.zeros((b, s_w), dtype=torch.long)
+        ids = torch.zeros((rows, s_w), dtype=torch.long)
         drafts: List[List[int]] = []
         for i, req in enumerate(active):
             ids[i, 0] = req.generated[-1]
@@ -726,38 +898,27 @@ class InferenceEngine:
                 ids[i, 1:1 + len(d)] = torch.tensor(d, dtype=torch.long)
             drafts.append(d)
         seq_ids = [r.id for r in active]
-        base_lens = [self.cache.length(s) for s in seq_ids]
-        base = torch.tensor(base_lens, dtype=torch.long)
-        positions = (base[:, None] + torch.arange(s_w)).to(self.device)
-        ids = ids.to(self.device)
         # a routed config's expert capacity counts the reference's padded
         # batch (max_active rows, the dead ones after the live): the live
         # tokens then route exactly as they do there
-        route = self.max_active * s_w
+        plan = {"ids": ids, "route": self.max_active * s_w}
         if self._use_paged:
-            tables, lengths = self.cache.block_tables_array(seq_ids)
-            ctx_depth = tables.shape[1] * self.cache.block_size
-            t_dev = time.perf_counter()
-            logits = self._decode(
-                self.model, ids, positions, self.cache.k_pool,
-                self.cache.v_pool, tables, lengths, route_tokens=route)
+            plan["op"] = "paged"
+            plan["tables"], lengths = self.cache.block_tables(seq_ids)
+            ctx_depth = plan["tables"].shape[1] * self.cache.block_size
         else:
+            plan["op"] = "gather"
             with compute.phase("gather"):
-                k, v, lengths = self.cache.gather(seq_ids)
-                k, v = self.cache.shard_gathered(k, v)
-            ctx_depth = int(k.shape[2])
-            t_dev = time.perf_counter()
-            if s_w > 1:
-                logits, k_new, v_new = self._decode(
-                    self.model, ids, positions, k, v, lengths,
-                    route_tokens=route)
-            else:
-                logits, k_new, v_new = self._decode(
-                    self.model, ids[:, 0], positions[:, 0], k, v, lengths,
-                    route_tokens=route)
-                # the single-token program's [B, V] logits, [L, B, H, D]
-                logits = logits[:, None]
-                k_new, v_new = k_new[:, :, None], v_new[:, :, None]
+                plan["idx"], plan["valid"], lengths = \
+                    self.cache.gather_plan(seq_ids, pad_batch=rows)
+            ctx_depth = plan["idx"].shape[1] * self.cache.block_size
+        base_lens = lengths[:b].tolist()
+        positions = torch.zeros((rows, s_w), dtype=torch.long)
+        positions[:b] = lengths[:b, None].long() + torch.arange(s_w)
+        plan["positions"], plan["lengths"] = positions, lengths
+        t_dev = time.perf_counter()
+        out = self._run(plan)
+        logits = (out if self._use_paged else out[0])[:b]
         amax = logits.argmax(dim=-1)                              # [B, S]
         fin = torch.isfinite(torch.gather(logits, 2, amax[..., None]))[..., 0]
         # the host's first wait on the step: the device time ends here
@@ -817,10 +978,12 @@ class InferenceEngine:
             if self._use_paged:
                 self.cache.advance_many([(req.id, n) for req, _, n, _, _
                                          in outcomes if n])
-            else:
-                self.cache.write_many(
-                    [(req.id, k_new[:, i, :n], v_new[:, i, :n])
-                     for req, i, n, _, _ in outcomes if n])
+            elif n_tokens:
+                blk, slot = self.cache.reserve_many(
+                    [(req.id, n) for req, _, n, _, _ in outcomes if n])
+                self._run({"op": "commit", "blk": blk, "slot": slot,
+                           "rows": [(i, n) for _, i, n, _, _ in outcomes
+                                    if n]})
             t_commit = time.perf_counter()
             for req, _, n_row, _, _ in outcomes:
                 if n_row:
@@ -898,3 +1061,12 @@ class InferenceEngine:
             "slo_active": self.slo.active(),
             "availability": self.availability.report(),
         }
+
+
+def _destroy_groups() -> None:
+    """Destroy every process group of this process (closing its
+    connections, so no peer waits on it); a no-op when there is none."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

@@ -16,9 +16,19 @@ scatters its window in place inside the model's forward, and the cache
 then only advances the committed lengths (:meth:`advance_many`); on the
 gather path (``DMLC_SERVE_PAGED_ATTN=off``) :meth:`gather` builds the
 dense view on the device with one indexed read per pool and the engine
-writes each row's committed prefix back (:meth:`write_many`).
-``shard_gathered`` places nothing: a cache with a mesh raises (sharded
-serving is ROADMAP.md Queue 1 item 11).
+writes every row's committed prefix back with one indexed assignment
+per pool (the reference's ``write_many``, :462-478).  Each data-plane
+call is split in two: the bookkeeping that yields host-side addresses
+(:meth:`reserve`, :meth:`reserve_many`, :meth:`gather_plan`) and the
+device work on them (:meth:`scatter`, :meth:`dense`), so a sharded
+engine's follower ranks replay the controller's addresses on pools of
+their own.
+
+On a mesh (``mesh=``, sharded serving over ``torch.distributed``) the
+pools hold this rank's heads, ``n_heads / tp`` of them, and
+:func:`kv_partition_spec` / :meth:`shard_gathered` follow the
+reference's (:121-133, :573-590): a gathered view's batch splits over
+dp, its heads over tp (the pools hold them split already).
 
 Thread-safety: bookkeeping is lock-protected; the data plane assumes the
 engine's single step thread.
@@ -32,8 +42,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..base import DMLCError, resolve_device
+from ..parallel.mesh import AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP
 
-__all__ = ["BlockAllocator", "PagedKVCache"]
+__all__ = ["BlockAllocator", "PagedKVCache", "kv_partition_spec"]
 
 
 class BlockAllocator:
@@ -92,10 +103,26 @@ class _SeqEntry:
         self.length = 0
 
 
+def kv_partition_spec(mesh) -> Optional[Tuple[Tuple[int, str], ...]]:
+    """The placement of a gathered ``[L, B, T, H, D]`` view over ``mesh``
+    (:121-133), as ``PARAM_SPECS`` writes one: ``(dimension, axis)``
+    pairs, the batch over dp and the heads over tp, every other
+    dimension replicated.  None when the mesh offers neither (dp and tp
+    both 1)."""
+    dp = mesh.shape.get(AXIS_DP, 1)
+    tp = mesh.shape.get(AXIS_TP, 1)
+    if dp <= 1 and tp <= 1:
+        return None
+    return tuple((dim, axis) for dim, axis, n in ((1, AXIS_DP, dp),
+                                                 (3, AXIS_TP, tp)) if n > 1)
+
+
 class PagedKVCache:
     """Block-paged K/V pools on ``device`` for a set of live sequences:
     the card unless the caller names another device (``device="cpu"``
-    for the plain versions); with no card and no device it raises."""
+    for the plain versions; with a mesh, the mesh's device); with no
+    card and no device it raises.  ``n_heads`` is the model's; on a
+    ``mesh`` the pools hold this rank's ``n_heads / tp`` of them."""
 
     def __init__(self, n_layers: int, n_heads: int, head_dim: int, *,
                  n_blocks: int = 256, block_size: int = 16,
@@ -107,8 +134,18 @@ class PagedKVCache:
         self.n_blocks = int(n_blocks)
         self.block_size = int(block_size)
         self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
-        shape = (self.n_layers, self.n_blocks, self.block_size, int(n_heads),
+        if mesh is not None and any(mesh.axis_size(a) > 1
+                                    for a in (AXIS_PP, AXIS_SP, AXIS_EP)):
+            raise DMLCError("a KV cache shards over dp and tp only "
+                            "(ROADMAP.md Queue 1 item 11b)")
+        tp = 1 if mesh is None else mesh.axis_size(AXIS_TP)
+        if int(n_heads) % tp:
+            raise DMLCError(f"n_heads={n_heads} does not split over tp={tp}")
+        self.n_heads = int(n_heads) // tp
+        shape = (self.n_layers, self.n_blocks, self.block_size, self.n_heads,
                  int(head_dim))
         self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
@@ -217,40 +254,50 @@ class PagedKVCache:
             ent.length = new_len
             return list(ent.blocks), pos
 
-    # ---- data plane -----------------------------------------------------
-    def write(self, seq_id: int, k: torch.Tensor, v: torch.Tensor,
-              start: Optional[int] = None) -> None:
-        """Write ``k/v [L, T, H, D]`` (on the cache's device) at token
-        offset ``start`` with one in-place indexed assignment per pool."""
-        t = k.shape[1]
-        blocks, pos = self._reserve(seq_id, t, start)
-        p = torch.arange(pos, pos + t)
+    def _addresses(self, blocks: List[int], pos: int, n: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        p = torch.arange(pos, pos + n)
         blk = torch.tensor(blocks, dtype=torch.long)[p // self.block_size]
-        slot = p % self.block_size
+        return blk, p % self.block_size
+
+    # ---- data plane -----------------------------------------------------
+    def reserve(self, seq_id: int, n_tokens: int,
+                start: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Commit ``n_tokens`` of ``seq_id`` at ``start`` (default: its
+        length) in the bookkeeping and return where they go: ``(block,
+        slot)`` host int64 tensors of ``n_tokens`` entries for
+        :meth:`scatter`."""
+        blocks, pos = self._reserve(seq_id, n_tokens, start)
+        return self._addresses(blocks, pos, n_tokens)
+
+    def reserve_many(self, counts: Sequence[Tuple[int, int]]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`reserve` of ``n`` tokens at the current length of each
+        ``(seq_id, n)``, the addresses concatenated in that order."""
+        blks, slots = [], []
+        for seq_id, n in counts:
+            blk, slot = self.reserve(seq_id, n)
+            blks.append(blk)
+            slots.append(slot)
+        if not blks:
+            return (torch.zeros(0, dtype=torch.long),
+                    torch.zeros(0, dtype=torch.long))
+        return torch.cat(blks), torch.cat(slots)
+
+    def scatter(self, blk: torch.Tensor, slot: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write ``k/v [L, N, H, D]`` (on the cache's device) at the
+        ``N`` addresses, one in-place indexed assignment per pool."""
         blk, slot = blk.to(self.device), slot.to(self.device)
         self.k_pool[:, blk, slot] = k.to(self.k_pool.dtype)
         self.v_pool[:, blk, slot] = v.to(self.v_pool.dtype)
 
-    def write_many(self, items: Sequence[Tuple[int, torch.Tensor,
-                                               torch.Tensor]]) -> None:
-        """:meth:`write` for several sequences at their current lengths
-        (``(seq_id, k, v)`` with k/v ``[L, T_i, H, D]``), one indexed
-        assignment per pool for all of them (:462-478)."""
-        if not items:
-            return
-        blks, slots = [], []
-        for seq_id, k, _ in items:
-            blocks, pos = self._reserve(seq_id, k.shape[1], None)
-            p = torch.arange(pos, pos + k.shape[1])
-            blks.append(torch.tensor(blocks, dtype=torch.long)
-                        [p // self.block_size])
-            slots.append(p % self.block_size)
-        blk = torch.cat(blks).to(self.device)
-        slot = torch.cat(slots).to(self.device)
-        self.k_pool[:, blk, slot] = torch.cat(
-            [k for _, k, _ in items], dim=1).to(self.k_pool.dtype)
-        self.v_pool[:, blk, slot] = torch.cat(
-            [v for _, _, v in items], dim=1).to(self.v_pool.dtype)
+    def write(self, seq_id: int, k: torch.Tensor, v: torch.Tensor,
+              start: Optional[int] = None) -> None:
+        """Write ``k/v [L, T, H, D]`` (on the cache's device) at token
+        offset ``start`` with one in-place indexed assignment per pool."""
+        self.scatter(*self.reserve(seq_id, k.shape[1], start), k, v)
 
     def advance_many(self, counts: Sequence[Tuple[int, int]]) -> None:
         """Commit ``n`` tokens per ``(seq_id, n)`` whose K/V the decode
@@ -258,11 +305,11 @@ class PagedKVCache:
         for seq_id, n in counts:
             self._reserve(seq_id, n, None)
 
-    def block_tables_array(self, seq_ids: Sequence[int]
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(tables [B, W] int32, lengths [B] int32)`` on the cache's
-        device; ``W`` is the largest owned-block count, rows padded with
-        block 0 (the mask keeps padded entries unreachable)."""
+    def block_tables(self, seq_ids: Sequence[int]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(tables [B, W] int32, lengths [B] int32)`` on the host;
+        ``W`` is the largest owned-block count, rows padded with block 0
+        (the mask keeps padded entries unreachable)."""
         with self._lock:
             ents = [self._seq(s) for s in seq_ids]
             tables = [list(e.blocks) for e in ents]
@@ -271,20 +318,22 @@ class PagedKVCache:
         out = torch.zeros((len(tables), w), dtype=torch.int32)
         for i, t in enumerate(tables):
             out[i, :len(t)] = torch.tensor(t, dtype=torch.int32)
-        return (out.to(self.device),
-                torch.tensor(lens, dtype=torch.int32).to(self.device))
+        return out, torch.tensor(lens, dtype=torch.int32)
 
-    def gather(self, seq_ids: Sequence[int], *, pad_len: Optional[int] = None,
-               pad_batch: Optional[int] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Dense padded view for a decode batch (:530-571), on the pools'
-        device: ``(k, v, lengths)`` with k/v ``[L, B, T, H, D]`` and
-        lengths ``[B] int32``.  ``T`` is ``pad_len`` or the longest
-        length rounded up to a whole block (one block at least); ``B``
-        is ``pad_batch`` or ``len(seq_ids)``, extra rows zero with
-        length 0.  Whole blocks are copied by one indexed read per pool,
-        so slots in [length, T) hold whatever their block holds; blocks
-        past a row's length are zero."""
+    def block_tables_array(self, seq_ids: Sequence[int]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`block_tables` on the cache's device."""
+        tables, lengths = self.block_tables(seq_ids)
+        return tables.to(self.device), lengths.to(self.device)
+
+    def gather_plan(self, seq_ids: Sequence[int], *,
+                    pad_len: Optional[int] = None,
+                    pad_batch: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The host side of :meth:`gather`: ``(idx [B, nb] int64, valid
+        [B, nb] bool, lengths [B] int32)``, each row's first blocks and
+        which of them it uses; ``nb`` whole blocks make the view's ``T``
+        (see :meth:`gather` for ``pad_len`` and ``pad_batch``)."""
         with self._lock:
             ents = [self._seq(s) for s in seq_ids]
             tables = [list(e.blocks) for e in ents]
@@ -308,28 +357,56 @@ class PagedKVCache:
             used = self.blocks_for(n)
             idx[i, :used] = torch.tensor(table[:used], dtype=torch.long)
             valid[i, :used] = True
-        idx, valid = idx.to(self.device), valid.to(self.device)
         lengths = torch.zeros(b, dtype=torch.int32)
         lengths[:len(lens)] = torch.tensor(lens, dtype=torch.int32)
+        return idx, valid, lengths
 
-        def dense(pool: torch.Tensor) -> torch.Tensor:
+    def dense(self, idx: torch.Tensor, valid: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device side of :meth:`gather`: k/v ``[L, B, nb·block_size,
+        H, D]``, one indexed read per pool, blocks past a row's use
+        zeroed."""
+        idx, valid = idx.to(self.device), valid.to(self.device)
+        b, nb = idx.shape
+
+        def view(pool: torch.Tensor) -> torch.Tensor:
             out = pool[:, idx]                       # [L, B, nb, bs, H, D]
             out.masked_fill_(~valid[None, :, :, None, None, None], 0)
-            return out.reshape(self.n_layers, b, need, *pool.shape[3:])
+            return out.reshape(self.n_layers, b, nb * self.block_size,
+                               *pool.shape[3:])
 
-        return (dense(self.k_pool), dense(self.v_pool),
-                lengths.to(self.device))
+        return view(self.k_pool), view(self.v_pool)
+
+    def gather(self, seq_ids: Sequence[int], *, pad_len: Optional[int] = None,
+               pad_batch: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Dense padded view for a decode batch (:530-571), on the pools'
+        device: ``(k, v, lengths)`` with k/v ``[L, B, T, H, D]`` and
+        lengths ``[B] int32``.  ``T`` is ``pad_len`` or the longest
+        length rounded up to a whole block (one block at least); ``B``
+        is ``pad_batch`` or ``len(seq_ids)``, extra rows zero with
+        length 0.  Whole blocks are copied by one indexed read per pool,
+        so slots in [length, T) hold whatever their block holds; blocks
+        past a row's length are zero."""
+        idx, valid, lengths = self.gather_plan(seq_ids, pad_len=pad_len,
+                                               pad_batch=pad_batch)
+        k, v = self.dense(idx, valid)
+        return k, v, lengths.to(self.device)
 
     def shard_gathered(self, k: torch.Tensor, v: torch.Tensor):
-        """Place a gathered view over the cache's mesh (:573-593).  With
-        no mesh it is the input, unchanged; a mesh raises: the port
-        serves on one card, and sharded serving over
-        ``torch.distributed`` is ROADMAP.md Queue 1 item 11."""
-        if self.mesh is None:
+        """This rank's part of a gathered view over the cache's mesh
+        (:573-593): the view's rows for its dp coordinate, when the batch
+        divides dp; otherwise (the reference's fallback, :587-589), and
+        with no mesh or a mesh :func:`kv_partition_spec` gives no
+        placement, the view whole.  The heads are this rank's already:
+        the pools hold them."""
+        if self.mesh is None or kv_partition_spec(self.mesh) is None:
             return k, v
-        raise DMLCError("a gathered KV view cannot be placed over a mesh "
-                        "yet: sharded serving is ROADMAP.md Queue 1 "
-                        "item 11")
+        dp = self.mesh.axis_size(AXIS_DP)
+        if k.shape[1] % dp:
+            return k, v
+        r = self.mesh.axis_rank(AXIS_DP)
+        return k.chunk(dp, dim=1)[r], v.chunk(dp, dim=1)[r]
 
     # ---- observability --------------------------------------------------
     def stats(self) -> Dict[str, float]:

@@ -10,8 +10,9 @@ through ``dmlc_tpu`` and the port, in float32 on the CPU:
   bit-equal to ``forward_decode``;
 * ``PagedKVCache.gather`` against the reference's: equal on every live
   slot, dead rows zero with length 0, the same ``pad_len`` errors;
-  ``shard_gathered`` without a mesh returns its input, with one it
-  raises;
+  ``shard_gathered`` without a mesh returns its input, on a dp2 mesh
+  this rank's rows (the input where the batch does not divide dp), and
+  a cache on a mesh with sp > 1 raises;
 * ``decode_phase_flops`` equal to the reference's, and summing to
   ``decode_flops_per_token``;
 * the engine under ``off``: greedy tokens equal to the JAX engine's
@@ -36,6 +37,7 @@ from dmlc_tpu_torch import telemetry
 from dmlc_tpu_torch.base import DMLCError
 from dmlc_tpu_torch.models import transformer as ttfm
 from dmlc_tpu_torch.models.convert import params_from_jax
+from dmlc_tpu_torch.parallel.mesh import MESH_AXES, Mesh
 from dmlc_tpu_torch.serving import InferenceEngine, PagedKVCache
 
 DIMS = dict(vocab=64, d_model=32, n_heads=2, head_dim=8, d_ff=48,
@@ -213,14 +215,35 @@ def test_gather_pad_len_errors_equal_jax(pad_len, match):
             c.gather([10, 11], pad_len=pad_len)
 
 
+def _mesh(rank=0, **axes):
+    """A one-process stand-in for rank ``rank`` of a mesh of ``axes``
+    (no process groups: ``shard_gathered`` only reads coordinates)."""
+    shape = {a: axes.get(a, 1) for a in MESH_AXES}
+    coords = dict(zip(MESH_AXES, np.unravel_index(
+        rank, [shape[a] for a in MESH_AXES])))
+    return Mesh(shape=shape, coords={a: int(c) for a, c in coords.items()},
+                rank=rank, device=torch.device("cpu"), groups={})
+
+
 def test_shard_gathered_is_identity_without_a_mesh_and_raises_with_one():
-    _, tc = _caches([3])
-    k, v, _ = tc.gather([10])
+    _, tc = _caches([3, 5])
+    k, v, _ = tc.gather([10, 11])
     got = tc.shard_gathered(k, v)
     assert got[0] is k and got[1] is v
-    tc.mesh = object()
-    with pytest.raises(DMLCError, match="Queue 1 item 11"):
-        tc.shard_gathered(k, v)
+    # on a dp2 mesh (the reference's batch-over-dp placement): the rows of
+    # this rank's dp coordinate, and the whole view when B does not divide
+    for rank in (0, 1):
+        tc.mesh = _mesh(rank, dp=2)
+        gk, gv = tc.shard_gathered(k, v)
+        assert torch.equal(gk, k[:, rank:rank + 1])
+        assert torch.equal(gv, v[:, rank:rank + 1])
+        k3, v3, _ = tc.gather([10, 11], pad_batch=3)
+        got = tc.shard_gathered(k3, v3)
+        assert got[0] is k3 and got[1] is v3
+    shape = (DIMS["n_layers"], DIMS["n_heads"], DIMS["head_dim"])
+    with pytest.raises(DMLCError, match="Queue 1 item 11b"):
+        PagedKVCache(*shape, n_blocks=4, block_size=BS, device="cpu",
+                     mesh=_mesh(sp=2))
 
 
 # ---------------------------------------------------------------------------
