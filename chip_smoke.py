@@ -131,17 +131,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
             oracle the same way, the tracker's ``/anomalies`` showing
             rank 0's remediation (``rollback``, 2 skips, 1 rollback)
    elastic  the port's elastic LM trainer under ``build/elastic``
-            (removed after): the flagship's widths at depth 2 (243M
+            (removed after): the flagship's widths at depth 1 (188M
             params, bf16, ``save_flash``, seed 0) on ``make_data``'s
             shard, 3 workers of ``python -m dmlc_tpu_torch.tracker.submit
             --cluster local --num-workers 3`` with ``DMLC_ELASTIC=1``
             sharing the card (each an entry of this script,
             ``--elastic-worker``, calling ``train_lm_recordio.run``); one
-            SIGKILLed after the step-20 commit, the survivors shrink to
-            2, ``POST /resize {"world": 3}`` and a fresh worker (started
-            at the kill, entering the job after the request) grow the
-            world back, 26 steps in all.  Gates: both resizes on every
-            survivor (resynced at step 20, then at world 3), /metrics
+            SIGKILLed after the step-5 commit (the job commits every 5
+            steps), the survivors shrink to 2, ``POST /resize
+            {"world": 3}`` and a fresh worker (started at the kill,
+            entering the job after the request) grow the world back, 11
+            steps in all.  Gates: both resizes on every survivor
+            (resynced at step 5, then at world 3), /metrics
             ``dmlc_elastic_resizes_total`` >= 2, every step's loss one
             value on every rank, finite and falling, equal final-param
             SHA-256s, ``n_layers`` launches of each of K1-K3 per loss
@@ -150,8 +151,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
             ``checkpoint_restore`` non-zero and ``unattributed`` under
             10%, no process or ``/dev/shm/dmlc*`` segment left.  The
             tracker's endpoints are read once a second through the job
-            (an error status fails the smoke); gates on the last good
-            reading: ``/trace`` a row per shipping rank (pid = rank +
+            (an error status fails the smoke, and so does a good
+            reading after a response cut short: only the tracker's exit
+            with the job may cut one); gates on the last good reading: ``/trace`` a row per shipping rank (pid = rank +
             1) and the tracker's at pid 0, a ``step`` span of every live
             rank, spans in the order they ended within a (pid, thread);
             ``/anomalies`` every live rank with steps and a finite
@@ -210,21 +212,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
             shapes ([2, 1024, 16, 128] and [2, 2048, 8, 128], bf16,
             causal) against their plain versions (K2/K3 at the bf16
             ``GRAD_TOL``), K1 timed beside its plain version and SDPA;
-            then two jobs of
-            4 workers of the port's launcher sharing the card over gloo
-            (each ``chip_smoke.py --mesh5-worker``).  Gang A: the
-            flagship's widths at depth 4 on pp2 x dp2 (2 layers a stage,
+            then one job of 4 workers of the port's launcher sharing
+            the card over gloo (each ``chip_smoke.py --mesh5-worker``),
+            which runs gang A and then gang B, each on its own
+            ``build_mesh`` over the same ranks.  Gang A: the
+            flagship's widths at depth 2 on pp2 x dp2 (1 layer a stage,
             2 microbatches, global B=8 x T=1024, seed 0); gang B: the
             routed flagship (top-2 of 8, capacity factor 1.25) at depth
             2 on ep2 x tp2 (4 experts x half of d_ff and 8 heads a rank,
             B=2 x T=2048).  Gates, each gang: a depth-2 float32 copy on
             the gang's mesh against one process (loss within 2e-5
             relative, every gathered gradient within 1e-4 of its max;
-            gang B's route agreement reported); 1 warm-up and 5 bf16
+            gang B's route agreement reported); 1 warm-up and 3 bf16
             AdamW steps of ``make_train_step(mesh=...)`` with one loss
             per step on every rank, falling, each leaf's SHA-256 equal
             on the ranks that hold the same shard, and (M+P-1) x L/P
-            launches of each of K1-K3 a step a rank (6 in gang A, 2 in
+            launches of each of K1-K3 a step a rank (3 in gang A, 2 in
             gang B).  Gang A also: the same steps from the same start
             with ``overlap="device"``, losses within 1e-2 relative of
             the fused reduction's (bit-equality reported), every leaf
@@ -274,6 +277,41 @@ Phases, each printing one JSON line (any failure exits non-zero):
             full depth) and its counted decode cost over the global
             step's FLOPs (reported); spawn → first request served; the
             phase wall
+   shard_serve_wide  sharded serving on the rest of the mesh: the 4
+            workers of ``shard_serve``'s job, after its gang, serve two
+            more in turn, each on its own ``build_mesh`` over the same
+            ranks (one spawn for the three).  Gang R: the
+            routed flagship (top-2 of 8, capacity factor 1.25, 5.23B
+            params) at full width and depth on dp2 x ep2, 4 experts a
+            rank; gang P: the flagship at full width and depth on pp2 x
+            tp2, 8 layers and 8 heads a rank.  Weights are drawn from
+            seed 0 leaf by leaf and layer by layer, each rank keeping
+            its shards (``seeded_model``).  Each gang: one warm-up
+            request, then the slice phase's 8 requests on ``auto`` (the
+            gather path on both meshes, as the reference's ``auto``
+            picks; gang R's routed FFN gathers every row's choices over
+            dp) and on ``on`` (paged) at spec_k 0, behind rank 0's HTTP
+            server.  Gates: every request 200 with 32 tokens; on every
+            rank, counted from 0 just before each run, K1 its local
+            layers a prefill, K4 its local layers a decode step on the
+            paged run and none on the gather run; every rank exits 0;
+            a float32 copy at depth 2 on the gang's mesh (both runs,
+            every request submitted before the engine starts, so that
+            the routed gang batches as one card does) gives the greedy
+            tokens of a one-card f32 engine on rank 0,
+            its sharded prefill and decode step (both paths) within
+            1e-4 relative of one card's; for gang R the paged run's
+            dropped-choice fraction (``moe_debug_overflow``, each call's
+            counts summed over ep) equal to the one-card run's.
+            Numbers: tokens/s, TTFT p50/p99, decode step p50 and gap
+            p99 per gang and run beside one card's (the slice, gather
+            and routed serving runs) and ``shard_serve``'s; rank 0's
+            collective calls and bytes per decode step (per run, and one
+            counted step a path: the pp handoff, the ep/tp all-reduces,
+            the dp gather of the routed choices, the logits broadcast
+            over pp); K1/K4 launches per rank; the f32 numbers and the
+            gather run's dropped fraction (reported: it routes the dead
+            rows the batch is padded with too)
    telemetry  the port's ``LoadGenerator`` drives the port's server (the
             flagship, spec_k=3, seed 0): 8 streams x 2 requests, prompts
             of 17..511 tokens, 32 new tokens; gates: /metrics parses as
@@ -413,7 +451,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
             ``path_launches`` on the gather path, the routed serving and
             train paths, the self-heal runs, the elastic job, the mesh
             phase's ring, Ulysses and train runs, the mesh5 gangs'
-            timed steps, the shard_serve ranks' three runs, the router
+            timed steps, the shard_serve ranks' three runs, the
+            shard_serve_wide ranks' runs of both gangs, the router
             phase's replicas and the fleet phase's three),
             max error, times and roofline bound; K1's ``ring_step``,
             ``mesh5_shapes`` and ``shard_serve_shape`` rows, K4's
@@ -439,6 +478,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from http.client import HTTPException
 
 import numpy as np
 import torch
@@ -3147,10 +3187,11 @@ def model_options_phase(tfm, serving, fa, pa, tele, cfg, prompts, looping):
 # ---------------------------------------------------------------------------
 
 ELASTIC_WORKERS = 3
-ELASTIC_STEPS = 26       # bounded by the smoke's time limit
-ELASTIC_KILL_AT = 21     # a worker is SIGKILLed once this step is seen
-ELASTIC_GROW_AT = 23     # the world grows once world 2 has reached it
-ELASTIC_LAYERS = 2       # the flagship's widths at depth 2 (see the phase)
+ELASTIC_STEPS = 11       # bounded by the smoke's time limit
+ELASTIC_SAVE_EVERY = 5   # the job commits every 5 steps (the example's 20)
+ELASTIC_KILL_AT = 6      # a worker is SIGKILLed once this step is seen
+ELASTIC_GROW_AT = 8      # the world grows once world 2 has reached it
+ELASTIC_LAYERS = 1       # the flagship's widths at depth 1 (see the phase)
 ELASTIC_TIMEOUT_S = 420  # bound on the whole job
 # a SIGKILLed same-host peer cannot poison the shm group its gang-mates
 # wait in: they wake at DMLC_COLL_SHM_TIMEOUT_S.  It sits above any
@@ -3170,7 +3211,7 @@ def elastic_config():
 
 
 def elastic_worker(argv) -> int:
-    """One worker of the elastic job: the flagship at depth 2 from seed
+    """One worker of the elastic job: the flagship at depth 1 from seed
     0 through the port's ``train_lm_recordio.run`` (elastic under the
     launcher's ``DMLC_ELASTIC=1``).  Writes its pid, each state broadcast
     and its progress as they happen, and at the end its K1-K3 launches
@@ -3228,6 +3269,7 @@ def elastic_worker(argv) -> int:
         return loss_fn(*a, **kw)
 
     tfm.unsharded_loss = counted
+    ex.SAVE_EVERY = ELASTIC_SAVE_EVERY
     kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
                "flash_bwd_dq": fa.FLASH_BWD_DQ}
     model = tfm.init_params(elastic_config(),
@@ -3273,7 +3315,9 @@ class TrackerPolls:
     render plus the localhost transfer) and its size, and every anomaly
     flag seen active in any reading with its first ``since``.  A read
     the server answers with an error status fails the smoke; a refused
-    connection is the tracker closing with the job's end."""
+    connection is the tracker closing with the job's end, and so is a
+    response cut short (the tracker's handler threads die with it), but
+    only as the last read: a good reading after a torn one fails."""
 
     PATHS = ("/metrics", "/goodput", "/trace", "/anomalies", "/compute",
              "/incidents")
@@ -3283,6 +3327,7 @@ class TrackerPolls:
         self.last = {}
         self.flags = {}          # (rank, kind) -> since
         self.trace_reads = []    # (ms, bytes)
+        self.torn = None         # the first response cut short
         self._t = 0.0
 
     def __call__(self):
@@ -3298,6 +3343,11 @@ class TrackerPolls:
                 check(False, f"elastic: tracker {path} answered {e.code}")
             except OSError:
                 return   # the tracker closes with the job's end
+            except HTTPException as e:
+                self.torn = self.torn or f"{path} ({e!r})"
+                return
+            check(self.torn is None,
+                  f"elastic: tracker cut {self.torn} short and served on")
             ms = (time.perf_counter() - t0) * 1e3
             doc = body.decode() if path == "/metrics" else json.loads(body)
             self.last[path] = doc
@@ -3480,8 +3530,8 @@ def elastic_phase(smi):
                     if s["world"] == world]
 
         _poll(lambda: progress(2) >= ELASTIC_KILL_AT
-              and os.path.exists(os.path.join(ckpt, "step_00000020",
-                                              "manifest.json")),
+              and os.path.exists(os.path.join(
+                  ckpt, f"step_{ELASTIC_SAVE_EVERY:08d}", "manifest.json")),
               "the first commit and the kill step", deadline, job, polls)
         victim = _jsonl(os.path.join(out, "pid.2"))[0]
         os.kill(victim["pid"], 9)
@@ -3542,7 +3592,7 @@ def elastic_phase(smi):
     for t in (0, 1):
         worlds = [s["world"] for s in docs[t]["syncs"]]
         check(worlds == [3, 2, 3], f"elastic: task {t} syncs {worlds}")
-        check(docs[t]["syncs"][1]["done"] == 20,
+        check(docs[t]["syncs"][1]["done"] == ELASTIC_SAVE_EVERY,
               f"elastic: shrink resynced at {docs[t]['syncs'][1]['done']}")
     check([s["world"] for s in docs[3]["syncs"]] == [3],
           f"elastic: joiner syncs {docs[3]['syncs']}")
@@ -3611,10 +3661,11 @@ def elastic_phase(smi):
     led = docs[0]["ledger"]
     doc = {"phase": "elastic", "card": smi, "model": "flagship",
            "n_layers": cfg.n_layers, "params": tfm.count_params(cfg),
-           "reduced": "depth 16 -> 2: each rank holds a full replica and "
+           "reduced": "depth 16 -> 1: each rank holds a full replica and "
                       "three share one card and the host; a resync "
                       "broadcasts params and both AdamW moments in "
-                      "float64 (5.8 GB a rank at depth 2, 24 GB at 16)",
+                      "float64 (4.5 GB a rank at depth 1, 5.8 GB at 2, "
+                      "24 GB at 16)",
            "workers": ELASTIC_WORKERS, "steps": ELASTIC_STEPS,
            "B": ex.PER_PART, "T": ex.SEQ, "env": ELASTIC_ENV,
            "step_p50_ms": {"world3": p50(0, t_kill),
@@ -4204,7 +4255,7 @@ def mesh_phase(smi, fa):
 #: tp2 (4 experts x half of d_ff and 8 heads a rank, B=2 x T=2048)
 MESH5_GANGS = {
     "A": {"mesh": {"pp": 2, "dp": 2, "sp": 1, "ep": 1, "tp": 1},
-          "n_layers": 4, "microbatches": 2, "routed": False,
+          "n_layers": 2, "microbatches": 2, "routed": False,
           "B": 8, "T": 1024, "check_B": 4, "check_T": 1024,
           "overlaps": [None, "device"], "checkpoint": True},
     "B": {"mesh": {"pp": 1, "dp": 1, "sp": 1, "ep": 2, "tp": 2},
@@ -4212,7 +4263,7 @@ MESH5_GANGS = {
           "B": 2, "T": 2048, "check_B": 2, "check_T": 2048,
           "overlaps": [None], "checkpoint": False},
 }
-MESH5_STEPS = 5
+MESH5_STEPS = 3
 MESH5_TIMEOUT_S = 480
 #: overlap="device" against the fused reduction, bf16 losses: the
 #: bucket sums and the loss's transpose differ by a division by dp=2,
@@ -4305,21 +4356,12 @@ def _span_s(tele, after, name):
 
 
 def mesh5_worker(argv) -> int:
-    """One rank of a ``mesh5`` gang (under the port's launcher): tracker
-    rendezvous, ``initialize_distributed()``, ``build_mesh`` of the
-    gang's shape; the f32 check, then the bf16 AdamW steps of each
-    overlap mode from one start, gang A's sharded checkpoint and its
-    restored step, gang B's dropped-choice fraction.  Writes its numbers
-    to ``<out>/<out's name>.<rank>.json``."""
+    """One rank of the ``mesh5`` job (under the port's launcher): tracker
+    rendezvous, ``initialize_distributed()``, then each gang of
+    ``conf["gangs"]`` on its own ``build_mesh`` over the same 4 ranks
+    (:func:`mesh5_gang`).  Writes ``<out>/mesh5.<rank>.json``."""
     sys.path.insert(0, ROOT)
-    from dmlc_tpu_torch import telemetry as tele
-    from dmlc_tpu_torch.checkpoint import restore_pytree, save_pytree
-    from dmlc_tpu_torch.models import transformer as tfm
-    from dmlc_tpu_torch.models.convert import (
-        gather_params, shard_params_from_jax, state_specs,
-        train_state_from_jax, train_state_to_jax)
-    from dmlc_tpu_torch.ops import flash_attention as fa
-    from dmlc_tpu_torch.parallel import build_mesh, initialize_distributed
+    from dmlc_tpu_torch.parallel import initialize_distributed
     from dmlc_tpu_torch.tracker.client import TrackerClient
     import torch.distributed as dist
 
@@ -4332,6 +4374,35 @@ def mesh5_worker(argv) -> int:
     client.start()
     t0 = time.perf_counter()
     backend = initialize_distributed(timeout_s=MESH5_TIMEOUT_S)
+    docs = {gang: mesh5_gang(dict(g, ckpt=conf["ckpt"]), backend)
+            for gang, g in conf["gangs"].items()}
+    docs["wall_s"] = time.perf_counter() - t0
+    rank = dist.get_rank()
+    with open(os.path.join(out_dir, f"mesh5.{rank}.json"), "w") as f:
+        json.dump(docs, f)
+    client.log(f"rank {rank}: mesh5 gangs done")
+    dist.destroy_process_group()
+    client.shutdown()
+    return 0
+
+
+def mesh5_gang(conf, backend):
+    """One gang of the mesh5 job on this rank: ``build_mesh`` of the
+    gang's shape; the f32 check, then the bf16 AdamW steps of each
+    overlap mode from one start, gang A's sharded checkpoint and its
+    restored step, gang B's dropped-choice fraction.  Returns its
+    numbers."""
+    from dmlc_tpu_torch import telemetry as tele
+    from dmlc_tpu_torch.checkpoint import restore_pytree, save_pytree
+    from dmlc_tpu_torch.models import transformer as tfm
+    from dmlc_tpu_torch.models.convert import (
+        gather_params, shard_params_from_jax, state_specs,
+        train_state_from_jax, train_state_to_jax)
+    from dmlc_tpu_torch.ops import flash_attention as fa
+    from dmlc_tpu_torch.parallel import build_mesh
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
     mesh = build_mesh(**conf["mesh"])
     rank = mesh.rank
     doc = {"rank": rank, "coords": mesh.coords, "backend": backend,
@@ -4462,14 +4533,11 @@ def mesh5_worker(argv) -> int:
         moe = tele.snapshot()["counters"]["moe"]
         doc["overflow_fraction"] = (moe["overflow_fraction_sum"]
                                     / moe["overflow_checks"])
+    del model, opt, step, keep
+    gc.collect()
+    torch.cuda.empty_cache()
     doc["wall_s"] = time.perf_counter() - t0
-    with open(os.path.join(out_dir, f"{os.path.basename(out_dir)}.{rank}"
-                           ".json"), "w") as f:
-        json.dump(doc, f)
-    client.log(f"rank {rank}: mesh5 gang done")
-    dist.destroy_process_group()
-    client.shutdown()
-    return 0
+    return doc
 
 
 def mesh5_kernel_rows(fa):
@@ -4507,20 +4575,23 @@ def mesh5_phase(smi, fa):
     t_start = time.time()
     rows = mesh5_kernel_rows(fa)
     line = {"phase": "mesh5", "card": smi, "workers": MESH_WORKERS,
-            "reduced": "depth only (gang A 16 -> 4, gang B 16 -> 2): four "
+            "reduced": "depth only (gang A 16 -> 2, gang B 16 -> 2): four "
                        "ranks share one card and the host, and every "
                        "collective crosses gloo through host memory",
             "k1": rows, "gangs": {}}
     launches = {n: 0 for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    # one job: the same 4 ranks run gang A, then gang B
+    jobs, line["job_s"] = mesh_job("mesh5", "--mesh5-worker", {"gangs": {
+        gang: {"mesh": g["mesh"], "model": dataclasses.asdict(
+            mesh5_config(gang)), "B": g["B"], "T": g["T"],
+            "check_B": g["check_B"], "check_T": g["check_T"],
+            "steps": MESH5_STEPS, "overlaps": g["overlaps"],
+            "checkpoint": g["checkpoint"]}
+        for gang, g in MESH5_GANGS.items()}}, MESH5_TIMEOUT_S)
     for gang in ("A", "B"):
         g = MESH5_GANGS[gang]
         cfg = mesh5_config(gang)
-        docs, job_s = mesh_job(f"mesh5_{gang}", "--mesh5-worker", {
-            "mesh": g["mesh"], "model": dataclasses.asdict(cfg),
-            "B": g["B"], "T": g["T"], "check_B": g["check_B"],
-            "check_T": g["check_T"], "steps": MESH5_STEPS,
-            "overlaps": g["overlaps"], "checkpoint": g["checkpoint"]},
-            MESH5_TIMEOUT_S)
+        docs = [job[gang] for job in jobs]
         check(len({d["backend"] for d in docs}) == 1,
               f"mesh5 {gang}: backends differ")
         runs = {}
@@ -4581,7 +4652,7 @@ def mesh5_phase(smi, fa):
                "groups": docs[0]["groups"],
                "params_local": [d["params_local"] for d in docs],
                "f32_check": [d["f32"] for d in docs], "runs": runs,
-               "job_s": job_s}
+               "wall_s": [d["wall_s"] for d in docs]}
         if g["checkpoint"]:
             ck = [d["checkpoint"] for d in docs]
             check(all(c["restored_equal"] and c["step_sha_equal"]
@@ -4655,12 +4726,12 @@ def shard_model_config(name):
     return tfm.flagship_config() if name == "flagship" else serve.TINY
 
 
-def _counters(tele):
+def _counters(tele, ops=SHARD_OPS):
     """This rank's collective calls and bytes by op, and (as ``staged``)
     the bytes the port copies through pinned host memory itself."""
     out = {op: [tele.core.counter_value("collective", f"{op}_calls"),
                 tele.core.counter_value("collective", f"{op}_bytes")]
-           for op in SHARD_OPS}
+           for op in ops}
     out["staged"] = [0.0, tele.core.counter_value(
         "collective", "ppermute_staged_bytes")]
     return out
@@ -4672,22 +4743,189 @@ def _delta(after, before, n=1):
             for op in after}
 
 
+class ServeRank:
+    """One rank's side of a sharded-serving job on ``mesh``: the
+    engine's runs (:meth:`serve`) and one counted prefill and decode
+    step of each path (:meth:`steps`), with the collectives ``ops``
+    counted on this rank and K1/K4 counted from 0 before each run."""
+
+    def __init__(self, conf, mesh, vocab, ops=SHARD_OPS):
+        from dmlc_tpu_torch import serving
+        from dmlc_tpu_torch import telemetry as tele
+        from dmlc_tpu_torch.ops import flash_attention as fa
+        from dmlc_tpu_torch.ops import paged_attention as pa
+
+        self.serving, self.tele = serving, tele
+        self.conf, self.mesh, self.ops = conf, mesh, ops
+        self.rank, self.dev = mesh.rank, mesh.device
+        self.card = conf["device"] == "cuda"
+        self.kernels = {"flash_fwd": fa.FLASH_FWD,
+                        "paged_attention": pa.PAGED_ATTENTION}
+        self.prompts, self.looping = slice_prompts(vocab,
+                                                   conf["prompt_lens"])
+
+    def sync(self):
+        if self.card:
+            torch.cuda.synchronize()
+
+    def launches(self):
+        return {n: k.launches for n, k in self.kernels.items()}
+
+    def serve(self, m, mode, spec_k, on_mesh=True, batch=None,
+              direct=False):
+        """One engine over ``m`` (on the mesh, else rank 0's one card)
+        under ``DMLC_SERVE_PAGED_ATTN=mode``, ``batch`` (default: the
+        prompts, the looping ones at spec_k > 0) POSTed to rank 0's HTTP
+        server; K1/K4 counted from 0 just before.  ``direct`` submits
+        every request before the engine starts instead, so that the
+        decode batches do not hang on the clients' timing: a routed
+        model's tokens depend on which rows share a call (they compete
+        for expert capacity), and two engines held to equal tokens must
+        batch alike.  Returns the outputs only then."""
+        tele, conf = self.tele, self.conf
+        os.environ["DMLC_SERVE_PAGED_ATTN"] = mode
+        tele.reset()
+        tele.reset_steps()
+        for kern in self.kernels.values():
+            kern.launches = 0
+        eng = self.serving.InferenceEngine(
+            m, mesh=self.mesh if on_mesh else None, device=self.dev,
+            n_blocks=conf["n_blocks"], block_size=16, max_active=8,
+            queue_depth=64, spec_k=spec_k)
+        if self.rank:
+            eng.follow()
+            return {"launches": self.launches()}
+        if batch is None:
+            batch = self.looping if spec_k else self.prompts
+        if direct:
+            reqs = [eng.submit(p, max_new_tokens=conf["max_tokens"])
+                    for p in batch]
+            eng.start()
+            try:
+                for r in reqs:
+                    check(r.wait(600) and r.error is None,
+                          f"request {r.id}: {r.error}")
+            finally:
+                eng.close()
+            return {"requests": len(reqs), "launches": self.launches(),
+                    "outputs": [list(r.generated) for r in reqs]}
+        eng.start()
+        srv = self.serving.ServingHTTPServer(eng)
+        try:
+            before = _counters(tele, self.ops)
+            results, wall, first = post_prompts(srv.url, batch,
+                                                conf["max_tokens"])
+            after = _counters(tele, self.ops)
+            recs = tele.ledger().records()
+            reqs = eng.requests.summary()
+            cost = eng._decode.stats() if hasattr(eng._decode, "stats") \
+                else None
+        finally:
+            srv.close()
+            eng.close()
+        ttft = sorted(d["ttft_s"] for _, d in results)
+        tokens = sum(d["n_generated"] for _, d in results)
+        c = eng.counters
+        last = (cost or {}).get("last_cost") or {}
+        return {"mode": mode, "spec_k": spec_k, "paged": eng._use_paged,
+                "requests": len(results),
+                "requests_200": sum(code == 200 for code, _ in results),
+                "wall_s": wall, "first_served_unix": first,
+                "tokens": tokens, "tokens_per_s": tokens / wall,
+                "ttft_p50_s": pctl(ttft, 50), "ttft_p99_s": pctl(ttft, 99),
+                "step_p50_s": pctl([r["wall_s"] for r in recs], 50),
+                "gap_p99_s": reqs["tbt_p99_s"],
+                "prefills": c["prefills"], "decode_steps": c["decode_steps"],
+                "preemptions": c["preemptions"],
+                "launches": self.launches(),
+                "collectives_per_decode_step": _delta(
+                    after, before, max(c["decode_steps"], 1)),
+                "counted_flops": last.get("flops"),
+                "counted_over_global_flops": (
+                    last["flops"] / recs[-1]["flops"]
+                    if last.get("flops") and recs else None),
+                "outputs": [d["output_ids"] for _, d in results]}
+
+    def steps(self, tfm, m, inp):
+        """``{name: (logits, ms, collectives)}`` of a sharded prefill of
+        ``inp`` and a decode step of ``m`` on each path (every rank calls
+        it): the gather view of this rank's dp rows, its heads of its
+        stage's layers."""
+        import torch.distributed as dist
+
+        mesh = self.mesh
+        shard = {"axes": tfm.serving_axes(mesh), "mesh": mesh}
+        dp, di = mesh.axis_size("dp"), mesh.axis_rank("dp")
+        out = {}
+
+        def counted(name, fn):
+            dist.barrier()
+            self.sync()
+            before, ts = _counters(self.tele, self.ops), time.perf_counter()
+            with torch.inference_mode():
+                got = fn()
+            self.sync()
+            out[name] = (got, (time.perf_counter() - ts) * 1e3,
+                         _delta(_counters(self.tele, self.ops), before))
+            return got
+
+        _, k, v = counted("prefill", lambda: prefill(tfm, m, inp, **shard))
+        kp, vp = decode_pools(k, v, inp)
+        b, w = inp["tables"].shape
+        kd, vd = (x[:, inp["tables"].long()].reshape(
+            x.shape[0], b, w * 16, *x.shape[3:]).chunk(dp, dim=1)[di]
+            for x in (kp, vp))
+        lens = inp["lengths"]
+        counted("gather", lambda: tfm.forward_decode(
+            m, inp["dids"][:, 0], lens.long(), kd, vd, lens, **shard)[0])
+        counted("paged", lambda: decode(tfm, m, inp, kp, vp, **shard)[:, 0])
+        out["prefill"] = (out["prefill"][0][0],) + out["prefill"][1:]
+        return out
+
+
+def f32_against_one_card(tfm, sr, got, want, sharded, one, runs, phase):
+    """Rank 0's f32 gates: each run's tokens (``got``) equal to one
+    card's (``want`` by spec_k), and the sharded prefill and decode
+    logits (``sharded``, :meth:`ServeRank.steps`) within
+    ``SHARD_LOGIT_TOL`` of one card's model ``one``.  Returns the
+    numbers."""
+    f32 = {"n_layers": SHARD_F32_LAYERS, "tokens_equal": all(
+        got[name]["outputs"] == want[k] for name, _, k in runs)}
+    check(f32["tokens_equal"], f"{phase}: f32 tokens differ from one "
+          "card's: " + json.dumps({name: _agreement(
+              got[name]["outputs"], want[k]) for name, _, k in runs}))
+    inp = slice_inputs(one.cfg, sr.dev)
+    lp, k, v = prefill(tfm, one, inp)
+    kp, vp = decode_pools(k, v, inp)
+    ref = decode(tfm, one, inp, kp, vp)[:, 0]
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    f32["prefill_logits_rel"] = rel(sharded["prefill"][0], lp)
+    f32["decode_logits_rel"] = {n: rel(sharded[n][0], ref)
+                                for n in ("gather", "paged")}
+    check(f32["prefill_logits_rel"] <= SHARD_LOGIT_TOL
+          and max(f32["decode_logits_rel"].values()) <= SHARD_LOGIT_TOL,
+          f"{phase}: f32 logits against one card {f32}")
+    f32["requests"] = sum(r["requests"] for r in got.values())
+    return f32
+
+
 def shard_serve_worker(argv) -> int:
     """One rank of the shard_serve phase (under the port's launcher):
     ``initialize_distributed()``, ``build_mesh(dp=2, tp=2)``, the
     flagship's shards of the seed-0 weights; the engine on the mesh for
     each run of ``SHARD_RUNS`` (rank 0 serves it over HTTP, the others
     follow), one sharded prefill and decode step counted, then the f32
-    depth-2 copy against one card.  Writes
-    ``<out>/shard_serve.<rank>.json``."""
+    depth-2 copy against one card; then the gangs of
+    ``conf["wide"]`` (:func:`wide_gangs`, the shard_serve_wide phase's).
+    Writes ``<out>/shard_serve.<rank>.json``."""
     sys.path.insert(0, ROOT)
-    from dmlc_tpu_torch import serving
-    from dmlc_tpu_torch import telemetry as tele
     from dmlc_tpu_torch.models import transformer as tfm
     from dmlc_tpu_torch.models.convert import (gather_params,
                                                shard_params_from_jax)
-    from dmlc_tpu_torch.ops import flash_attention as fa
-    from dmlc_tpu_torch.ops import paged_attention as pa
     from dmlc_tpu_torch.parallel import build_mesh, initialize_distributed
     from dmlc_tpu_torch.tracker.client import TrackerClient
     import torch.distributed as dist
@@ -4705,12 +4943,6 @@ def shard_serve_worker(argv) -> int:
     mesh = build_mesh(pp=1, sp=1, ep=1, **conf["mesh"],
                       device=None if card else "cpu")
     rank, dev = mesh.rank, mesh.device
-    kernels = {"flash_fwd": fa.FLASH_FWD,
-               "paged_attention": pa.PAGED_ATTENTION}
-
-    def sync():
-        if card:
-            torch.cuda.synchronize()
 
     # the slice phase's global weights (seed 0), this rank's shards
     cfg = shard_model_config(conf["model"])
@@ -4727,108 +4959,19 @@ def shard_serve_worker(argv) -> int:
     doc = {"rank": rank, "coords": mesh.coords, "backend": backend,
            "device": str(dev), "init_s": time.perf_counter() - t0,
            "params_local": sum(p.numel() for p in model.parameters())}
-    prompts, looping = slice_prompts(cfg.vocab, conf["prompt_lens"])
-    shard = {"axes": tfm.SERVING_AXES, "mesh": mesh}
-
-    def serve(m, mode, spec_k, on_mesh=True, batch=None):
-        """One engine over ``m`` (on the mesh, else rank 0's one card)
-        under ``DMLC_SERVE_PAGED_ATTN=mode``, ``batch`` (default: the
-        prompts, the looping ones at spec_k > 0) POSTed to rank 0's HTTP
-        server; K1/K4 counted from 0 just before."""
-        os.environ["DMLC_SERVE_PAGED_ATTN"] = mode
-        tele.reset()
-        tele.reset_steps()
-        for kern in kernels.values():
-            kern.launches = 0
-        eng = serving.InferenceEngine(
-            m, mesh=mesh if on_mesh else None, device=dev,
-            n_blocks=conf["n_blocks"], block_size=16, max_active=8,
-            queue_depth=64, spec_k=spec_k)
-        if rank:
-            eng.follow()
-            return {"launches": {n: k.launches for n, k in kernels.items()}}
-        eng.start()
-        srv = serving.ServingHTTPServer(eng)
-        try:
-            before = _counters(tele)
-            if batch is None:
-                batch = looping if spec_k else prompts
-            results, wall, first = post_prompts(srv.url, batch,
-                                                conf["max_tokens"])
-            after = _counters(tele)
-            recs = tele.ledger().records()
-            reqs = eng.requests.summary()
-            cost = eng._decode.stats() if hasattr(eng._decode, "stats") \
-                else None
-        finally:
-            srv.close()
-            eng.close()
-        ttft = sorted(d["ttft_s"] for _, d in results)
-        tokens = sum(d["n_generated"] for _, d in results)
-        c = eng.counters
-        last = (cost or {}).get("last_cost") or {}
-        out = {"mode": mode, "spec_k": spec_k, "paged": eng._use_paged,
-               "requests": len(results),
-               "requests_200": sum(code == 200 for code, _ in results),
-               "wall_s": wall, "first_served_unix": first,
-               "tokens": tokens, "tokens_per_s": tokens / wall,
-               "ttft_p50_s": pctl(ttft, 50), "ttft_p99_s": pctl(ttft, 99),
-               "step_p50_s": pctl([r["wall_s"] for r in recs], 50),
-               "gap_p99_s": reqs["tbt_p99_s"],
-               "prefills": c["prefills"], "decode_steps": c["decode_steps"],
-               "preemptions": c["preemptions"],
-               "launches": {n: k.launches for n, k in kernels.items()},
-               "collectives_per_decode_step": _delta(
-                   after, before, max(c["decode_steps"], 1)),
-               "counted_flops": last.get("flops"),
-               "counted_over_global_flops": (
-                   last["flops"] / recs[-1]["flops"]
-                   if last.get("flops") and recs else None),
-               "outputs": [d["output_ids"] for _, d in results]}
-        return out
+    sr = ServeRank(conf, mesh, cfg.vocab)
 
     # 1. the flagship, bf16, full depth: one short request to warm up (as
     # the slice phase's), then three runs on the mesh
-    doc["warmup"] = serve(model, "auto", 0, batch=[prompts[0][:17]])
-    doc["runs"] = {name: serve(model, mode, k)
+    doc["warmup"] = sr.serve(model, "auto", 0, batch=[sr.prompts[0][:17]])
+    doc["runs"] = {name: sr.serve(model, mode, k)
                    for name, mode, k in SHARD_RUNS}
 
     # 2. one sharded prefill and decode step (B=8, contexts 17..511), the
     # collectives each makes counted on this rank
-    inp = slice_inputs(cfg, dev)
-    dp, di = mesh.axis_size("dp"), mesh.axis_rank("dp")
-
-    def steps(m):
-        """``{name: (logits, ms, collectives)}`` of a sharded prefill and
-        decode steps of ``m`` on both paths (every rank calls it)."""
-        out = {}
-
-        def counted(name, fn):
-            dist.barrier()
-            sync()
-            before, ts = _counters(tele), time.perf_counter()
-            with torch.inference_mode():
-                got = fn()
-            sync()
-            out[name] = (got, (time.perf_counter() - ts) * 1e3,
-                         _delta(_counters(tele), before))
-            return got
-
-        _, k, v = counted("prefill", lambda: prefill(tfm, m, inp, **shard))
-        kp, vp = decode_pools(k, v, inp)
-        b, w = inp["tables"].shape
-        kd, vd = (x[:, inp["tables"].long()].reshape(
-            x.shape[0], b, w * 16, *x.shape[3:]).chunk(dp, dim=1)[di]
-            for x in (kp, vp))
-        lens = inp["lengths"]
-        counted("gather", lambda: tfm.forward_decode(
-            m, inp["dids"][:, 0], lens.long(), kd, vd, lens, **shard)[0])
-        counted("paged", lambda: decode(tfm, m, inp, kp, vp, **shard)[:, 0])
-        out["prefill"] = (out["prefill"][0][0],) + out["prefill"][1:]
-        return out
-
     doc["decode_step"] = {name: {"ms": ms, "collectives": coll}
-                          for name, (_, ms, coll) in steps(model).items()}
+                          for name, (_, ms, coll) in sr.steps(
+                              tfm, model, slice_inputs(cfg, dev)).items()}
     del model
     if card:
         torch.cuda.empty_cache()
@@ -4840,36 +4983,20 @@ def shard_serve_worker(argv) -> int:
     one = None
     if rank == 0:
         one = shard_params_from_jax(tree2, cfg2, None, device=dev)
-        want = [serve(one, "auto", 0, on_mesh=False)["outputs"],
-                serve(one, "auto", 3, on_mesh=False)["outputs"]]
-    got = {name: serve(m2, mode, k) for name, mode, k in SHARD_F32_RUNS}
-    sharded = steps(m2)
+        want = {k: sr.serve(one, "auto", k, on_mesh=False,
+                            direct=True)["outputs"] for k in (0, 3)}
+    got = {name: sr.serve(m2, mode, k, direct=True)
+           for name, mode, k in SHARD_F32_RUNS}
+    sharded = sr.steps(tfm, m2, slice_inputs(cfg2, dev))
     if rank == 0:
-        f32 = {"n_layers": SHARD_F32_LAYERS, "tokens_equal": all(
-            got[name]["outputs"] == want[1 if k else 0]
-            for name, _, k in SHARD_F32_RUNS)}
-        check(f32["tokens_equal"], "shard_serve: f32 tokens differ from "
-              "one card's: " + json.dumps({name: _agreement(
-                  got[name]["outputs"], want[1 if k else 0])
-                  for name, _, k in SHARD_F32_RUNS}))
-        lp, k, v = prefill(tfm, one, inp)
-        kp, vp = decode_pools(k, v, inp)
-        ref = decode(tfm, one, inp, kp, vp)[:, 0]
-
-        def rel(a, b):
-            return ((a.float() - b.float()).abs().max()
-                    / b.float().abs().max()).item()
-
-        f32["prefill_logits_rel"] = rel(sharded["prefill"][0], lp)
-        f32["decode_logits_rel"] = {n: rel(sharded[n][0], ref)
-                                    for n in ("gather", "paged")}
-        check(f32["prefill_logits_rel"] <= SHARD_LOGIT_TOL
-              and max(f32["decode_logits_rel"].values()) <= SHARD_LOGIT_TOL,
-              f"shard_serve: f32 logits against one card {f32}")
-        f32["requests"] = sum(r["requests"] for r in got.values())
-        doc["f32"] = f32
+        doc["f32"] = f32_against_one_card(tfm, sr, got, want, sharded, one,
+                                          SHARD_F32_RUNS, "shard_serve")
     doc["f32_launches"] = {name: r["launches"] for name, r in got.items()}
     doc["wall_s"] = time.perf_counter() - t0
+    del m2, one
+    if conf.get("wide"):
+        # shard_serve_wide's gangs, on the same ranks
+        doc["wide"] = wide_gangs(tfm, conf)
     with open(os.path.join(out_dir, f"shard_serve.{rank}.json"), "w") as f:
         json.dump(doc, f)
     client.log(f"rank {rank}: shard_serve phase done")
@@ -4878,7 +5005,7 @@ def shard_serve_worker(argv) -> int:
     return 0
 
 
-def shard_serve_phase(smi, one_card, run=None):
+def shard_serve_phase(smi, one_card, run=None, wide=False):
     """Sharded serving (see the module docstring): 4 workers of the
     port's launcher sharing the card, each ``chip_smoke.py
     --shard-serve-worker``, the flagship's engine on dp2 x tp2 behind
@@ -4888,15 +5015,19 @@ def shard_serve_phase(smi, one_card, run=None):
     K4 none on the gather runs and ``n_layers`` a decode step on the
     paged one (0 of both on the CPU, where the plain versions run);
     every request 200 and every rank exited 0 (``_submit``); the f32
-    depth-2 tokens and logits, in the workers.  Returns the phase's
-    line and the K1/K4 launches summed over the ranks' bf16 runs."""
+    depth-2 tokens and logits, in the workers.  With ``wide`` the same
+    workers then serve ``shard_serve_wide``'s gangs (one spawn for
+    both).  Returns the phase's line, the K1/K4 launches summed over the
+    ranks' bf16 runs, and (``wide``) each rank's gang documents for
+    :func:`shard_serve_wide_phase`."""
     run = {**SHARD_RUN, **(run or {})}
     card = run["device"] == "cuda"
     t_start = time.time()
     cfg = shard_model_config(run["model"])
     conf = {"mesh": SHARD_MESH, "model": run["model"],
             "device": run["device"], "prompt_lens": run["prompt_lens"],
-            "max_tokens": run["max_tokens"], "n_blocks": run["n_blocks"]}
+            "max_tokens": run["max_tokens"], "n_blocks": run["n_blocks"],
+            "wide": list(WIDE_GANGS) if wide else []}
     env = dict(MESH_ENV) if card else {"OMP_NUM_THREADS": "1"}
     docs, job_s = mesh_job("shard_serve", "--shard-serve-worker", conf,
                            SHARD_TIMEOUT_S, root=run["dir"],
@@ -4941,6 +5072,239 @@ def shard_serve_phase(smi, one_card, run=None):
             name: _agreement(ctl["runs"][name]["outputs"],
                              one_card["outputs"][1 if k else 0])
             for name, _, k in SHARD_RUNS}
+    if wide:
+        return line, launches, [{**d.pop("wide"), "rank": d["rank"]}
+                                for d in docs]
+    return line, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7g: sharded serving on the rest of the mesh — a routed flagship on
+# dp2 x ep2 and a pipelined flagship on pp2 x tp2
+# ---------------------------------------------------------------------------
+
+#: the phase's two gangs, served in turn by the same 4 workers: R the
+#: routed flagship (top-2 of 8) on dp2 x ep2, 4 experts a rank; P the
+#: dense flagship on pp2 x tp2, 8 layers and 8 heads a rank
+WIDE_GANGS = {"R": {"mesh": {"pp": 1, "dp": 2, "sp": 1, "ep": 2, "tp": 1},
+                    "routed": True},
+              "P": {"mesh": {"pp": 2, "dp": 1, "sp": 1, "ep": 1, "tp": 2},
+                    "routed": False}}
+#: the bf16 runs and the f32 depth-2 copy's: ``auto`` (the gather path on
+#: both gangs' meshes, as the reference's ``auto`` picks) and ``on``
+WIDE_RUNS = (("gather", "auto", 0), ("paged", "on", 0))
+WIDE_OPS = ("all_reduce", "all_gather", "broadcast", "ppermute")
+
+
+def wide_config(name, gang):
+    """Gang ``gang``'s model: the flagship (or the serving entry's tiny
+    model), routed top-2 of 8 for gang R."""
+    cfg = shard_model_config(name)
+    return moe_config(cfg) if WIDE_GANGS[gang]["routed"] else cfg
+
+
+@torch.no_grad()
+def seeded_model(tfm, cfg, mesh, device, seed=0):
+    """``cfg``'s model on ``mesh`` (None: whole) with weights drawn leaf
+    by leaf from ``seed``: norms at 1, each other leaf ``N(0, 0.02)``
+    from a generator of its own (its name, and its global layer for a
+    block leaf), drawn whole in float32 and cut to this rank's shard.  A
+    layer's weights depend neither on the depth nor on the mesh, so a
+    depth-2 copy on one card holds a mesh model's first two layers, and
+    a rank holds no more than its shards and one leaf of one layer."""
+    model = tfm.Transformer(cfg, device=device, mesh=mesh)
+    first = 0 if mesh is None else mesh.axis_rank("pp") * len(model.layers)
+    leaves = sorted(tfm.PARAM_SPECS)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("ln1", "ln2", "ln_f"):
+            p.fill_(1.0)
+            continue
+        layer = first + int(name.split(".")[1]) if "." in name else 0
+        specs = tfm.PARAM_SPECS[leaf] if mesh is not None else ()
+        shape = list(p.shape)
+        for dim, axis in specs:
+            shape[dim] *= mesh.axis_size(axis)
+        gen = torch.Generator(device).manual_seed(
+            seed * 1_000_003 + leaves.index(leaf) * 1009 + layer)
+        t = torch.randn(shape, generator=gen, device=device) * 0.02
+        for dim, axis in specs:
+            t = t.chunk(mesh.axis_size(axis), dim=dim)[mesh.axis_rank(axis)]
+        p.copy_(t)
+    return model
+
+
+class _Drops:
+    """Every routed call's ``(dropped, local)`` choice counts on this
+    rank while ``moe_debug_overflow`` is on: ``tfm._record_moe_overflow``
+    wrapped, each call's counts kept beside the ``moe`` stage's
+    fraction.  ``take()`` returns and clears them."""
+
+    def __init__(self, tfm):
+        self.calls = []
+        real = tfm._record_moe_overflow
+
+        def record(keep, local):
+            self.calls.append((float(local.sum() - keep.sum()),
+                               float(local.sum())))
+            real(keep, local)
+
+        tfm._record_moe_overflow = record
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return torch.tensor(calls or [[0.0, 0.0]], dtype=torch.float64)
+
+
+def wide_gang(tfm, gang, mesh, conf):
+    """Gang ``gang`` on ``mesh`` (every worker calls it): the bf16 model
+    at full depth, a warm-up request and ``WIDE_RUNS`` served, a counted
+    prefill and decode step; then the f32 depth-2 copy's runs against
+    one card on rank 0, for gang R with each run's dropped-choice
+    fraction summed over ep.  Returns this rank's document."""
+    from dmlc_tpu_torch.parallel.collectives import all_reduce
+
+    t0 = time.perf_counter()
+    rank, dev = mesh.rank, mesh.device
+    cfg = wide_config(conf["model"], gang)
+    model = seeded_model(tfm, cfg, mesh, dev)
+    sr = ServeRank(conf, mesh, cfg.vocab, WIDE_OPS)
+    sr.sync()
+    doc = {"rank": rank, "coords": mesh.coords,
+           "layers_local": len(model.layers),
+           "params_local": sum(p.numel() for p in model.parameters()),
+           "init_s": time.perf_counter() - t0}
+    doc["warmup"] = sr.serve(model, "auto", 0, batch=[sr.prompts[0][:17]])
+    doc["runs"] = {name: sr.serve(model, mode, k)
+                   for name, mode, k in WIDE_RUNS}
+    doc["decode_step"] = {name: {"ms": ms, "collectives": coll}
+                          for name, (_, ms, coll) in sr.steps(
+                              tfm, model, slice_inputs(cfg, dev)).items()}
+    del model
+    gc.collect()
+    if sr.card:
+        torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, dtype="float32",
+                               n_layers=SHARD_F32_LAYERS,
+                               moe_debug_overflow=cfg.routed)
+    drops = _Drops(tfm)
+    m2 = seeded_model(tfm, cfg2, mesh, dev)
+    one = None
+    if rank == 0:
+        one = seeded_model(tfm, cfg2, None, dev)
+        want = {0: sr.serve(one, "auto", 0, on_mesh=False,
+                            direct=True)["outputs"]}
+        one_drops = drops.take()
+    got, fracs = {}, {}
+    for name, mode, k in WIDE_RUNS:
+        got[name] = sr.serve(m2, mode, k, direct=True)
+        # each rank counts its own experts' choices; their sum over ep is
+        # one program's count
+        summed = all_reduce(drops.take().to(dev), "ep", mesh=mesh).sum(0)
+        fracs[name] = (summed[0] / summed[1].clamp_min(1)).item()
+    sharded = sr.steps(tfm, m2, slice_inputs(cfg2, dev))
+    drops.take()
+    if rank == 0:
+        f32 = f32_against_one_card(tfm, sr, got, want, sharded, one,
+                                   WIDE_RUNS, f"shard_serve_wide {gang}")
+        if cfg.routed:
+            tot = one_drops.sum(0)
+            f32["dropped_fraction"] = {"one_card": (tot[0] / tot[1]).item(),
+                                       **fracs}
+            # the paged run routes the live rows as one card's engine
+            # does; the gather run also routes the dead rows it pads with
+            check(fracs["paged"] == f32["dropped_fraction"]["one_card"],
+                  f"shard_serve_wide {gang}: dropped-choice fraction "
+                  f"{f32['dropped_fraction']}")
+        doc["f32"] = f32
+    doc["f32_launches"] = {name: r["launches"] for name, r in got.items()}
+    doc["wall_s"] = time.perf_counter() - t0
+    return doc
+
+
+def wide_gangs(tfm, conf):
+    """Each gang of ``conf["wide"]`` on its own ``build_mesh`` over this
+    process group's 4 ranks (:func:`wide_gang`), after the shard_serve
+    worker's own: ``{"gangs": {gang: this rank's document}}``."""
+    from dmlc_tpu_torch.parallel import build_mesh
+
+    card = conf["device"] == "cuda"
+    out = {"gangs": {}}
+    for gang in conf["wide"]:
+        mesh = build_mesh(**WIDE_GANGS[gang]["mesh"],
+                          device=None if card else "cpu")
+        out["gangs"][gang] = wide_gang(tfm, gang, mesh, conf)
+        # a closed engine's pools live until the collector breaks its
+        # server's handler-class cycle
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def shard_serve_wide_phase(smi, beside, docs, run=None):
+    """Sharded serving on the rest of the mesh (see the module
+    docstring): the 4 workers of ``shard_serve``'s job, after their own
+    gang, serve gang R (the routed flagship on dp2 x ep2) and then gang
+    P (the dense flagship on pp2 x tp2) behind rank 0's HTTP server;
+    ``docs`` are the ranks' documents of them (:func:`shard_serve_phase`
+    with ``wide``), ``run`` the same as that phase's.  ``beside`` has
+    the numbers of one card's runs and of ``shard_serve`` to set beside
+    these, or None.
+    Gates: on every rank and run, K1 its local layers a prefill, K4 its
+    local layers a decode step on the paged run and none on the gather
+    run (0 of both on the CPU, where the plain versions run); every
+    request 200 and every rank exited 0 (``_submit``); the f32 depth-2
+    tokens, logits and (gang R) dropped-choice fraction, in the workers.
+    Returns the phase's line and the K1/K4 launches summed over the
+    ranks' bf16 runs of both gangs."""
+    run = {**SHARD_RUN, **(run or {})}
+    card = run["device"] == "cuda"
+    line = {"phase": "shard_serve_wide", "card": smi, "model": run["model"],
+            "workers": MESH_WORKERS, "job": "shard_serve's, after its gang",
+            "ranks_done": len(docs), "gangs": {}}
+    launches = {n: 0 for n in SHARD_KERNELS}
+    for gang, spec in WIDE_GANGS.items():
+        cfg = wide_config(run["model"], gang)
+        ranks = [d["gangs"][gang] for d in docs]
+        ctl = ranks[0]
+        for name, _, _ in WIDE_RUNS:
+            r = ctl["runs"][name]
+            for d in ranks:
+                n_l = d["layers_local"]
+                want = {"flash_fwd": n_l * r["prefills"],
+                        "paged_attention": (n_l * r["decode_steps"]
+                                            if r["paged"] else 0)}
+                if not card:   # the CPU runs the plain versions
+                    want = {n: 0 for n in want}
+                got = d["runs"][name]["launches"]
+                check(got == want, f"shard_serve_wide {gang} {name}: rank "
+                      f"{d['rank']} launches {got}, want {want}")
+                for n in launches:
+                    launches[n] += got[n]
+            check(r["requests_200"] == r["requests"],
+                  f"shard_serve_wide {gang} {name}: "
+                  f"{r['requests_200']}/{r['requests']}")
+        line["gangs"][gang] = {
+            "mesh": {a: n for a, n in spec["mesh"].items() if n > 1},
+            "routed": cfg.routed, "n_layers": cfg.n_layers,
+            "layers_per_rank": ctl["layers_local"],
+            "heads_per_rank": cfg.n_heads // spec["mesh"]["tp"],
+            "experts_per_rank": cfg.n_experts // spec["mesh"]["ep"],
+            "params_local": [d["params_local"] for d in ranks],
+            "init_s": [d["init_s"] for d in ranks],
+            "runs": {name: {k: v for k, v in ctl["runs"][name].items()
+                            if k not in ("outputs", "first_served_unix")}
+                     for name, _, _ in WIDE_RUNS},
+            "launches_per_rank": {name: [d["runs"][name]["launches"]
+                                         for d in ranks]
+                                  for name, _, _ in WIDE_RUNS},
+            "decode_step_rank0": ctl["decode_step"], "f32": ctl["f32"],
+            "wall_s": ctl["wall_s"]}
+    if beside is not None:
+        line["beside"] = beside
+    line["wall_s"] = sum(g["wall_s"] for g in line["gangs"].values())
     return line, launches
 
 
@@ -6070,13 +6434,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_shard = time.perf_counter()
     shard_k1, shard_k4 = shard_kernel_rows(fa, pa, prompt_lens)
-    shard_doc, option_launches["shard_serve"] = shard_serve_phase(smi, {
-        "docs": {"slice": plain, "slice_spec": spec,
-                 "gather": gather_doc["plain"],
-                 "gather_spec": gather_doc["spec"]},
-        "outputs": (plain["outputs"], spec["outputs"])})
+    shard_doc, option_launches["shard_serve"], wide_docs = \
+        shard_serve_phase(smi, {
+            "docs": {"slice": plain, "slice_spec": spec,
+                     "gather": gather_doc["plain"],
+                     "gather_spec": gather_doc["spec"]},
+            "outputs": (plain["outputs"], spec["outputs"])}, wide=True)
     shard_doc["phase_s"] = time.perf_counter() - t_shard   # kernel rows too
     emit(shard_doc)
+
+    # 7g. sharded serving on the rest of the mesh, which the same 4 ranks
+    # served after 7f: the routed flagship on dp2 x ep2 and the dense
+    # flagship on pp2 x tp2, K1 and K4 on each rank's layers and heads;
+    # beside one card's runs and shard_serve's
+    keys = ("tokens_per_s", "ttft_p50_s", "ttft_p99_s", "step_p50_s")
+    moe_doc = next(d for d in RESULTS["lines"]
+                   if d.get("phase") == "moe_serve")
+    wide_doc, option_launches["shard_serve_wide"] = shard_serve_wide_phase(
+        smi, {"one_card": {name: {k: d[k] for k in keys} for name, d in (
+            ("dense_paged", plain), ("dense_gather", gather_doc["plain"]),
+            ("routed_paged", moe_doc["plain"]))},
+            "shard_serve_dp2_tp2": {name: {k: shard_doc["runs"][name][k]
+                                           for k in keys}
+                                    for name in ("gather", "paged")}},
+        docs=wide_docs)
+    emit(wide_doc)
 
     # 8. the sparse text path: LibSVM and CSV through libsvm_feed; then
     # the tracker phase's 4-worker jobs on the same files

@@ -20,9 +20,12 @@ serving forwards ``forward_prefill`` / ``forward_prefill_last``
 ``forward_decode_spec`` (:561-687, attending a dense gathered cache
 with plain products) and ``forward_decode_paged`` (:690-758), with
 ``decode_phase_flops`` (:431) for the compute ledger's phase split.
-The serving forwards also run sharded (``axes=SERVING_AXES``, a model
-built on a dp × tp mesh, as the reference's engine runs its programs on
-a mesh): see :func:`forward_decode_spec`.  The train step is the
+The serving forwards also run sharded (``axes=serving_axes(mesh)``, a
+model built on any mesh, as the reference's engine runs its programs on
+any mesh): heads over tp, a gathered batch's rows over dp (a routed FFN
+still routes the whole batch), experts over ep, and over pp each stage
+its own layers on the previous stage's output; replicated over sp.  See
+:func:`forward_decode_spec`.  The train step is the
 compute ledger's site ``train.step`` and drives the step ledger as the
 reference's does (:852-887).
 
@@ -76,8 +79,8 @@ from ..ops.core import ShardAxes, embed_lookup, rms_norm, rope, \
     rope_angles, rotate, softmax_xent, swiglu_ffn
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
-from ..parallel.collectives import all_gather, all_reduce, copy_to, \
-    mean_from, reduce_from
+from ..parallel.collectives import all_gather, all_reduce, broadcast, \
+    copy_to, mean_from, ppermute_pair, reduce_from
 from ..parallel.mesh import (AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP,
                              DATA_AXES, MESH_AXES, Mesh)
 from ..parallel.overlap import DeviceBucketer
@@ -88,7 +91,8 @@ __all__ = ["TransformerConfig", "flagship_config", "count_params",
            "train_flops_per_token", "train_step_flops",
            "decode_flops_per_token", "decode_phase_flops",
            "PARAM_SPEC_TREE", "PARAM_SPECS",
-           "SHARDED_AXES", "SERVING_AXES", "check_serving_mesh",
+           "SHARDED_AXES", "SERVING_AXES", "serving_axes",
+           "check_serving_mesh",
            "Block", "Transformer", "init_params", "forward_local",
            "unsharded_loss", "adamw", "sync_gradients", "sharded_grad_norm",
            "make_train_step", "forward_prefill",
@@ -98,8 +102,10 @@ __all__ = ["TransformerConfig", "flagship_config", "count_params",
 SHARDED_AXES = ShardAxes(tp=AXIS_TP, sp=AXIS_SP, ep=AXIS_EP, pp=AXIS_PP,
                          dp=AXIS_DP)
 #: the axes the serving forwards shard over: heads, ``d_ff`` and vocab
-#: over tp, a gathered decode batch's rows over dp
-SERVING_AXES = ShardAxes(tp=AXIS_TP, dp=AXIS_DP)
+#: over tp, a gathered decode batch's rows over dp, experts over ep,
+#: layers over pp (an axis of one rank drops out); never sp, over which
+#: serving is replicated (:func:`serving_axes`)
+SERVING_AXES = ShardAxes(tp=AXIS_TP, dp=AXIS_DP, ep=AXIS_EP, pp=AXIS_PP)
 
 #: ``param_specs()`` (:158-177) of the JAX tree's leaves (blocks stacked
 #: ``[S, L/S, ...]``), each spec as the reference's checkpoint manifest
@@ -309,16 +315,20 @@ class Block(nn.Module):
     def moe_ffn(self, x: torch.Tensor, cfg: TransformerConfig,
                 route_tokens: Optional[int] = None,
                 axes: ShardAxes = ShardAxes(),
-                mesh: Optional[Mesh] = None) -> torch.Tensor:
+                mesh: Optional[Mesh] = None,
+                route_axis: Optional[str] = None) -> torch.Tensor:
         """The FFN under ``cfg`` (``_moe_ffn`` :307): routed top-k when
         ``cfg.routed``, else dense soft gating.  ``route_tokens`` is the
         token count the routed capacity is computed from where the
         reference's call holds more tokens than ``x``: the dead rows it
         pads a decode batch with, which come after the live ones.  (The
         overflow counter then counts the live tokens' choices only; the
-        reference's counts the dead rows' too.)"""
+        reference's counts the dead rows' too.)  ``route_axis`` names the
+        axis ``x``'s rows are this rank's share of (see
+        :meth:`topk_ffn`); the dense FFN is row by row and ignores it."""
         if cfg.routed:
-            return self.topk_ffn(x, cfg, route_tokens, axes, mesh)
+            return self.topk_ffn(x, cfg, route_tokens, axes, mesh,
+                                 route_axis)
         return self.dense_ffn(x, axes, mesh)
 
     def _expert_offset(self, axes: ShardAxes, mesh: Optional[Mesh]) -> int:
@@ -357,7 +367,8 @@ class Block(nn.Module):
     def topk_ffn(self, x: torch.Tensor, cfg: TransformerConfig,
                  route_tokens: Optional[int] = None,
                  axes: ShardAxes = ShardAxes(),
-                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+                 mesh: Optional[Mesh] = None,
+                 route_axis: Optional[str] = None) -> torch.Tensor:
         """Routed top-k MoE with capacity dispatch (``_moe_topk_ffn``
         :230-298).  Each token's ``k`` choices, renormalised, take slots
         token-major in ``[X_local, C, E]``, ``C = ceil(k·n·
@@ -369,7 +380,15 @@ class Block(nn.Module):
         ``reduce_from`` over (ep, tp) that also sums the tp shards' partial
         outputs.  The experts' SwiGLUs run on their slots as batched
         products, and the combine gathers and weights each kept choice's
-        output."""
+        output.
+
+        Under ``route_axis`` (a gathered decode view split over dp) ``x``
+        holds this rank's rows of a batch whose other rows are on the
+        axis's other ranks.  The slots are token-major over the whole
+        batch, so the rank gathers every row's choices over the axis (in
+        rank order, the batch's row order), routes them as one program
+        does, and keeps its own rows' slots; capacity counts the whole
+        batch unless ``route_tokens`` is given."""
         b, t, e = x.shape
         n = b * t
         k = cfg.moe_topk
@@ -378,13 +397,16 @@ class Block(nn.Module):
         n_expert = probs.shape[-1]
         topv, topi = torch.topk(probs, k, dim=-1)            # [n, k]
         topv = topv / topv.sum(dim=-1, keepdim=True)
+        flat_e = topi.reshape(-1)                            # token-major
+        parts = 1 if route_axis is None else mesh.axis_size(route_axis)
+        if parts > 1:
+            flat_e = all_gather(flat_e, route_axis, mesh=mesh)
         # in Python floats, exactly as the reference (:255-256)
-        n_cap = n if route_tokens is None else int(route_tokens)
+        n_cap = n * parts if route_tokens is None else int(route_tokens)
         capacity = -(-(k * n_cap * cfg.moe_capacity_factor) // n_expert)
         capacity = max(int(capacity), 1)
         x_l = self.w_in.shape[0]
         off = self._expert_offset(axes, mesh)
-        flat_e = topi.reshape(-1)                            # token-major
         local = (flat_e >= off) & (flat_e < off + x_l)
         le = (flat_e - off).clamp(0, x_l - 1)
         # each local choice's slot in its expert: the count of earlier
@@ -397,6 +419,10 @@ class Block(nn.Module):
         pos_c = pos.clamp(0, capacity - 1)
         if cfg.moe_debug_overflow:
             _record_moe_overflow(keep, local)
+        if parts > 1:   # this rank's rows' choices
+            r = mesh.axis_rank(route_axis)
+            mine = slice(r * n * k, (r + 1) * n * k)
+            le, pos_c, keep = le[mine], pos_c[mine], keep[mine]
         red = _moe_axes(axes)
         if red:
             xf = copy_to(xf, red, mesh=mesh)
@@ -805,33 +831,44 @@ def make_train_step(model: Transformer, optimizer=None, ledger: bool = True,
 # serving forwards
 # ---------------------------------------------------------------------------
 
+def serving_axes(mesh: Optional[Mesh]) -> ShardAxes:
+    """The axes the serving forwards shard over on ``mesh``: each of tp,
+    dp, ep and pp that is wider than one rank.  Never sp: serving is
+    replicated over sp, as the reference's is (its ``kv_partition_spec``
+    places the gathered view over dp and tp only)."""
+    def wide(axis: str) -> Optional[str]:
+        return axis if mesh is not None and mesh.axis_size(axis) > 1 \
+            else None
+
+    return ShardAxes(tp=wide(AXIS_TP), dp=wide(AXIS_DP), ep=wide(AXIS_EP),
+                     pp=wide(AXIS_PP))
+
+
 def check_serving_mesh(cfg: TransformerConfig, mesh: Optional[Mesh]) -> None:
-    """Raise for a mesh that sharded serving does not run yet: one with
-    pp, sp or ep > 1 (ROADMAP.md Queue 1 item 11b: the port's model on a
-    pp mesh holds only its stage's layers), and a routed config on a
-    mesh of more than one rank (item 11a: the reference counts expert
-    capacity over every token of the call, :255-256, so a route split
-    over dp would drop other tokens)."""
-    if mesh is None or mesh.world == 1:
+    """Raise where ``cfg`` does not split over ``mesh``: heads, ``d_ff``
+    or vocab over tp, experts over ep, layers over pp.  Any mesh that
+    the model splits over serves, as any mesh serves the reference's
+    engine (:202-214)."""
+    if mesh is None:
         return
-    wide = [a for a in (AXIS_PP, AXIS_SP, AXIS_EP) if mesh.axis_size(a) > 1]
-    if wide:
-        raise DMLCError(f"sharded serving runs on dp x tp meshes; this mesh "
-                        f"has {wide} > 1 (ROADMAP.md Queue 1 item 11b)")
-    if cfg.routed:
-        raise DMLCError("a routed (top-k MoE) config does not serve on a "
-                        "mesh yet (ROADMAP.md Queue 1 item 11a)")
+    for n, axis, what in ((cfg.n_heads, AXIS_TP, "n_heads"),
+                          (cfg.d_ff, AXIS_TP, "d_ff"),
+                          (cfg.vocab, AXIS_TP, "vocab"),
+                          (cfg.n_experts, AXIS_EP, "n_experts"),
+                          (cfg.n_layers, AXIS_PP, "n_layers")):
+        _local(n, axis, mesh, what)
 
 
 def _serving_mesh(model: Transformer, axes: ShardAxes,
                   mesh: Optional[Mesh]) -> Optional[Mesh]:
     """The mesh a serving forward runs on (default: the model's), after
-    :func:`check_serving_mesh`; ``axes`` may name tp and dp only."""
-    if axes.sp is not None or axes.ep is not None or axes.pp is not None:
-        raise DMLCError("the serving forwards shard over tp and dp only "
-                        "(ROADMAP.md Queue 1 item 11b)")
+    :func:`check_serving_mesh`; ``axes`` may not name sp (see
+    :func:`serving_axes`)."""
+    if axes.sp is not None:
+        raise DMLCError("the serving forwards are replicated over sp, as "
+                        "the reference's are; pass serving_axes(mesh)")
     mesh = mesh if mesh is not None else model.mesh
-    if axes.tp is not None or axes.dp is not None:
+    if any(a is not None for a in (axes.tp, axes.dp, axes.ep, axes.pp)):
         if mesh is None:
             raise DMLCError("sharded serving axes without a mesh")
         check_serving_mesh(model.cfg, mesh)
@@ -854,6 +891,60 @@ def _unembed(model: Transformer, x: torch.Tensor, axes: ShardAxes,
     return all_gather(logits, axes.tp, mesh=mesh, gather_axis=-1)
 
 
+def _pp_stage(axes: ShardAxes, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """``(this rank's pp stage, the stage count)``; ``(0, 1)`` off a pp
+    mesh."""
+    if axes.pp is None or mesh is None or mesh.axis_size(axes.pp) == 1:
+        return 0, 1
+    return mesh.axis_rank(axes.pp), mesh.axis_size(axes.pp)
+
+
+def _stage_in(model: Transformer, ids: torch.Tensor, axes: ShardAxes,
+              mesh: Optional[Mesh]) -> torch.Tensor:
+    """The residual stream ``[*ids.shape, E]`` this rank's layers start
+    from: the embedding on pp stage 0 (and off a pp mesh), else what
+    stage s-1 hands on once its layers have run (``ppermute_pair``).  A
+    stage runs its layers once, on its real input: unlike the training
+    pipeline's every-stage-every-step schedule, no stage runs on a
+    bubble, whose K/V would land in its pools."""
+    cfg = model.cfg
+    s, _ = _pp_stage(axes, mesh)
+    if s == 0:
+        return embed_lookup(model.embed, ids, axes, mesh).to(cfg.torch_dtype)
+    x = torch.empty((*ids.shape, cfg.d_model), dtype=cfg.torch_dtype,
+                    device=ids.device)
+    return ppermute_pair(x, axes.pp, s - 1, mesh=mesh)
+
+
+def _stage_out(model: Transformer, x: torch.Tensor, axes: ShardAxes,
+               mesh: Optional[Mesh]) -> Optional[torch.Tensor]:
+    """After this rank's layers: the final-normed stream on the last pp
+    stage (and off a pp mesh); an earlier stage hands ``x`` to the next
+    and returns None."""
+    s, n = _pp_stage(axes, mesh)
+    if s < n - 1:
+        ppermute_pair(x, axes.pp, s, mesh=mesh)
+        return None
+    return rms_norm(x, model.ln_f)
+
+
+def _head(model: Transformer, x: Optional[torch.Tensor], lead: tuple,
+          axes: ShardAxes, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Logits ``[*lead, V]`` of :func:`_stage_out`'s ``x`` on every rank:
+    the last pp stage unembeds (gathered over tp), then broadcasts them
+    over pp, so rank 0, the controller, samples from them."""
+    s, n = _pp_stage(axes, mesh)
+    if s == n - 1:
+        logits = _unembed(model, x, axes, mesh)
+        if n == 1:
+            return logits
+    else:
+        logits = torch.empty((*lead, model.cfg.vocab),
+                             dtype=model.cfg.torch_dtype,
+                             device=model.device)
+    return broadcast(logits, axes.pp, root=n - 1, mesh=mesh)
+
+
 def _prefill_trunk(model: Transformer, ids: torch.Tensor,
                    impl: Optional[str] = None,
                    axes: ShardAxes = ShardAxes(),
@@ -862,12 +953,14 @@ def _prefill_trunk(model: Transformer, ids: torch.Tensor,
     [L, B, T, H, D])``.  Right-padding is safe: attention is causal, so
     real positions never attend a pad token.  Under ``axes.tp`` (on
     ``mesh``, which :func:`_serving_mesh` gave) the heads are this
-    rank's and so are ``k``/``v``'s; the batch is never split over
-    dp."""
+    rank's and so are ``k``/``v``'s; under ``axes.pp`` the layers are
+    this stage's (``L`` its ``L/P``) and ``x`` is None but on the last
+    stage; under ``axes.ep`` the FFN's experts are this rank's.  The
+    batch is never split over dp."""
     cfg = model.cfg
     t = ids.shape[1]
     positions = torch.arange(t, device=ids.device)
-    x = embed_lookup(model.embed, ids, axes, mesh).to(cfg.torch_dtype)
+    x = _stage_in(model, ids, axes, mesh)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for layer in model.layers:
@@ -878,8 +971,7 @@ def _prefill_trunk(model: Transformer, ids: torch.Tensor,
                               mesh=mesh)
         ks.append(k)
         vs.append(v)
-    x = rms_norm(x, model.ln_f)
-    return x, torch.stack(ks), torch.stack(vs)
+    return _stage_out(model, x, axes, mesh), torch.stack(ks), torch.stack(vs)
 
 
 def forward_prefill(model: Transformer, ids: torch.Tensor,
@@ -888,10 +980,10 @@ def forward_prefill(model: Transformer, ids: torch.Tensor,
                     mesh: Optional[Mesh] = None):
     """``ids [B, T]`` → ``(logits [B, T, V], k, v [L, B, T, H, D])`` with
     the post-rope per-layer keys and values (``H`` this rank's heads
-    under tp)."""
+    under tp, ``L`` its stage's layers under pp)."""
     mesh = _serving_mesh(model, axes, mesh)
     x, k, v = _prefill_trunk(model, ids, impl, axes, mesh)
-    return _unembed(model, x, axes, mesh), k, v
+    return _head(model, x, tuple(ids.shape), axes, mesh), k, v
 
 
 def forward_prefill_last(model: Transformer, ids: torch.Tensor,
@@ -904,8 +996,10 @@ def forward_prefill_last(model: Transformer, ids: torch.Tensor,
     rows only."""
     mesh = _serving_mesh(model, axes, mesh)
     x, k, v = _prefill_trunk(model, ids, impl, axes, mesh)
-    rows = torch.arange(ids.shape[0], device=ids.device)
-    return _unembed(model, x[rows, last_index.long()], axes, mesh), k, v
+    if x is not None:
+        x = x[torch.arange(ids.shape[0], device=ids.device),
+              last_index.long()]
+    return _head(model, x, (ids.shape[0],), axes, mesh), k, v
 
 
 def _rope_window(x: torch.Tensor, positions: torch.Tensor,
@@ -987,14 +1081,17 @@ def forward_decode_spec(model: Transformer, ids: torch.Tensor,
     (the reference's einsum, no kernel).  ``route_tokens`` as in
     :func:`forward_decode_paged`.
 
-    Sharded (``axes=SERVING_AXES`` on the model's mesh), the cache and
-    ``k_new``/``v_new`` hold this rank's heads and the logits are every
-    vocab shard's, gathered over tp.  A cache of ``B / dp`` rows
-    (``PagedKVCache.shard_gathered``) is this rank's dp share of the
-    batch: the rank runs those rows, and the logits, ``k_new`` and
-    ``v_new`` are gathered over dp, so every rank ends with every row's
-    (and writes every row into its pools).  A cache of ``B`` rows runs
-    the batch whole on every dp rank."""
+    Sharded (``axes=serving_axes(mesh)`` on the model's mesh), the cache
+    and ``k_new``/``v_new`` hold this rank's heads and, on a pp mesh,
+    its stage's layers (each stage runs its layers on the previous
+    stage's output, see :func:`_stage_in`); the logits are every vocab
+    shard's, gathered over tp and broadcast over pp.  A cache of
+    ``B / dp`` rows (``PagedKVCache.shard_gathered``) is this rank's dp
+    share of the batch: the rank runs those rows, a routed FFN routes
+    the whole batch (:meth:`Block.topk_ffn`'s ``route_axis``), and the
+    logits, ``k_new`` and ``v_new`` are gathered over dp, so every rank
+    ends with every row's (and writes every row into its pools).  A
+    cache of ``B`` rows runs the batch whole on every dp rank."""
     cfg = model.cfg
     mesh = _serving_mesh(model, axes, mesh)
     scope = _phase_scope()
@@ -1003,7 +1100,8 @@ def forward_decode_spec(model: Transformer, ids: torch.Tensor,
         n = mesh.axis_size(axes.dp)
         ids, positions, lengths = (t.chunk(n, dim=0)[r]
                                    for t in (ids, positions, lengths))
-    x = embed_lookup(model.embed, ids, axes, mesh).to(cfg.torch_dtype)
+    route_axis = None if r is None else axes.dp
+    x = _stage_in(model, ids, axes, mesh)
     k_news: List[torch.Tensor] = []
     v_news: List[torch.Tensor] = []
     for li, layer in enumerate(model.layers):
@@ -1016,11 +1114,13 @@ def forward_decode_spec(model: Transformer, ids: torch.Tensor,
             x = x + _tp_sum(layer.attn_out(o), axes, mesh)
         with scope("mlp"):
             x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, route_tokens,
-                                  axes=axes, mesh=mesh)
+                                  axes=axes, mesh=mesh,
+                                  route_axis=route_axis)
         k_news.append(k)
         v_news.append(v)
     with scope("unembed"):
-        logits = _unembed(model, rms_norm(x, model.ln_f), axes, mesh)
+        logits = _head(model, _stage_out(model, x, axes, mesh),
+                       tuple(ids.shape), axes, mesh)
     k_new, v_new = torch.stack(k_news), torch.stack(v_news)
     if r is not None:
         logits = all_gather(logits, axes.dp, mesh=mesh, gather_axis=0)
@@ -1093,17 +1193,18 @@ def forward_decode_paged(model: Transformer, ids: torch.Tensor,
     the window to ``max_active`` rows after the live ones, so its
     capacity counts ``max_active · S`` tokens.  None counts ``B · S``.
 
-    Sharded (``axes=SERVING_AXES`` on the model's mesh) the pools hold
-    this rank's heads, the kernel attends those, and the logits are
-    gathered over tp; the batch runs whole on every dp rank, as the
-    reference's paged program places nothing over dp."""
+    Sharded (``axes=serving_axes(mesh)`` on the model's mesh) the pools
+    hold this rank's heads of its pp stage's layers, the kernel attends
+    those, and the logits are gathered over tp and broadcast over pp;
+    the batch runs whole on every dp rank, as the reference's paged
+    program places nothing over dp."""
     cfg = model.cfg
     mesh = _serving_mesh(model, axes, mesh)
     scope = _phase_scope()
     s_w = ids.shape[1]
     live, wb, ws = _window_addresses(lengths, block_tables, s_w,
                                      k_pool.shape[2])
-    x = embed_lookup(model.embed, ids, axes, mesh).to(cfg.torch_dtype)
+    x = _stage_in(model, ids, axes, mesh)
     for li, layer in enumerate(model.layers):
         with scope("attention"):
             q, k, v = layer.qkv(rms_norm(x, layer.ln1))
@@ -1118,4 +1219,5 @@ def forward_decode_paged(model: Transformer, ids: torch.Tensor,
             x = x + layer.moe_ffn(rms_norm(x, layer.ln2), cfg, route_tokens,
                                   axes=axes, mesh=mesh)
     with scope("unembed"):
-        return _unembed(model, rms_norm(x, model.ln_f), axes, mesh)
+        return _head(model, _stage_out(model, x, axes, mesh),
+                     tuple(ids.shape), axes, mesh)

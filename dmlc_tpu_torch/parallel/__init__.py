@@ -25,6 +25,7 @@ from .collectives import (  # noqa: F401
     copy_to,
     initialize_distributed,
     mean_from,
+    ppermute_pair,
     ppermute_ring,
     process_rank_world,
     reduce_from,

@@ -34,8 +34,9 @@ point-to-point does not take a CUDA tensor (its TCP transport reads the
 device pointer as host memory: "writev: Bad address", torch 2.11 on an
 H100, recorded by ``chip_smoke.py``'s ``mesh`` phase), so on gloo a
 shift (the ring's and the pipeline's) copies through pinned host memory
-explicitly and counts the bytes (``collective/ppermute_staged_bytes``);
-the other ops hand
+explicitly and counts the bytes (``collective/ppermute_staged_bytes``),
+as does ``ppermute_pair``, a serving pipeline's stage handoff; the other
+ops hand
 CUDA tensors to gloo as they are.  ``broadcast_object`` (a sharded
 serving engine's plan) pickles into host memory and stays there on gloo;
 on nccl it goes through the card.  No op switches backends."""
@@ -55,7 +56,7 @@ from .mesh import Mesh
 
 __all__ = ["axis_size", "axis_rank", "all_reduce", "all_gather",
            "reduce_scatter", "broadcast", "broadcast_object",
-           "ppermute_ring", "all_to_all",
+           "ppermute_ring", "ppermute_pair", "all_to_all",
            "barrier_sum", "copy_to", "reduce_from", "mean_from",
            "process_rank_world", "initialize_distributed", "pick_backend"]
 
@@ -240,6 +241,36 @@ def ppermute_ring(x: torch.Tensor, axis, shift: int = 1, *,
     if group is None or shift % mesh.axis_size(axis) == 0:
         return x
     return _PPermute.apply(x, group, shift)
+
+
+def ppermute_pair(x: torch.Tensor, axis, src: int, *,
+                  mesh: Mesh) -> torch.Tensor:
+    """One hop of a chain along ``axis``: the rank at index ``src`` sends
+    ``x`` to the rank at ``src + 1``, which returns it (``lax.ppermute``
+    with the one pair ``(src, src + 1)``); every other rank returns its
+    own ``x`` and takes no part.  Both ends pass tensors of one shape and
+    dtype.  On gloo a CUDA ``x`` goes through pinned host memory, counted
+    as :func:`ppermute_ring`'s shifts are.  Not differentiable (a
+    serving pipeline's stage handoff)."""
+    import torch.distributed as dist
+
+    group = mesh.group(axis)
+    me = mesh.axis_rank(axis)
+    if group is None or me not in (src, src + 1):
+        return x
+    _note("ppermute", x, axis)
+    buf = x.detach().contiguous()
+    staged = buf.is_cuda and dist.get_backend(group) == "gloo"
+    if staged:
+        buf = torch.empty(buf.shape, dtype=buf.dtype,
+                          pin_memory=True).copy_(buf)
+        telemetry.inc("collective", "ppermute_staged_bytes",
+                      float(buf.numel() * buf.element_size()))
+    if me == src:
+        dist.send(buf, dist.get_global_rank(group, src + 1), group=group)
+        return x
+    dist.recv(buf, dist.get_global_rank(group, src), group=group)
+    return buf.to(x.device) if staged else buf
 
 
 def _a2a(x: torch.Tensor, group, split_axis: int,

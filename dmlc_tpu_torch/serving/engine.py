@@ -55,9 +55,14 @@ and the kernels' launch counts.
 The engine runs on the CUDA card unless the caller passes
 ``device="cpu"`` (the tests do); with no card and no device it raises.
 
-Sharded serving (``mesh=``, a dp × tp mesh over ``torch.distributed``
-whose model ``shard_params_from_jax`` built): every rank builds the
-engine on the same arguments and holds pools of its own heads.  Rank 0
+Sharded serving (``mesh=``, any pp × dp × sp × ep × tp mesh over
+``torch.distributed`` whose model ``shard_params_from_jax`` built):
+every rank builds the engine on the same arguments and holds pools of
+its own heads of its pp stage's layers; the programs shard over every
+axis wider than one rank but sp, which replicates them
+(``serving_axes``), and ``auto`` picks the data path by
+``kv_partition_spec`` as the reference's does (pp2 alone runs paged,
+pp2 × tp2 gathers).  Rank 0
 is the controller, single as the reference's is: the scheduler, the
 allocator, sampling and the clients (``submit``, ``start``, the HTTP
 server) live there.  Each iteration it broadcasts a plan of its device
@@ -66,13 +71,16 @@ positions, block tables or gather indices and lengths; the committed
 K/V's addresses) and carries it out itself, while every other rank runs
 :meth:`InferenceEngine.follow`, which carries out each plan on its own
 pools.  On the gather path the batch is padded to ``max_active``
-(:799) and split over dp (``shard_gathered``, :850-851); the paged
-program runs it whole on every dp rank.  ``close()`` (and so
-``drain()``) ends the followers; an idle controller sends an empty plan
-every second.  On a mesh an iteration that raises breaks the gang: its
-collectives cannot be resumed, so the controller fails every pending
-request and destroys the process groups, which ends any rank waiting in
-one (a follower that fails does the same and raises).
+(:799) and split over dp (``shard_gathered``, :850-851), a routed FFN
+still routing the whole batch; the paged program runs it whole on every
+dp rank.  On a pp mesh each stage runs its layers on the previous
+stage's output and the last stage's logits are broadcast over pp.
+``close()`` (and so ``drain()``) ends the followers; an idle controller
+sends an empty plan every second.  On a mesh an iteration that raises
+breaks the gang: its collectives cannot be resumed, so the controller
+fails every pending request and destroys the process groups, which ends
+any rank waiting in one (a follower that fails does the same and
+raises).
 """
 
 from __future__ import annotations
@@ -92,12 +100,10 @@ from ..models.transformer import (Transformer, check_serving_mesh,
                                   decode_flops_per_token,
                                   decode_phase_flops, forward_decode,
                                   forward_decode_paged, forward_decode_spec,
-                                  forward_prefill_last)
-from ..ops.core import ShardAxes
+                                  forward_prefill_last, serving_axes)
 from ..ops.flash_attention import FLASH_FWD
 from ..ops.paged_attention import PAGED_ATTENTION
 from ..parallel.collectives import broadcast_object
-from ..parallel.mesh import AXIS_DP, AXIS_TP
 from .kv_cache import PagedKVCache, kv_partition_spec
 from .scheduler import (ACTIVE, WAITING, AlreadyFinished,
                         ContinuousBatchScheduler, Request, coerce_priority)
@@ -286,12 +292,10 @@ class InferenceEngine:
         self.cfg = model.cfg
         self.mesh = mesh
         # the programs' shard axes: those of the mesh's that are wider
-        # than one rank (SERVING_AXES' tp and dp)
-        sharded = mesh is not None and kv_partition_spec(mesh) is not None
-        self._fwd = {} if not sharded else {"mesh": mesh, "axes": ShardAxes(
-            tp=AXIS_TP if mesh.axis_size(AXIS_TP) > 1 else None,
-            dp=AXIS_DP if mesh.axis_size(AXIS_DP) > 1 else None)}
+        # than one rank, sp aside (serving_axes)
         self._gang = mesh is not None and mesh.world > 1
+        self._fwd = {} if not self._gang else {"mesh": mesh,
+                                               "axes": serving_axes(mesh)}
         self.is_controller = mesh is None or mesh.rank == 0
         self._gang_ended = False
         self._last_plan_t = time.monotonic()
@@ -325,6 +329,7 @@ class InferenceEngine:
         self._spec_window = 1 + self.spec_k
         # the decode data path: "auto" is the paged path, except where
         # the mesh places the gathered view over dp/tp (:282-287)
+        sharded = mesh is not None and kv_partition_spec(mesh) is not None
         self.paged_mode = str(get_env("DMLC_SERVE_PAGED_ATTN",
                                       "auto")).lower()
         if self.paged_mode not in ("auto", "on", "off"):

@@ -25,10 +25,13 @@ engine's follower ranks replay the controller's addresses on pools of
 their own.
 
 On a mesh (``mesh=``, sharded serving over ``torch.distributed``) the
-pools hold this rank's heads, ``n_heads / tp`` of them, and
+pools hold this rank's heads, ``n_heads / tp`` of them, of its pp
+stage's layers, ``n_layers / pp`` of them in the stage's local order
+(local layer i is global layer ``s·L/P + i``); sp and ep replicate them.
 :func:`kv_partition_spec` / :meth:`shard_gathered` follow the
-reference's (:121-133, :573-590): a gathered view's batch splits over
-dp, its heads over tp (the pools hold them split already).
+reference's (:121-133, :573-590) on every mesh: a gathered view's batch
+splits over dp, its heads over tp (the pools hold them split already),
+nothing over pp, sp or ep.
 
 Thread-safety: bookkeeping is lock-protected; the data plane assumes the
 engine's single step thread.
@@ -42,7 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..base import DMLCError, resolve_device
-from ..parallel.mesh import AXIS_DP, AXIS_EP, AXIS_PP, AXIS_SP, AXIS_TP
+from ..parallel.mesh import AXIS_DP, AXIS_PP, AXIS_TP
 
 __all__ = ["BlockAllocator", "PagedKVCache", "kv_partition_spec"]
 
@@ -107,8 +110,8 @@ def kv_partition_spec(mesh) -> Optional[Tuple[Tuple[int, str], ...]]:
     """The placement of a gathered ``[L, B, T, H, D]`` view over ``mesh``
     (:121-133), as ``PARAM_SPECS`` writes one: ``(dimension, axis)``
     pairs, the batch over dp and the heads over tp, every other
-    dimension replicated.  None when the mesh offers neither (dp and tp
-    both 1)."""
+    dimension replicated (pp, sp and ep place nothing).  None when the
+    mesh offers neither (dp and tp both 1)."""
     dp = mesh.shape.get(AXIS_DP, 1)
     tp = mesh.shape.get(AXIS_TP, 1)
     if dp <= 1 and tp <= 1:
@@ -121,8 +124,10 @@ class PagedKVCache:
     """Block-paged K/V pools on ``device`` for a set of live sequences:
     the card unless the caller names another device (``device="cpu"``
     for the plain versions; with a mesh, the mesh's device); with no
-    card and no device it raises.  ``n_heads`` is the model's; on a
-    ``mesh`` the pools hold this rank's ``n_heads / tp`` of them."""
+    card and no device it raises.  ``n_layers`` and ``n_heads`` are the
+    model's; on a ``mesh`` the pools hold this rank's ``n_heads / tp``
+    heads of its pp stage's ``n_layers / pp`` layers (the attribute
+    ``n_layers`` is then the local count)."""
 
     def __init__(self, n_layers: int, n_heads: int, head_dim: int, *,
                  n_blocks: int = 256, block_size: int = 16,
@@ -130,21 +135,22 @@ class PagedKVCache:
                  mesh=None):
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
-        self.n_layers = int(n_layers)
         self.n_blocks = int(n_blocks)
         self.block_size = int(block_size)
         self.mesh = mesh
         if device is None and mesh is not None:
             device = mesh.device
         self.device = resolve_device(device)
-        if mesh is not None and any(mesh.axis_size(a) > 1
-                                    for a in (AXIS_PP, AXIS_SP, AXIS_EP)):
-            raise DMLCError("a KV cache shards over dp and tp only "
-                            "(ROADMAP.md Queue 1 item 11b)")
-        tp = 1 if mesh is None else mesh.axis_size(AXIS_TP)
-        if int(n_heads) % tp:
-            raise DMLCError(f"n_heads={n_heads} does not split over tp={tp}")
-        self.n_heads = int(n_heads) // tp
+
+        def local(n: int, axis: str, what: str) -> int:
+            parts = 1 if mesh is None else mesh.axis_size(axis)
+            if int(n) % parts:
+                raise DMLCError(f"{what}={n} does not split over "
+                                f"{axis}={parts}")
+            return int(n) // parts
+
+        self.n_layers = local(n_layers, AXIS_PP, "n_layers")
+        self.n_heads = local(n_heads, AXIS_TP, "n_heads")
         shape = (self.n_layers, self.n_blocks, self.block_size, self.n_heads,
                  int(head_dim))
         self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
@@ -398,8 +404,9 @@ class PagedKVCache:
         (:573-593): the view's rows for its dp coordinate, when the batch
         divides dp; otherwise (the reference's fallback, :587-589), and
         with no mesh or a mesh :func:`kv_partition_spec` gives no
-        placement, the view whole.  The heads are this rank's already:
-        the pools hold them."""
+        placement, the view whole.  The heads and, on a pp mesh, the
+        layers are this rank's already: the pools hold its heads of its
+        stage's layers."""
         if self.mesh is None or kv_partition_spec(self.mesh) is None:
             return k, v
         dp = self.mesh.axis_size(AXIS_DP)

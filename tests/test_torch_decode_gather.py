@@ -241,9 +241,15 @@ def test_shard_gathered_is_identity_without_a_mesh_and_raises_with_one():
         got = tc.shard_gathered(k3, v3)
         assert got[0] is k3 and got[1] is v3
     shape = (DIMS["n_layers"], DIMS["n_heads"], DIMS["head_dim"])
-    with pytest.raises(DMLCError, match="Queue 1 item 11b"):
+    # sp replicates the pools, as the reference places nothing over it; a
+    # mesh that does not split the layers over pp raises
+    rep = PagedKVCache(*shape, n_blocks=4, block_size=BS, device="cpu",
+                       mesh=_mesh(sp=2))
+    assert rep.k_pool.shape == (DIMS["n_layers"], 4, BS, DIMS["n_heads"],
+                                DIMS["head_dim"])
+    with pytest.raises(DMLCError, match="n_layers=2 does not split"):
         PagedKVCache(*shape, n_blocks=4, block_size=BS, device="cpu",
-                     mesh=_mesh(sp=2))
+                     mesh=_mesh(pp=3))
 
 
 # ---------------------------------------------------------------------------

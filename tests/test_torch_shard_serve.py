@@ -20,8 +20,10 @@ weights perturbed by 0.2 so that greedy tokens vary.
   counters equal to the JAX requests'; ``max_active`` 4 splits the
   gathered view over dp, ``max_active`` 3 runs it whole on each dp rank
   (the reference's fallback) with equal tokens;
-* the raises: a routed config on a mesh, a mesh with pp, sp or ep > 1, a
-  model built for another mesh;
+* what still raises: a model built for another mesh, heads or experts
+  that do not divide their axis, sp named in the serving axes (a routed
+  config and meshes with pp, sp or ep > 1 serve:
+  tests/test_torch_shard_serve_mesh.py);
 * ``close()`` ends every follower (every rank exits 0); a follower killed
   mid-run fails the controller's pending request within a bounded time;
 * rank 0's HTTP server over the sharded engine answers the engine's
@@ -463,24 +465,27 @@ def test_http_server_over_the_sharded_engine(weights, mesh_name,
 
 
 # ---------------------------------------------------------------------------
-# what sharded serving does not run yet
+# what sharded serving still refuses
 # ---------------------------------------------------------------------------
 
 def test_raises_routed_wide_mesh_and_foreign_model():
+    """A routed config and meshes with pp, sp or ep > 1 serve now (the
+    name is kept); what raises is what the reference refuses too: a
+    model that does not split over the mesh, the serving forwards asked
+    to shard over sp, and a model built for another mesh."""
     cfg = ttfm.TransformerConfig(**DIMS)
     dp2 = _stand_in(dp=2)
     model = ttfm.Transformer(cfg, device="cpu", mesh=dp2)
     routed = ttfm.TransformerConfig(**dict(DIMS, n_experts=4), moe_topk=2)
-    with pytest.raises(DMLCError, match="item 11a"):
-        InferenceEngine(ttfm.Transformer(routed, device="cpu", mesh=dp2),
-                        mesh=dp2, device="cpu")
-    two = ttfm.TransformerConfig(**dict(DIMS, n_experts=2))
-    for wide in ({"sp": 2}, {"pp": 2}, {"ep": 2, "tp": 2}):
-        mesh = _stand_in(**wide)
-        with pytest.raises(DMLCError, match="item 11b"):
-            InferenceEngine(ttfm.Transformer(two, device="cpu", mesh=mesh),
-                            mesh=mesh, device="cpu")
-    with pytest.raises(DMLCError, match="item 11b"):
+    for wide in ({"sp": 2}, {"pp": 2}, {"ep": 2, "tp": 2}, {"dp": 2}):
+        ttfm.check_serving_mesh(routed, _stand_in(**wide))
+    for dims, wide, what in (({"n_heads": 3}, {"tp": 2}, "n_heads=3"),
+                             ({"n_experts": 3}, {"ep": 2}, "n_experts=3"),
+                             ({"n_layers": 3}, {"pp": 2}, "n_layers=3")):
+        bad = ttfm.TransformerConfig(**{**DIMS, **dims})
+        with pytest.raises(DMLCError, match=what):
+            ttfm.check_serving_mesh(bad, _stand_in(**wide))
+    with pytest.raises(DMLCError, match="replicated over sp"):
         ttfm.forward_decode(model, torch.zeros(2).long(),
                             torch.zeros(2).long(), torch.zeros(1),
                             torch.zeros(1), torch.zeros(2).int(),
