@@ -99,6 +99,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
             shard's payload MB/s into HBM on three routes (each route's
             first batch on the card equal to the CPU's) beside the pinned
             H2D rate at the same transfer size
+   remote   remote filesystems (under ``build/remote``, removed after):
+            ``chip_stores.py``'s S3 (SigV4 countersigned, multipart) and
+            GCS (JSON API, resumable uploads) emulators in a child
+            process; the port's RecordIO writer puts the LM example's
+            ``make_data`` shard and the spine's 268,433,152 B feed shard
+            to ``s3://`` (``DMLC_S3_WRITE_BUFFER_MB=8``: 32 parts), the
+            feed shard copied on to ``gs://`` and a local file.  Three
+            runs of ``train_lm_recordio.run`` from the ``s3://`` shard,
+            the flagship's widths at depth 2 (bf16, seed 0): (a) 6 steps,
+            (b) 4 steps saving to ``gs://``, (c) a fresh model resumed
+            from there for steps 5-6 after a torn step 5 (a shard, no
+            manifest) is put above the save.  Gates: the shard byte-equal
+            to ``make_data``'s file and the feed shard in its parts; the
+            first ``s3://`` batch byte-exact against the records; an
+            epoch with ``DMLC_INTEGRITY_VERIFY_READS=1`` and
+            ``storage.response@fetch:read=corrupt::2`` equal to a clean
+            epoch batch for batch, 2 responses corrupted and 2
+            ``integrity/read_verify_failures``; ``latest_step`` 4 over
+            the torn step; (c) resumed at step 4 and stream position 4,
+            its restored state bitwise equal to (b)'s save, its losses
+            within 1e-3 relative of (a)'s steps 5-6; 2 launches of each
+            of K1, K2 and K3 in every step; step 6 the latest after (c).
+            Numbers: upload and copy MB/s, step ms, saved bytes, save and
+            restore GB/s, and the 256 MB shard's payload MB/s into HBM on
+            the ``recordio_packed_feed`` route from the local file,
+            ``s3://`` and ``gs://`` (each first batch on the card equal
+            to the CPU's)
    options  the flagship's model options (the dense serving model freed
             first): ``save_flash_mlp`` — the dense flagship train step
             at B=8 x T=1024 under save_flash and save_flash_mlp, two
@@ -249,8 +276,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
             timed beside SDPA; then 4 workers of the port's launcher
             sharing the card over gloo (each ``chip_smoke.py
             --shard-serve-worker``: ``initialize_distributed()``,
-            ``build_mesh(dp=2, tp=2)``), the flagship at full width and
-            depth from seed 0 as the slice phase builds it, each rank
+            ``build_mesh(dp=2, tp=2)``), the flagship's widths at depth
+            8 (cut from 16 for the smoke's time) from seed 0, each rank
             its shards (8 heads, half of d_ff and vocab).  Each run
             builds ``InferenceEngine(model, mesh=mesh)`` on every rank:
             rank 0 serves it behind the port's HTTP server, ranks 1-3
@@ -270,21 +297,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
             step (B=8, contexts 17..511, both paths) are within 1e-4
             relative of the one-card forwards.  Numbers: tokens/s, TTFT
             p50/p99, decode step p50, gap p99 per run beside the
-            one-card slice and gather runs; the bf16 streams' agreement
-            with the slice's (reported); rank 0's collective calls and
+            one-card slice and gather runs; rank 0's collective calls and
             bytes per decode step and the bytes the port stages through
             pinned host memory (per run, and one counted step a path at
-            full depth) and its counted decode cost over the global
+            the served depth) and its counted decode cost over the global
             step's FLOPs (reported); spawn → first request served; the
             phase wall
    shard_serve_wide  sharded serving on the rest of the mesh: the 4
             workers of ``shard_serve``'s job, after its gang, serve two
             more in turn, each on its own ``build_mesh`` over the same
             ranks (one spawn for the three).  Gang R: the
-            routed flagship (top-2 of 8, capacity factor 1.25, 5.23B
-            params) at full width and depth on dp2 x ep2, 4 experts a
-            rank; gang P: the flagship at full width and depth on pp2 x
-            tp2, 8 layers and 8 heads a rank.  Weights are drawn from
+            routed flagship (top-2 of 8, capacity factor 1.25) at full
+            width and depth 8 (cut from 16 for time) on dp2 x ep2, 4 experts
+            a rank; gang P: the flagship's widths at depth 8 on pp2 x
+            tp2, 4 layers and 8 heads a rank.  Weights are drawn from
             seed 0 leaf by leaf and layer by layer, each rank keeping
             its shards (``seeded_model``).  Each gang: one warm-up
             request, then the slice phase's 8 requests on ``auto`` (the
@@ -349,9 +375,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    tracker  dmlc-core's tracker, launcher and host collectives, run as
             ``python -m dmlc_tpu_torch.tracker.submit --cluster local
             --num-workers 4`` jobs on the sparse phase's files before
-            they are removed: ``train_libsvm`` on the first 196608 rows
-            of the Criteo-shaped file (a quarter of it: the smoke's time
-            limit; 2 epochs, a [2^20] weight on the card,
+            they are removed: ``train_libsvm`` on the first 98304 rows
+            of the Criteo-shaped file (an eighth of it: the smoke's
+            time limit; 2 epochs, a [2^20] weight on the card,
             an 8 MB f64 gradient allreduced every step) — gates: every
             rank logs both epochs, the mean epoch loss falls, the four
             final-weight SHA-256s are equal, every gradient allreduce ran
@@ -361,8 +387,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
             share of the step; the same job on the file's first 32768
             rows on the card and with ``--device cpu`` — gate: every
             rank's unrounded epoch losses agree within 1e-5 relative;
-            ``train_csv`` on the HIGGS-shaped CSV (mse falls); the
-            ``allreduce_worker bench 67108864 3`` sweep (tree, ring and
+            ``train_csv`` on the HIGGS-shaped CSV's first 250000 rows
+            (a quarter, for time; mse falls); the
+            ``allreduce_worker bench 16777216 3`` sweep (tree, ring and
             hier algbw/busbw, the bucketed-overlap pass's exposed and
             overlapped seconds, the 16 leaves as CUDA tensors through
             the GradientBucketer equal to the numpy pass); the repo's
@@ -375,8 +402,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
             left behind
    router   the fleet router (after the telemetry line, the smoke's own
             serving models freed): two replicas, each ``python -m
-            dmlc_tpu_torch.serving.serve --model flagship --seed 0`` (full
-            width and depth, bf16, KV pool 256 x 16, max_active 8,
+            dmlc_tpu_torch.serving.serve --model flagship --layers 2
+            --seed 0`` (full width, depth 2 since the ``remote`` phase
+            came, bf16, KV pool 256 x 16, max_active 8,
             ``DMLC_TRACE_FLEET=1``, 2 OMP threads) sharing the card, each
             warmed by one request, behind ``python -m
             dmlc_tpu_torch.serving.route`` (health every 0.25 s, probe
@@ -410,11 +438,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
             an in-process port ``RabitTracker(elastic=True)``: full-batch
             least squares on 240 records of 7 features in a RecordIO
             shard, the gradient in float64 on the card summed by
-            ``TrackerClient.allreduce_sum``, lr 0.05, 60 steps 0.2 s
+            ``TrackerClient.allreduce_sum``, lr 0.05, 50 steps 0.2 s
             apart, rank 0 checkpointing every step, both ranks parked at
             steps 20 and 40 until the phase lets them on; two replicas
-            as in ``router`` (A, B) behind the port's ``Router`` in this
-            process (``TenantGovernor(rate=0)``, paid weight 50, free 1)
+            as in ``router`` (A, B; depth 2) behind the port's
+            ``Router`` in this process (``TenantGovernor(rate=0)``, paid weight 50, free 1)
             and its ``RouterHTTPServer(fleet_source=)``, with the port's
             ``Autoscaler`` (interval 0.3 s, water 0.7 / 0.15, hysteresis
             2, cooldown 3 s, 2..3 replicas) over a
@@ -431,10 +459,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
             scale-down, every request 200, no 503 at the client or the
             router, C exits 0 after its drain line.  Regrow: the world
             back at 2, rank 1 exited by SIGKILL and the others 0, rank
-            0's 60 losses within 1e-6 relative of the numpy oracle and
+            0's 50 losses within 1e-6 relative of the numpy oracle and
             the final weights within rtol 1e-6, atol 1e-9.  Tenants (the
             bucket at 2 requests/s a weight): 3 paid and 3 free streams
-            x 8 prompts; free absorbs a 429, paid none.  Exposition:
+            x 4 prompts; free absorbs a 429, paid none.  Exposition:
             /metrics valid with ``dmlc_fleet_*`` (2 replicas, 0 owned,
             1 scale-up, 1 scale-down) and ``dmlc_tenant_*``; /fleet's
             counters; /decisions holds the preemption chain and then the
@@ -458,6 +486,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
             ``mesh5_shapes`` and ``shard_serve_shape`` rows, K4's
             ``shard_serve_shapes``
 
+Every phase line carries ``at_s``, the seconds since the smoke started.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits with code 2 and prints no result.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -479,6 +508,7 @@ import time
 import urllib.error
 import urllib.request
 from http.client import HTTPException
+from unittest import mock
 
 import numpy as np
 import torch
@@ -499,10 +529,13 @@ ELASTIC_T = 128   # the LM example's SEQ, the elastic phase's T
 LONG_T = 8192
 
 RESULTS = {}
+T_START = None   # main()'s start; every emitted line carries its offset
 TELEMETRY = {}   # the telemetry line, filled by the serving, train and spine phases
 
 
 def emit(doc):
+    if T_START is not None:   # seconds into the smoke, where the time goes
+        doc.setdefault("at_s", time.perf_counter() - T_START)
     print(json.dumps(doc), flush=True)
     RESULTS.setdefault("lines", []).append(doc)
 
@@ -2038,6 +2071,47 @@ def h2d_ceiling(nbytes, iters=32):
     return nbytes * iters / 1e6 / (a.elapsed_time(b) / 1e3)
 
 
+def feed_epoch(make, shard_bytes, name, device="cuda"):
+    """One epoch of the feed ``make(device)`` over a shard of
+    ``shard_bytes`` written by ``write_shard`` in SPINE_PARTS partitions:
+    its payload MB/s into the device's memory, its first batch against
+    the CPU feed's."""
+    cpu = make("cpu")
+    try:
+        want = {k: v.clone() for k, v in next(iter(cpu)).items()}
+    finally:
+        cpu.close()
+    f = make(device)
+    payload = torch.zeros((), dtype=torch.int64, device=device)
+    batches, exact = 0, None
+    try:
+        t0 = time.perf_counter()
+        for b in f:
+            if exact is None:
+                exact = sorted(b) == sorted(want) and all(
+                    torch.equal(b[k].cpu(), want[k]) for k in want)
+            if "length" in b:
+                payload += b["length"].sum()
+            else:
+                offs = b["offsets"].view(SPINE_PARTS, -1)
+                payload += offs.gather(
+                    1, b["count"].view(-1, 1).long()).sum()
+            batches += 1
+        if device == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        f.close()
+    payload = int(payload)
+    check(payload == (shard_bytes // (SPINE_REC + 8)) * SPINE_REC,
+          f"{name}: {payload} payload bytes")
+    check(exact, f"{name}: the first batch on the card differs from the "
+          "CPU's")
+    return {"MBps": payload / 1e6 / dt, "seconds": dt,
+            "payload_bytes": payload, "batches": batches,
+            "first_batch_equals_cpu": exact, "stats": f.stats()}
+
+
 def spine_feed_rate(uri):
     """Payload MB/s into HBM over one epoch of the large shard on three
     routes, beside the pinned H2D rate at the same transfer size."""
@@ -2059,39 +2133,7 @@ def spine_feed_rate(uri):
            "num_parts": SPINE_PARTS, "batch_bytes": SPINE_PARTS
            * per_part_bytes}
     for name, make in routes.items():
-        cpu = make("cpu")
-        try:
-            want = {k: v.clone() for k, v in next(iter(cpu)).items()}
-        finally:
-            cpu.close()
-        f = make("cuda")
-        payload = torch.zeros((), dtype=torch.int64, device="cuda")
-        batches, exact = 0, None
-        try:
-            t0 = time.perf_counter()
-            for b in f:
-                if exact is None:
-                    exact = sorted(b) == sorted(want) and all(
-                        torch.equal(b[k].cpu(), want[k]) for k in want)
-                if "length" in b:
-                    payload += b["length"].sum()
-                else:
-                    offs = b["offsets"].view(SPINE_PARTS, -1)
-                    payload += offs.gather(
-                        1, b["count"].view(-1, 1).long()).sum()
-                batches += 1
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-        finally:
-            f.close()
-        payload = int(payload)
-        check(payload == (doc["shard_bytes"] // (SPINE_REC + 8)) * SPINE_REC,
-              f"{name}: {payload} payload bytes")
-        check(exact, f"{name}: the first batch on the card differs from the "
-              "CPU's")
-        doc[name] = {"MBps": payload / 1e6 / dt, "seconds": dt,
-                     "payload_bytes": payload, "batches": batches,
-                     "first_batch_equals_cpu": exact, "stats": f.stats()}
+        doc[name] = feed_epoch(make, doc["shard_bytes"], name)
     doc["h2d_pinned_MBps"] = h2d_ceiling(doc["batch_bytes"])
     return doc
 
@@ -2131,6 +2173,395 @@ def spine_phase(tfm, fa, cfg):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return train_doc, routes_doc, rate_doc, ckpt_doc
+
+
+# ---------------------------------------------------------------------------
+# phase 7a: remote filesystems — the LM example over s3:// and gs://
+# ---------------------------------------------------------------------------
+
+REMOTE_LAYERS = 2          # the flagship's widths at depth 2
+REMOTE_STEPS, REMOTE_SAVE_AT = 6, 4   # (a) 6 steps; (b) to 4; (c) 5-6
+REMOTE_PART_MB = 8         # DMLC_S3_WRITE_BUFFER_MB of the uploads
+REMOTE_CORRUPT = 2         # corrupted responses in the integrity epoch
+REMOTE_LOSS_RTOL = 1e-3    # resumed against uninterrupted, the spine's gate
+#: the emulators' credentials and the uploads' part size
+REMOTE_ENV = {"AWS_ACCESS_KEY_ID": "AKIASMOKE",
+              "AWS_SECRET_ACCESS_KEY": "smoke-secret-key",
+              "AWS_REGION": "us-smoke-1",
+              "DMLC_S3_WRITE_BUFFER_MB": str(REMOTE_PART_MB)}
+#: the example's shard, the feed-rate shard on each store, the checkpoints
+REMOTE_URIS = {"lm": "s3://smoke/lm/tokens.rec", "s3": "s3://smoke/feed.rec",
+               "gs": "gs://smoke/feed.rec", "ckpt": "gs://smoke/ckpt/lm"}
+#: the card's run; ``tests/test_torch_checkpoint_remote.py`` passes a small
+#: config, the CPU and a small feed shard under its temporary directory
+REMOTE_RUN = dict(device="cuda", cfg=None, feed_bytes=FEED_SHARD_BYTES,
+                  dir=None)
+
+
+def start_stores(env):
+    """``chip_stores.py`` in a child process; ``(process, {"s3": port,
+    "gcs": port})``."""
+    proc = subprocess.Popen([sys.executable,
+                             os.path.join(ROOT, "chip_stores.py")],
+                            stdout=subprocess.PIPE, text=True, env=env,
+                            start_new_session=True)
+    line = proc.stdout.readline()
+    if not line:
+        proc.kill()
+        check(False, f"remote: the store emulators exited ({proc.wait()})")
+    return proc, json.loads(line)
+
+
+def _drop_remote_instances():
+    from dmlc_tpu_torch.io.filesys import FileSystem
+
+    for key in [k for k in FileSystem._instances
+                if k.startswith(("s3://", "gs://"))]:
+        del FileSystem._instances[key]
+
+
+def copy_object(src, dst, chunk=8 << 20):
+    """``src`` to ``dst`` through the port's streams."""
+    from dmlc_tpu_torch.io.stream import Stream
+
+    with Stream.create(src, "r") as a, Stream.create(dst, "w") as b:
+        while True:
+            data = a.read(chunk)
+            if not data:
+                return
+            b.write(data)
+
+
+def lm_records(path, n):
+    """The first ``n`` records of a local RecordIO shard, as bytes."""
+    from dmlc_tpu_torch.io.recordio import RecordIOReader
+    from dmlc_tpu_torch.io.stream import Stream
+
+    with Stream.create(path, "r") as s:
+        return list(itertools.islice(iter(RecordIOReader(s)), n))
+
+
+def remote_epoch(uri, device):
+    """Every batch of one epoch of the LM example's feed over ``uri``, on
+    the host."""
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+    from dmlc_tpu_torch.feed import recordio_feed
+
+    f = recordio_feed(uri, batch_records=ex.PER_PART,
+                      max_bytes=(ex.SEQ + 1) * 4, device=device)
+    try:
+        return [{k: v.cpu() for k, v in b.items()} for b in f]
+    finally:
+        f.close()
+
+
+def remote_phase(smi, run=None):
+    """The port's LM example against object stores: its shard uploaded to
+    ``s3://`` and read back through the input split and the feed, the
+    flagship at depth 2 trained from it with its checkpoints on ``gs://``
+    and resumed from there, an epoch through verified reads with injected
+    corruption, and the feed's MB/s from both stores beside a local
+    file's.  The stores are ``chip_stores.py``'s emulators in a child
+    process.  Returns the phase's line and K1-K3 launches over the three
+    training runs."""
+    run = {**REMOTE_RUN, **(run or {})}
+    root = run["dir"] or os.path.join(ROOT, "build", "remote")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    proc, ports = start_stores(dict(os.environ, **REMOTE_ENV))
+    try:
+        with mock.patch.dict(os.environ, {
+                **REMOTE_ENV,
+                "DMLC_S3_ENDPOINT": f"127.0.0.1:{ports['s3']}",
+                "STORAGE_EMULATOR_HOST": f"127.0.0.1:{ports['gcs']}"}):
+            for key in ("AWS_SESSION_TOKEN", "GCS_OAUTH_TOKEN",
+                        "DMLC_FAULT_SPEC", "DMLC_INTEGRITY_VERIFY_READS"):
+                os.environ.pop(key, None)
+            _drop_remote_instances()
+            line, launches = _remote(smi, run, root, ports)
+    finally:
+        proc.kill()
+        proc.wait()
+        _drop_remote_instances()
+        shutil.rmtree(root, ignore_errors=True)
+    line["wall_s"] = time.perf_counter() - t_phase
+    return line, launches
+
+
+def _remote_uploads(run, root, ports, vocab):
+    """The two shards to ``s3://`` through the port's RecordIO writer, the
+    feed shard copied on to ``gs://`` and a local file; the numbers."""
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+    from dmlc_tpu_torch.io.filesys import FileSystem
+    from dmlc_tpu_torch.io.stream import Stream
+    from dmlc_tpu_torch.io.uri import URI
+
+    local_lm = os.path.join(root, "tokens.rec")
+    ex.make_data(local_lm)
+    t0 = time.perf_counter()
+    ex.make_data(REMOTE_URIS["lm"])
+    lm_s = time.perf_counter() - t0
+    n_rec = run["feed_bytes"] // (SPINE_REC + 8)
+    toks = spine_tokens(n_rec, vocab, 1)
+    t0 = time.perf_counter()
+    write_shard(REMOTE_URIS["s3"], toks)
+    up_s = time.perf_counter() - t0
+    del toks
+    nbytes = FileSystem.get_instance(URI(REMOTE_URIS["s3"])).get_path_info(
+        URI(REMOTE_URIS["s3"])).size
+    with open(local_lm, "rb") as fh:
+        lm_bytes = fh.read()
+    with Stream.create(REMOTE_URIS["lm"], "r") as s:
+        lm_equal = s.read(len(lm_bytes) + 1) == lm_bytes
+    _, stats = http(f"http://127.0.0.1:{ports['s3']}/_stats", timeout=60)
+    part = REMOTE_PART_MB << 20
+    parts = -(-nbytes // part)
+    check(lm_equal, "remote: the s3:// shard differs from make_data's file")
+    check(nbytes == n_rec * (SPINE_REC + 8) and stats.get(
+        "s3_parts_committed") == ([parts] if nbytes > part else None),
+        f"remote: feed shard {nbytes} B in parts "
+        f"{stats.get('s3_parts_committed')} (want {parts} of {part} B)")
+    t0 = time.perf_counter()
+    copy_object(REMOTE_URIS["s3"], REMOTE_URIS["gs"])
+    to_gs_s = time.perf_counter() - t0
+    local = os.path.join(root, "feed.rec")
+    t0 = time.perf_counter()
+    copy_object(REMOTE_URIS["s3"], local)
+    to_local_s = time.perf_counter() - t0
+    return local_lm, local, nbytes, {
+        "lm_shard_bytes": len(lm_bytes), "lm_shard_s": lm_s,
+        "feed_shard_bytes": nbytes, "feed_parts": parts, "part_bytes": part,
+        "feed_upload_s": up_s, "feed_upload_MBps": nbytes / 1e6 / up_s,
+        "s3_to_gs_MBps": nbytes / 1e6 / to_gs_s,
+        "s3_to_local_MBps": nbytes / 1e6 / to_local_s,
+        "signature_rejects": stats.get("s3_rejected", 0)}
+
+
+def _remote_integrity(local_lm, device):
+    """The first s3:// batch against the records as written, and an epoch
+    through verified reads with REMOTE_CORRUPT responses corrupted: every
+    batch equal to a clean epoch's, each corruption counted."""
+    from dmlc_tpu_torch import telemetry as tele
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+    from dmlc_tpu_torch.resilience import install_injector, reset_injector
+
+    records = lm_records(local_lm, ex.PER_PART)
+    clean = remote_epoch(REMOTE_URIS["lm"], device)
+    want = torch.from_numpy(np.frombuffer(b"".join(records), np.uint8).copy())
+    first_exact = bool(torch.equal(clean[0]["data"].reshape(-1), want) and
+                       (clean[0]["length"] == (ex.SEQ + 1) * 4).all())
+    check(first_exact, "remote: the first s3:// batch differs from the "
+          "records as written")
+
+    def counts():
+        c = tele.counters_snapshot()
+        return (c.get("integrity", {}).get("read_verify_failures", 0),
+                c.get("resilience", {}).get("faults_injected", 0))
+
+    before = counts()
+    os.environ["DMLC_INTEGRITY_VERIFY_READS"] = "1"
+    # the rule takes the first fetch of each pair: an unselected rule's
+    # two firings land on both fetches of the first pair, alike, and the
+    # compare passes them (ROADMAP Queue 3)
+    install_injector(f"storage.response@fetch:read=corrupt::{REMOTE_CORRUPT}")
+    try:
+        verified = remote_epoch(REMOTE_URIS["lm"], device)
+    finally:
+        reset_injector()
+        del os.environ["DMLC_INTEGRITY_VERIFY_READS"]
+    fails, faults = (int(a - b) for a, b in zip(counts(), before))
+    healed = len(verified) == len(clean) and all(
+        sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+        for a, b in zip(verified, clean))
+    check(healed and faults == REMOTE_CORRUPT and fails == REMOTE_CORRUPT,
+          f"remote: verified epoch equal {healed}, corrupted responses "
+          f"{faults}, read_verify_failures {fails}")
+    return {"batches": len(clean), "corrupted_responses": faults,
+            "read_verify_failures": fails, "healed": healed,
+            "first_batch_byte_exact": first_exact}
+
+
+def _remote_train(cfg, device, kernels):
+    """(a) REMOTE_STEPS uninterrupted steps of ``train_lm_recordio.run``
+    over the s3:// shard, (b) a fresh run to REMOTE_SAVE_AT saving to
+    gs://, a torn step put above it, (c) a fresh model resumed from gs://
+    for the rest.  The runs, the saved and restored trees' facts, and the
+    torn step's listing."""
+    from dmlc_tpu_torch import telemetry as tele
+    from dmlc_tpu_torch.checkpoint import CheckpointManager
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+    from dmlc_tpu_torch.models import transformer as tfm
+
+    card = device == "cuda"
+    per_step, saved, restored, reads = [], {}, {}, {}
+    make_step = tfm.make_train_step
+    save, restore_latest = CheckpointManager.save, \
+        CheckpointManager.restore_latest
+    restore = ex.restore
+
+    def counted_make(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def counted(*sa, **skw):
+            before = [k.launches for k in kernels.values()]
+            out = step(*sa, **skw)
+            per_step[-1].append([k.launches - n for k, n in
+                                 zip(kernels.values(), before)])
+            return out
+        return counted
+
+    def timed_save(self, step, tree):
+        t0 = time.perf_counter()
+        save(self, step, tree)
+        saved[step] = {"tree": tree, "s": time.perf_counter() - t0,
+                       "bytes": self.stats()["bytes_written"]}
+
+    def timed_restore_latest(self, template):
+        t0 = time.perf_counter()
+        out = restore_latest(self, template)
+        reads.update(s=time.perf_counter() - t0,
+                     bytes=self.stats()["bytes_read"])
+        return out
+
+    def kept_restore(manager, model, optimizer, with_stream=True):
+        step, pos = restore(manager, model, optimizer, with_stream)
+        if step is not None:
+            restored.update(step=step, pos=pos,
+                            tree=ex.train_state(model, optimizer, pos))
+        return step, pos
+
+    tfm.make_train_step = counted_make
+    CheckpointManager.save = timed_save
+    CheckpointManager.restore_latest = timed_restore_latest
+    ex.restore = kept_restore
+    runs, torn = {}, {}
+    try:
+        for name, steps, where, seed in (
+                ("uninterrupted", REMOTE_STEPS, None, 0),
+                ("to_save", REMOTE_SAVE_AT, REMOTE_URIS["ckpt"], 0),
+                ("resumed", REMOTE_STEPS - REMOTE_SAVE_AT,
+                 REMOTE_URIS["ckpt"], 1)):
+            if name == "resumed":
+                # a torn step above the saved one: a shard, no manifest
+                base = REMOTE_URIS["ckpt"]
+                copy_object(f"{base}/step_{REMOTE_SAVE_AT:08d}/stream.0-1",
+                            f"{base}/step_{REMOTE_SAVE_AT + 1:08d}/stream.0-1")
+                mgr = CheckpointManager(base)
+                torn = {"step_dirs": sorted(mgr._step_dirs()),
+                        "latest_step": mgr.latest_step()}
+            model = tfm.init_params(cfg, torch.Generator(device).manual_seed(
+                seed), device)
+            tele.reset_steps()
+            for kern in kernels.values():
+                kern.launches = 0
+            per_step.append([])
+            t0 = time.perf_counter()
+            losses = ex.run(REMOTE_URIS["lm"], steps, where, device=device,
+                            model=model)
+            wall = time.perf_counter() - t0
+            walls = [r["wall_s"] for r in tele.ledger().records()]
+            runs[name] = {"losses": losses, "wall_s": wall,
+                          "launches_per_step": per_step[-1],
+                          "step_ms_p50": pctl(walls, 50) * 1e3,
+                          "step_ms": [w * 1e3 for w in walls]}
+            del model
+            if card:
+                torch.cuda.empty_cache()
+        latest = CheckpointManager(REMOTE_URIS["ckpt"]).latest_step()
+    finally:
+        tfm.make_train_step = make_step
+        CheckpointManager.save, CheckpointManager.restore_latest = \
+            save, restore_latest
+        ex.restore = restore
+    return runs, saved, restored, reads, torn, latest
+
+
+def _remote(smi, run, root, ports):
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+    from dmlc_tpu_torch.feed import recordio_packed_feed
+    from dmlc_tpu_torch.models import transformer as tfm
+    from dmlc_tpu_torch.ops import flash_attention as fa
+
+    device = run["device"]
+    cfg = run["cfg"] or dataclasses.replace(tfm.flagship_config(),
+                                            n_layers=REMOTE_LAYERS)
+    line = {"phase": "remote", "card": smi, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "B": ex.PER_PART, "T": ex.SEQ, "stores": "chip_stores.py"}
+    walls = line["walls_s"] = {}
+    t0 = time.perf_counter()
+    local_lm, local_feed, nbytes, line["uploads"] = _remote_uploads(
+        run, root, ports, cfg.vocab)
+    walls["uploads"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line["integrity"] = _remote_integrity(local_lm, device)
+    walls["integrity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
+               "flash_bwd_dq": fa.FLASH_BWD_DQ}
+    runs, saved, restored, reads, torn, latest = _remote_train(cfg, device,
+                                                               kernels)
+    walls["train"] = time.perf_counter() - t0
+    a, b, c = (runs[n]["losses"] for n in ("uninterrupted", "to_save",
+                                           "resumed"))
+    rel = [abs(x - y) / abs(y) for x, y in zip(c, a[REMOTE_SAVE_AT:])]
+    at_save = saved[REMOTE_SAVE_AT]
+    state_equal = restored.get("step") == REMOTE_SAVE_AT and bits_equal(
+        restored["tree"], at_save["tree"])
+    per = [s for r in runs.values() for s in r["launches_per_step"]]
+    want = [cfg.n_layers] * 3 if device == "cuda" else [0, 0, 0]
+    check(torn["latest_step"] == REMOTE_SAVE_AT
+          and REMOTE_SAVE_AT + 1 in torn["step_dirs"],
+          f"remote: the torn step was not skipped: {torn}")
+    check(all(math.isfinite(x) for x in a + b + c) and len(a) == REMOTE_STEPS
+          and len(c) == REMOTE_STEPS - REMOTE_SAVE_AT,
+          f"remote: losses {a} {b} {c}")
+    check(restored.get("step") == REMOTE_SAVE_AT
+          and restored.get("pos") == REMOTE_SAVE_AT,
+          f"remote: resumed at step {restored.get('step')}, stream "
+          f"position {restored.get('pos')}")
+    check(state_equal, "remote: the state restored from gs:// differs from "
+          "the state saved")
+    check(max(rel) <= REMOTE_LOSS_RTOL,
+          f"remote: resumed losses {c} against {a[REMOTE_SAVE_AT:]}")
+    check(len(per) == 2 * REMOTE_STEPS and all(p == want for p in per),
+          f"remote: K1-K3 launches per step {per}, want {want} each")
+    check(latest == REMOTE_STEPS, f"remote: latest step {latest} after (c)")
+    del restored["tree"]
+    gb = at_save["bytes"] / 1e9
+    line["train"] = {
+        "runs": runs, "loss_rel_diff": rel,
+        "to_save_vs_uninterrupted_max_abs": max(
+            abs(x - y) for x, y in zip(b, a)),
+        "state_bitwise_equal": state_equal,
+        "restored_step": restored["step"],
+        "restored_stream_position": restored["pos"],
+        "saved_bytes": at_save["bytes"], "save_s": at_save["s"],
+        "save_GBps": gb / at_save["s"], "restore_s": reads["s"],
+        "restore_GBps": reads["bytes"] / 1e9 / reads["s"],
+        "restored_bytes": reads["bytes"], "torn_step": torn,
+        "latest_step_after": latest,
+        "saves_s": {step: sv["s"] for step, sv in saved.items()}}
+    del saved, at_save
+
+    # the feed's MB/s from each store beside the local copy
+    t0 = time.perf_counter()
+    per_part = FEED_PER_PART * SPINE_REC
+    line["feed_rate"] = {"route": "recordio_packed_feed",
+                         "num_parts": SPINE_PARTS, "shard_bytes": nbytes}
+    for name, uri in (("local", local_feed), ("s3", REMOTE_URIS["s3"]),
+                      ("gs", REMOTE_URIS["gs"])):
+        line["feed_rate"][name] = feed_epoch(
+            lambda dev, uri=uri: recordio_packed_feed(
+                uri, buf_bytes=per_part, max_records=FEED_PER_PART,
+                num_parts=SPINE_PARTS, device=dev), nbytes,
+            f"remote {name}", device)
+    walls["feed_rate"] = time.perf_counter() - t0
+    launches = {k: sum(p[i] for p in per) for i, k in enumerate(kernels)}
+    line["launches"] = launches
+    return line, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2452,10 +2883,12 @@ def sparse_phase(smi, rate_doc, spine_first_exact):
 # ---------------------------------------------------------------------------
 
 TRACKER_WORKERS = 4
+TRACKER_BENCH_BYTES = 16 << 20   # the sweep's largest size (64 MB: time)
 GBDT_TOL = 1e-4   # relative: the tree allreduce's fold order vs a local sum
 PARITY_ROWS = 32768   # the head of the Criteo-shaped file, card vs CPU
 PARITY_RTOL = 1e-5    # per-rank epoch losses, card vs --device cpu
-LIBSVM_ROWS = 196608  # train_libsvm's head of the file: a quarter of it
+LIBSVM_ROWS = 98304   # train_libsvm's head of the file: an eighth of it
+CSV_ROWS = 250_000    # train_csv's head of the HIGGS-shaped CSV: a quarter
 
 
 def _dmlc_shm():
@@ -2644,16 +3077,20 @@ def tracker_phase(smi, svm, csv):
     doc["libsvm"] = {"rows": LIBSVM_ROWS, "launcher_wall_s": wall,
                      **_job_report("libsvm", err, "loss", 2, "hier")}
     doc["libsvm_vs_cpu"] = _libsvm_parity(svm)
-    _, err, wall = _submit("csv", [sys.executable, "-m",
-                                   "dmlc_tpu_torch.examples.train_csv",
-                                   csv, "2"], 300)
-    doc["csv"] = {"launcher_wall_s": wall, **_job_report(
+    head = _head(csv, CSV_ROWS)
+    try:
+        _, err, wall = _submit("csv", [sys.executable, "-m",
+                                       "dmlc_tpu_torch.examples.train_csv",
+                                       head, "2"], 300)
+    finally:
+        os.unlink(head)
+    doc["csv"] = {"rows": CSV_ROWS, "launcher_wall_s": wall, **_job_report(
         "csv", err, "mse", 2, "tree")}
 
     out, _, wall = _submit("bench", [
         sys.executable, "-m", "dmlc_tpu_torch.examples.allreduce_worker",
         "bench",
-        str(64 << 20), "3"], 300)
+        str(TRACKER_BENCH_BYTES), "3"], 300)
     lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     sweep = [d for d in lines if d["op"].startswith("host_allreduce_")
              and "algbw_MBps" in d]
@@ -4682,6 +5119,7 @@ SHARD_MESH = {"dp": 2, "tp": 2}
 SHARD_H = 8   # the flagship's 16 heads over tp=2
 SHARD_TIMEOUT_S = 300
 SHARD_F32_LAYERS = 2
+SHARD_LAYERS = 8     # the served flagship's depth (16: the smoke's time)
 SHARD_LOGIT_TOL = 1e-4   # the gather phase's: f32, summation order only
 #: the phase's model and requests: the flagship with the slice phase's
 #: prompts on the card; ``tests/test_torch_shard_serve.py`` runs it with
@@ -4719,11 +5157,14 @@ def shard_kernel_rows(fa, pa, prompt_lens):
 
 
 def shard_model_config(name):
-    """The phase's model: the flagship, or ``serving.serve``'s tiny one."""
+    """The phase's model: the flagship's widths at depth SHARD_LAYERS, or
+    ``serving.serve``'s tiny one."""
     from dmlc_tpu_torch.models import transformer as tfm
     from dmlc_tpu_torch.serving import serve
 
-    return tfm.flagship_config() if name == "flagship" else serve.TINY
+    if name != "flagship":
+        return serve.TINY
+    return dataclasses.replace(tfm.flagship_config(), n_layers=SHARD_LAYERS)
 
 
 def _counters(tele, ops=SHARD_OPS):
@@ -4961,7 +5402,7 @@ def shard_serve_worker(argv) -> int:
            "params_local": sum(p.numel() for p in model.parameters())}
     sr = ServeRank(conf, mesh, cfg.vocab)
 
-    # 1. the flagship, bf16, full depth: one short request to warm up (as
+    # 1. the flagship, bf16, served depth: one short request to warm up (as
     # the slice phase's), then three runs on the mesh
     doc["warmup"] = sr.serve(model, "auto", 0, batch=[sr.prompts[0][:17]])
     doc["runs"] = {name: sr.serve(model, mode, k)
@@ -5068,10 +5509,11 @@ def shard_serve_phase(smi, one_card, run=None, wide=False):
         line["one_card"] = {name: {k: one_card["docs"][name][k] for k in (
             "tokens_per_s", "ttft_p50_s", "ttft_p99_s", "step_p50_s",
             "gap_p99_s")} for name in one_card["docs"]}
-        line["bf16_vs_one_card"] = {
-            name: _agreement(ctl["runs"][name]["outputs"],
-                             one_card["outputs"][1 if k else 0])
-            for name, _, k in SHARD_RUNS}
+        if one_card.get("n_layers") == cfg.n_layers:   # the same model
+            line["bf16_vs_one_card"] = {
+                name: _agreement(ctl["runs"][name]["outputs"],
+                                 one_card["outputs"][1 if k else 0])
+                for name, _, k in SHARD_RUNS}
     if wide:
         return line, launches, [{**d.pop("wide"), "rank": d["rank"]}
                                 for d in docs]
@@ -5085,7 +5527,7 @@ def shard_serve_phase(smi, one_card, run=None, wide=False):
 
 #: the phase's two gangs, served in turn by the same 4 workers: R the
 #: routed flagship (top-2 of 8) on dp2 x ep2, 4 experts a rank; P the
-#: dense flagship on pp2 x tp2, 8 layers and 8 heads a rank
+#: dense flagship on pp2 x tp2, half the layers and 8 heads a rank
 WIDE_GANGS = {"R": {"mesh": {"pp": 1, "dp": 2, "sp": 1, "ep": 2, "tp": 1},
                     "routed": True},
               "P": {"mesh": {"pp": 2, "dp": 1, "sp": 1, "ep": 1, "tp": 2},
@@ -5158,7 +5600,7 @@ class _Drops:
 
 def wide_gang(tfm, gang, mesh, conf):
     """Gang ``gang`` on ``mesh`` (every worker calls it): the bf16 model
-    at full depth, a warm-up request and ``WIDE_RUNS`` served, a counted
+    at the served depth, a warm-up request and ``WIDE_RUNS`` served, a counted
     prefill and decode step; then the f32 depth-2 copy's runs against
     one card on rank 0, for gang R with each run's dropped-choice
     fraction summed over ep.  Returns this rank's document."""
@@ -5314,6 +5756,9 @@ def shard_serve_wide_phase(smi, beside, docs, run=None):
 ROUTER_LOAD = dict(n_streams=8, requests_per_stream=2, prompt_len=(17, 511),
                    max_tokens=32, seed=0)
 ROUTER_HEALTH_S, ROUTER_PROBE_MAX_S = 0.25, 2.0
+#: the replicas: the flagship's widths at depth 2 (full depth before the
+#: ``remote`` phase came; the phase's gates do not depend on depth)
+ROUTER_MODEL = ("--model", "flagship", "--layers", "2")
 
 
 class _FleetProc:
@@ -5477,9 +5922,11 @@ def router_phase(smi, serving, vocab):
     shm0 = _dmlc_shm()
     env = _fleet_env()
     procs = {}
-    line = {"phase": "router", "card": smi, "load": dict(ROUTER_LOAD)}
+    line = {"phase": "router", "card": smi, "load": dict(ROUTER_LOAD),
+            "replica_args": list(ROUTER_MODEL)}
     try:
-        procs["A"], procs["B"] = _replica("A", env), _replica("B", env)
+        procs["A"], procs["B"] = (_replica("A", env, model=ROUTER_MODEL),
+                                  _replica("B", env, model=ROUTER_MODEL))
         A, B = procs["A"].wait_url("serve:"), procs["B"].wait_url("serve:")
         line["replica_start_s"] = {n: procs[n].t_listen - procs[n].t_spawn
                                    for n in ("A", "B")}
@@ -5573,7 +6020,8 @@ def router_phase(smi, serving, vocab):
             chrome_events=len(chrome))
 
         # 4. recovery: B again on its old port; the probe closes the circuit
-        procs["B2"] = _replica("B2", env, port=procs["B"].port)
+        procs["B2"] = _replica("B2", env, port=procs["B"].port,
+                               model=ROUTER_MODEL)
         procs["B2"].wait_url("serve:")
         deadline = time.monotonic() + 60
         while _replica_state(R, B)["state"] != "healthy":
@@ -5688,8 +6136,9 @@ def router_phase(smi, serving, vocab):
 # training job, drains it when the load is gone, and the job grows back
 # ---------------------------------------------------------------------------
 
-FLEET_FEATURES, FLEET_RECORDS, FLEET_STEPS = 7, 240, 60
+FLEET_FEATURES, FLEET_RECORDS, FLEET_STEPS = 7, 240, 50
 FLEET_HOLDS = (20, 40)     # both ranks park at each until the harness says go
+FLEET_LAYERS = 2           # the replicas: the flagship's widths at depth 2
 FLEET_LR, FLEET_PACE_S = 0.05, 0.2
 FLEET_LOSS_RTOL = 1e-6                    # rank 0's losses vs the oracle
 FLEET_W_TOL = dict(rtol=1e-6, atol=1e-9)  # the final weights vs the oracle
@@ -5705,12 +6154,12 @@ FLEET_SPIKE = dict(n_streams=16, requests_per_stream=6, prompt_len=(17, 511),
                    max_tokens=32, seed=0)
 FLEET_TAIL = dict(n_streams=2, requests_per_stream=10, prompt_len=(17, 511),
                   max_tokens=32, seed=1)
-FLEET_TENANT_STREAMS, FLEET_TENANT_REQUESTS = 3, 8   # a tenant, a stream
+FLEET_TENANT_STREAMS, FLEET_TENANT_REQUESTS = 3, 4   # a tenant, a stream
 FLEET_TIMEOUT_S = 300     # bound on each wait of the phase
 #: the card's run; ``tests/test_torch_fleet.py`` passes a tiny model on the
 #: CPU, with ``dir`` and ``log_dir`` under its own temporary directory
-FLEET_RUN = dict(model=("--model", "flagship"), device="cuda", dir=None,
-                 log_dir=None)
+FLEET_RUN = dict(model=("--model", "flagship", "--layers", str(FLEET_LAYERS)),
+                 device="cuda", dir=None, log_dir=None)
 FLEET_CHAIN = ("autoscale_verdict", "preempt_acquire", "preempt_kill_rank",
                "preempt_resize", "preempt_replica_added", "scale_up")
 FLEET_RESTORE = ("autoscale_verdict", "preempt_release",
@@ -5900,6 +6349,7 @@ def fleet_phase(smi, serving, vocab, run=None):
     if not card:   # the CPU run shares its host with the caller's tests
         env["OMP_NUM_THREADS"] = "1"
     line = {"phase": "fleet", "card": smi, "model": run["model"][1],
+            "replica_args": list(run["model"]),
             "scaler": dict(FLEET_SCALER), "spike": dict(FLEET_SPIKE),
             "tail": dict(FLEET_TAIL), "job": {
                 "features": FLEET_FEATURES, "records": FLEET_RECORDS,
@@ -6303,7 +6753,8 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -6395,6 +6846,11 @@ def main() -> int:
         emit(doc)
     spine_launches = spine_docs[0]["launches"]
 
+    # 7a. remote filesystems: the LM example reads its shard from s3:// and
+    # checkpoints to gs:// (emulators in a child process), resumes there
+    remote_doc, remote_launches = remote_phase(smi)
+    emit(remote_doc)
+
     # 7b. the model options: save_flash_mlp, routed top-k MoE (served,
     # trained, checked in f32), the self-healing trainer; the dense
     # serving model is freed first (the routed train state takes ~50 GB)
@@ -6404,6 +6860,7 @@ def main() -> int:
     option_launches = model_options_phase(tfm, serving, fa, pa, tele, cfg,
                                           prompts, looping)
     option_launches["gather"] = gather_launches
+    option_launches["remote"] = remote_launches
 
     # 7c. the elastic trainer: 3 workers share the card, one is lost, the
     # world shrinks and grows back (the kernels are built already, so the
@@ -6436,6 +6893,7 @@ def main() -> int:
     shard_k1, shard_k4 = shard_kernel_rows(fa, pa, prompt_lens)
     shard_doc, option_launches["shard_serve"], wide_docs = \
         shard_serve_phase(smi, {
+            "n_layers": cfg.n_layers,
             "docs": {"slice": plain, "slice_spec": spec,
                      "gather": gather_doc["plain"],
                      "gather_spec": gather_doc["spec"]},

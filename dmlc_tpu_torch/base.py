@@ -13,7 +13,18 @@ __all__ = ["DMLCError", "ParamError", "check", "get_env", "resolve_device"]
 
 
 class DMLCError(RuntimeError):
-    """Exception for all fatal checks (analog of ``dmlc::Error``)."""
+    """Exception for all fatal checks (analog of ``dmlc::Error``).
+
+    ``status`` carries a machine-readable code (an HTTP status from the
+    filesystem backends, which map a 404 to ``FileNotFoundError``);
+    ``transient`` marks a condition a retry can fix (None: derive it from
+    ``status``).  ``resilience.default_retryable`` reads both."""
+
+    def __init__(self, *args, status: Optional[int] = None,
+                 transient: Optional[bool] = None):
+        super().__init__(*args)
+        self.status = status
+        self.transient = transient
 
 
 class ParamError(ValueError, DMLCError):

@@ -29,9 +29,14 @@ its own shards only).  ``restore_pytree(..., mesh=)`` reads only the
 slice this rank's coordinate needs by the manifest's spec, from the
 file its index key names.
 
-Crash consistency: shards first, the manifest last through a temp file,
-``fsync`` and ``os.replace``; a step without a committed manifest does
-not exist for restore.  Every shard carries a CRC-32C digest in the
+Every file goes through ``Stream.create``, so ``uri`` may be a local
+path or an object store's (``gs://``, ``s3://``, ``azure://``,
+``hdfs://``; ``http(s)://`` to read), as in the JAX package.
+
+Crash consistency: shards first, the manifest last, locally through a
+temp file, ``fsync`` and ``os.replace``, on an object store as one PUT
+(all or nothing there); a step without a committed manifest does not
+exist for restore.  Every shard carries a CRC-32C digest in the
 manifest and a restore verifies it.
 
 Telemetry, as the JAX package's: ``checkpoint.save`` and
@@ -210,6 +215,7 @@ def _host_bytes(leaf) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def _local_path(uri: str) -> Optional[str]:
+    """The OS path of a local URI, None for an object store's."""
     if uri.startswith("file://"):
         return uri[len("file://"):]
     return None if "://" in uri else uri
@@ -219,13 +225,44 @@ def _join(base: str, name: str) -> str:
     return base.rstrip("/") + "/" + name
 
 
+def _list_names(uri: str) -> Optional[List[str]]:
+    """The names of the files under a checkpoint directory, listed
+    through its FileSystem; None where the store cannot list (HTTP, or a
+    listing that fails in the OS)."""
+    from ..io.filesys import FileSystem, UnsupportedListing
+    from ..io.uri import URI
+
+    base = URI(uri)
+    try:
+        entries = FileSystem.get_instance(base).list_directory(base)
+    except (OSError, UnsupportedListing):
+        return None
+    return [f.path.name.rstrip("/").rsplit("/", 1)[-1] for f in entries]
+
+
+def _openable(uri: str) -> bool:
+    """Whether ``uri`` opens for reading (the existence test of a store
+    without local paths)."""
+    s = Stream.create(uri, "r", allow_null=True)
+    if s is not None:
+        s.close()
+    return s is not None
+
+
 def _commit_manifest(uri: str, data: bytes) -> None:
-    """The manifest, written last and atomically: temp file, fsync,
-    rename.  Shards without a committed manifest are invisible to
-    restore, so a crash mid-save leaves the previous step the target."""
+    """The manifest, written last and atomically: locally a temp file,
+    fsync and rename; on an object store one PUT.  Shards without a
+    committed manifest are invisible to restore, so a crash mid-save
+    leaves the previous step the target.  The ``checkpoint.commit`` fault
+    point fires first."""
+    from ..resilience import fault_point
+
+    fault_point("checkpoint.commit", uri=uri)
     path = _local_path(_join(uri, MANIFEST))
-    check(path is not None, f"checkpoint {uri}: the port writes local "
-          "paths only")
+    if path is None:
+        with Stream.create(_join(uri, MANIFEST), "w") as s:
+            s.write(data)
+        return
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -246,8 +283,6 @@ def save_pytree(uri: str, tree: Any, *, mesh=None,
     replicated), and every rank of the mesh calls this (the manifest's
     commit is collective)."""
     path = _local_path(uri)
-    check(path is not None, f"checkpoint {uri}: the port writes local "
-          "paths only")
     with telemetry.span("checkpoint.save", stage="checkpoint",
                         args={"uri": uri}), \
             telemetry.timed("checkpoint", "save"):
@@ -257,8 +292,9 @@ def save_pytree(uri: str, tree: Any, *, mesh=None,
     return nbytes
 
 
-def _save(uri: str, path: str, tree: Any, mesh, specs) -> int:
-    os.makedirs(path, exist_ok=True)
+def _save(uri: str, path: Optional[str], tree: Any, mesh, specs) -> int:
+    if path is not None:   # an object store has no directories to make
+        os.makedirs(path, exist_ok=True)
     manifest: Dict[str, Any] = {"format": 1, "leaves": {}}
     nbytes = 0
     for kpath, leaf in flatten_with_path(tree):
@@ -305,8 +341,15 @@ def _save(uri: str, path: str, tree: Any, mesh, specs) -> int:
 
 def _read_file(uri: str) -> np.ndarray:
     path = _local_path(uri)
-    check(path is not None, f"checkpoint {uri}: the port reads local "
-          "paths only")
+    if path is None:   # an object store's: read to the end, no stat
+        buf = bytearray()
+        with Stream.create(uri, "r") as s:
+            while True:
+                chunk = s.read(8 << 20)
+                if not chunk:
+                    break
+                buf += chunk
+        return np.frombuffer(buf, np.uint8)
     out = np.empty(os.path.getsize(path), np.uint8)
     mv = memoryview(out)
     with Stream.create(uri, "r") as s:
@@ -390,8 +433,23 @@ def _restore(uri: str, template: Any, mesh=None) -> Tuple[Any, int]:
 def _restore_tree(uri: str, template: Any, mesh=None) -> Tuple[Any, int]:
     manifest = _load_manifest(uri)
     leaves_meta = manifest["leaves"]
-    listing: List[str] = []
+    local = _local_path(uri)
+    listing: List[Optional[List[str]]] = []
     nread = 0
+
+    def names() -> Optional[List[str]]:
+        """The directory's file names, listed once per restore."""
+        if not listing:
+            listing.append(os.listdir(local) if local is not None
+                           else _list_names(uri))
+        return listing[0]
+
+    def exists(fname: str) -> bool:
+        if local is not None:
+            return os.path.exists(_local_path(_join(uri, fname)))
+        got = names()
+        return fname in got if got is not None \
+            else _openable(_join(uri, fname))
 
     def shard_bytes(key, ikey, nbytes, want_crc) -> np.ndarray:
         nonlocal nread
@@ -420,10 +478,9 @@ def _restore_tree(uri: str, template: Any, mesh=None) -> Tuple[Any, int]:
                  if _try_extents(k, shape) is not None]
         if _exact_cover([_try_extents(k, shape) for k in ikeys], shape):
             return ikeys
-        if not listing:
-            listing.extend(os.listdir(_local_path(uri)))
         prefix = key + "."
-        extra = {n[len(prefix):] for n in listing if n.startswith(prefix)}
+        extra = {n[len(prefix):] for n in names() or ()
+                 if n.startswith(prefix)}
         ikeys = sorted(set(ikeys) | {k for k in extra
                                      if _try_extents(k, shape)})
         check(_exact_cover([_try_extents(k, shape) for k in ikeys], shape),
@@ -437,7 +494,7 @@ def _restore_tree(uri: str, template: Any, mesh=None) -> Tuple[Any, int]:
         layout, or a whole leaf from a sharded save)."""
         sub = tuple(b - a for a, b in box)
         ikey = _index_key(shape, box)
-        if os.path.exists(_local_path(_join(uri, f"{key}.{ikey}"))):
+        if exists(f"{key}.{ikey}"):
             raw = shard_bytes(key, ikey, int(np.prod(sub, dtype=np.int64))
                               * itemsize, crcs.get(ikey))
             return torch.from_numpy(raw).view(dtype).reshape(sub)
@@ -504,15 +561,15 @@ class CheckpointManager:
     A step exists once its manifest is committed; ``latest_step`` and
     ``restore_latest`` scan the step directories and skip a torn one, and
     ``restore_latest`` falls back a step past a corrupt one.  The
-    ``LATEST`` file is a hint for people, never the restore pointer.
-    :meth:`stats` counts saves and bytes written and read."""
+    ``LATEST`` file is a hint, the restore pointer only where the store
+    cannot be listed, and then its step's manifest must be committed.
+    Retention deletes local steps only: an object store keeps every
+    step.  :meth:`stats` counts saves and bytes written and read."""
 
     def __init__(self, base_uri: str, *, max_to_keep: int = 3):
         check(max_to_keep >= 1,
               f"max_to_keep must be >= 1, got {max_to_keep}")
         self.base = base_uri.rstrip("/")
-        check(_local_path(self.base) is not None,
-              f"checkpoint {base_uri}: the port writes local paths only")
         self.max_to_keep = max_to_keep
         self._stats = {"saves": 0, "bytes_written": 0, "bytes_read": 0}
 
@@ -531,26 +588,50 @@ class CheckpointManager:
         self._retain()
 
     def _has_manifest(self, step: int) -> bool:
-        return os.path.exists(_local_path(_join(self._step_dir(step),
-                                                MANIFEST)))
+        uri = _join(self._step_dir(step), MANIFEST)
+        path = _local_path(uri)
+        return os.path.exists(path) if path is not None else _openable(uri)
 
-    def _step_dirs(self) -> List[int]:
+    def _step_dirs(self) -> Optional[List[int]]:
+        """Step numbers with a ``step_*`` directory (committed or not);
+        None where an object store cannot be listed."""
         base = _local_path(self.base)
-        if not os.path.isdir(base):
-            return []
+        if base is not None:
+            names = os.listdir(base) if os.path.isdir(base) else []
+        else:
+            try:
+                names = _list_names(self.base)
+            except DMLCError as e:
+                if e.status != 404:   # WebHDFS: no directory, no steps yet
+                    raise
+                names = []
+            if names is None:
+                return None
         return [int(m.group(1)) for m in
-                (re.match(r"^step_(\d+)$", n) for n in os.listdir(base))
-                if m]
+                (re.match(r"^step_(\d+)$", n) for n in names) if m]
 
     def _committed_steps(self) -> List[int]:
-        """Committed step numbers, newest first."""
-        return [s for s in sorted(self._step_dirs(), reverse=True)
+        """Committed step numbers, newest first (none where the store
+        cannot be listed: :meth:`latest_step` reads the hint then)."""
+        return [s for s in sorted(self._step_dirs() or (), reverse=True)
                 if self._has_manifest(s)]
 
     def latest_step(self) -> Optional[int]:
-        """The newest step with a committed manifest."""
-        steps = self._committed_steps()
-        return steps[0] if steps else None
+        """The newest step with a committed manifest; where the store
+        cannot be listed, the ``LATEST`` hint's step if its manifest is
+        committed."""
+        steps = self._step_dirs()
+        if steps is None:
+            s = Stream.create(_join(self.base, "LATEST"), "r",
+                              allow_null=True)
+            if s is None:
+                return None
+            with s:
+                raw = s.read(64).strip()
+            return int(raw) if raw and self._has_manifest(int(raw)) \
+                else None
+        return next((s for s in sorted(steps, reverse=True)
+                     if self._has_manifest(s)), None)
 
     def restore_latest(self, template: Any):
         """``(step, tree)`` of the newest committed step that restores
@@ -561,7 +642,10 @@ class CheckpointManager:
         last_err: Optional[DMLCError] = None
         candidates = self._committed_steps()
         if not candidates:
-            return None, None
+            step = self.latest_step()   # an unlistable store's hint
+            if step is None:
+                return None, None
+            candidates = [step]
         for step in candidates:
             try:
                 tree, nread = _restore(self._step_dir(step), template)
@@ -577,6 +661,8 @@ class CheckpointManager:
                         f"cleanly (last error: {last_err})")
 
     def _retain(self) -> None:
+        if _local_path(self.base) is None:
+            return   # retention is local-only: an object store keeps all
         committed = self._committed_steps()
         # the newest max_to_keep committed steps stay; a torn directory
         # never pushes a restorable step out of the window

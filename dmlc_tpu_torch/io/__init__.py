@@ -1,7 +1,7 @@
-"""IO layer of the port: URIs, streams, the local filesystem, RecordIO,
-integrity and the input splits (text, RecordIO, indexed RecordIO,
-stdin; the prefetching, cached and shuffled wrappers) (the port of
-``dmlc_tpu/io``)."""
+"""IO layer of the port: URIs, streams, the virtual filesystems (local,
+HTTP, S3, GCS, Azure, WebHDFS), RecordIO, integrity and the input
+splits (text, RecordIO, indexed RecordIO, stdin; the prefetching,
+cached and shuffled wrappers) (the port of ``dmlc_tpu/io``)."""
 
 from .stream import (  # noqa: F401
     FileStream,
@@ -28,3 +28,6 @@ from .input_split import (  # noqa: F401
     RecordIOSplitter,
     SingleFileSplit,
 )
+from .input_split_shuffle import InputSplitShuffle, create_shuffled  # noqa: F401
+from .threaded_input_split import ThreadedInputSplit  # noqa: F401
+from .cached_input_split import CachedInputSplit  # noqa: F401

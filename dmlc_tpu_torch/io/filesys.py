@@ -2,10 +2,11 @@
 dispatch (the port of ``dmlc_tpu/io/filesys.py``; reference
 src/io/filesys.h:54-125 and src/io.cc:31-60).
 
-The port reads local files only (``file://`` and plain paths).  The
-remote protocols the JAX package serves (gs, s3, hdfs, azure, http) are
-registered as stubs that raise, so a job pointed at one fails at once
-with a message that says where they stand.
+``file://`` and plain paths are local; ``http://``/``https://`` read
+through ranged GETs, ``s3://`` speaks SigV4 REST, ``gs://`` the GCS JSON
+API, ``azure://`` the Blob REST API and ``hdfs://`` WebHDFS, all on the
+standard library (see their modules).  The dispatch stays pluggable
+through :func:`register_filesystem`.
 """
 
 from __future__ import annotations
@@ -18,7 +19,15 @@ from ..base import DMLCError
 from .stream import SeekStream, Stream
 from .uri import URI
 
-__all__ = ["FileInfo", "FileSystem", "register_filesystem"]
+__all__ = ["FileInfo", "FileSystem", "UnsupportedListing",
+           "register_filesystem"]
+
+
+class UnsupportedListing(DMLCError):
+    """A backend that cannot list directories by design (plain HTTP):
+    URI expansion takes the literal path.  A listing that fails for a
+    real reason (credentials, transport) raises a plain DMLCError or
+    OSError, which propagates."""
 
 
 @dataclass
@@ -89,12 +98,14 @@ def register_filesystem(protocol: str,
     FileSystem._registry[protocol] = factory
 
 
-def _not_ported(proto: str) -> Callable[[URI], FileSystem]:
+def _unsupported_protocol(proto: str, guidance: str):
+    """The factory of a protocol whose backend failed to import: the
+    dispatch fails with guidance (the reference's "compile with
+    DMLC_USE_X=1" FATALs, src/io.cc:31-60)."""
+
     def factory(_uri: URI) -> FileSystem:
-        raise DMLCError(
-            f"the {proto} filesystem is not ported to dmlc_tpu_torch yet "
-            "(ROADMAP.md, Queue 1: remote filesystems); copy the data to a "
-            "local path")
+        raise DMLCError(f"{proto} filesystem is not built into "
+                        f"dmlc_tpu_torch: {guidance}")
 
     return factory
 
@@ -103,9 +114,43 @@ def _init_builtin() -> None:
     from .local_filesys import LocalFileSystem
 
     register_filesystem("file://", lambda _uri: LocalFileSystem())
-    for proto in ("gs://", "s3://", "hdfs://", "azure://", "http://",
-                  "https://"):
-        register_filesystem(proto, _not_ported(proto))
+    try:
+        from .http_filesys import HTTPFileSystem
+
+        register_filesystem("http://", lambda _uri: HTTPFileSystem())
+        register_filesystem("https://", lambda _uri: HTTPFileSystem())
+    except ImportError:
+        pass
+    try:
+        from .gcs_filesys import GCSFileSystem
+
+        register_filesystem("gs://", lambda _uri: GCSFileSystem())
+    except ImportError:
+        pass
+    try:
+        from .hdfs_filesys import WebHDFSFileSystem
+
+        register_filesystem("hdfs://", WebHDFSFileSystem)
+    except ImportError:
+        register_filesystem("hdfs://", _unsupported_protocol(
+            "hdfs://", "the WebHDFS backend failed to import; plug in a "
+            "backend via register_filesystem('hdfs://', ...)"))
+    try:
+        from .s3_filesys import S3FileSystem
+
+        register_filesystem("s3://", lambda _uri: S3FileSystem())
+    except ImportError:
+        register_filesystem("s3://", _unsupported_protocol(
+            "s3://", "the S3 backend failed to import; plug in a backend "
+            "via register_filesystem('s3://', ...)"))
+    try:
+        from .azure_filesys import AzureFileSystem
+
+        register_filesystem("azure://", lambda _uri: AzureFileSystem())
+    except ImportError:
+        register_filesystem("azure://", _unsupported_protocol(
+            "azure://", "the Azure backend failed to import; plug in a "
+            "backend via register_filesystem('azure://', ...)"))
 
 
 _init_builtin()

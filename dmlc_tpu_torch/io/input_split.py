@@ -49,7 +49,7 @@ import numpy as np
 
 from .. import native, telemetry
 from ..base import DMLCError, check
-from .filesys import FileInfo, FileSystem
+from .filesys import FileInfo, FileSystem, UnsupportedListing
 from .recordio import (CRC_BIT, HEAD_CFLAGS, KMAGIC, _MAGIC_BYTES, _U32,
                        decode_flag, decode_length, find_next_record_head,
                        stored_crc)
@@ -311,7 +311,11 @@ class InputSplitBase(InputSplit):
             dir_uri = URI(path.protocol + path.host + path.name[:pos])
             try:
                 dfiles = self._filesys.list_directory(dir_uri)
-            except OSError:
+            except (OSError, UnsupportedListing):
+                # no listing on this backend (plain HTTP) or an unlistable
+                # parent: the literal path, read by ranged reads.  A real
+                # listing failure (credentials, transport) raises a plain
+                # DMLCError and propagates
                 out.append(path)
                 continue
             target = path.name.rstrip("/")

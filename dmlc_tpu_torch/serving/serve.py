@@ -11,12 +11,16 @@ come from the ``DMLC_SERVE_*`` environment family and SLOs from
 
 Usage:
   python -m dmlc_tpu_torch.serving.serve [--host H] [--port P]
-      [--model tiny|flagship] [--seed N] [--eos-id ID] [--device DEV]
+      [--model tiny|flagship] [--layers N] [--seed N] [--eos-id ID]
+      [--device DEV]
+
+``--layers`` serves the model's widths at another depth.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -32,8 +36,11 @@ TINY = tfm.TransformerConfig(vocab=512, d_model=64, n_heads=4, head_dim=16,
                              dtype="float32")
 
 
-def build_model(name: str, seed: int, device: torch.device):
+def build_model(name: str, seed: int, device: torch.device,
+                layers: int = None):
     cfg = tfm.flagship_config() if name == "flagship" else TINY
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     gen = torch.Generator(device=device).manual_seed(seed)
     return tfm.init_params(cfg, gen, device)
 
@@ -47,6 +54,8 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=int(os.environ.get(
         "DMLC_SERVE_PORT", "8901")))
     ap.add_argument("--model", choices=("tiny", "flagship"), default="tiny")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth (default: the model's own)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--device", default=None,
@@ -55,14 +64,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    model = build_model(args.model, args.seed, device)
+    model = build_model(args.model, args.seed, device, args.layers)
     engine = InferenceEngine(model, device=device, eos_id=args.eos_id)
     engine.start()
     server = ServingHTTPServer(engine, host=args.host, port=args.port)
     server.install_drain_handler()
     print(f"dmlc_tpu_torch serve: {server.url}/generate (model={args.model},"
-          f" device={device}, kv={engine.cache.n_blocks}x"
-          f"{engine.cache.block_size} tokens, max_active="
+          f" layers={model.cfg.n_layers}, device={device}, "
+          f"kv={engine.cache.n_blocks}x{engine.cache.block_size} tokens, "
+          f"max_active="
           f"{engine.max_active}); /metrics /healthz /requests /slo /trace "
           f"(SLOs {'on' if engine.slo.enabled else 'off: set DMLC_SLO_*'})",
           flush=True)

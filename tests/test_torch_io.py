@@ -208,8 +208,23 @@ def test_corruption_policy_matches_jax(tmp_path, monkeypatch, reader,
 
 
 def test_remote_protocols_raise_naming_the_roadmap():
+    """The remote protocols, stubs that named the roadmap until the
+    remote filesystems were ported, dispatch to their backends; a
+    protocol whose backend fails to import raises naming the way to plug
+    one in."""
     from dmlc_tpu_torch.base import DMLCError
+    from dmlc_tpu_torch.io import filesys
+    from dmlc_tpu_torch.io.uri import URI
 
-    for uri in ("gs://bucket/x.rec", "s3://b/x", "hdfs://nn/x"):
-        with pytest.raises(DMLCError, match="ROADMAP"):
-            Stream.create(uri, "r")
+    for uri, name in (("gs://bucket/x.rec", "GCSFileSystem"),
+                      ("s3://b/x", "S3FileSystem"),
+                      ("hdfs://nn/x", "WebHDFSFileSystem"),
+                      ("azure://c/x", "AzureFileSystem"),
+                      ("https://host/x", "HTTPFileSystem")):
+        u = URI(uri)
+        assert type(filesys.FileSystem.get_instance(u)).__name__ == name
+        del filesys.FileSystem._instances[u.protocol + u.host]
+    stub = filesys._unsupported_protocol(
+        "s3://", "plug in a backend via register_filesystem('s3://', ...)")
+    with pytest.raises(DMLCError, match="register_filesystem"):
+        stub(URI("s3://b/x"))
