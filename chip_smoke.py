@@ -99,6 +99,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
             shard's payload MB/s into HBM on three routes (each route's
             first batch on the card equal to the CPU's) beside the pinned
             H2D rate at the same transfer size
+   lockcheck  the serving and feed paths under the runtime checkers
+            (``DMLC_LOCKCHECK=1`` and ``DMLC_RACECHECK=1`` set before the
+            phase builds anything, restored after): two fresh flagship
+            engines (pool 256 x 16, max_active 8) behind their HTTP
+            servers under the ``LoadGenerator`` (8 streams x 2; K1
+            prefills, K4 decodes), then 4 train steps of a fresh flagship
+            fed by ``recordio_feed`` over a shard under
+            ``build/lockcheck`` (K1-K3, the feed's threads and pool).
+            Gates: ``lockcheck_report()`` and ``racecheck_report()``
+            empty (what ``lockcheck_assert_clean`` and
+            ``racecheck_assert_clean`` raise on), acquire sites observed,
+            every kernel launched, plain locks again after.
+            The same load runs with plain locks before and after the two
+            checked runs (ABBA): the decode step p50s are the checkers'
+            cost
    remote   remote filesystems (under ``build/remote``, removed after):
             ``chip_stores.py``'s S3 (SigV4 countersigned, multipart) and
             GCS (JSON API, resumable uploads) emulators in a child
@@ -180,7 +195,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
             tracker's endpoints are read once a second through the job
             (an error status fails the smoke, and so does a good
             reading after a response cut short: only the tracker's exit
-            with the job may cut one); gates on the last good reading: ``/trace`` a row per shipping rank (pid = rank +
+            with the job may cut one); gates on the last good reading: ``/trace`` a row per shipping
+            rank (pid = rank +
             1) and the tracker's at pid 0, a ``step`` span of every live
             rank, spans in the order they ended within a (pid, thread);
             ``/anomalies`` every live rank with steps and a finite
@@ -375,8 +391,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    tracker  dmlc-core's tracker, launcher and host collectives, run as
             ``python -m dmlc_tpu_torch.tracker.submit --cluster local
             --num-workers 4`` jobs on the sparse phase's files before
-            they are removed: ``train_libsvm`` on the first 98304 rows
-            of the Criteo-shaped file (an eighth of it: the smoke's
+            they are removed: ``train_libsvm`` on the first 49152 rows
+            of the Criteo-shaped file (a sixteenth of it: the smoke's
             time limit; 2 epochs, a [2^20] weight on the card,
             an 8 MB f64 gradient allreduced every step) — gates: every
             rank logs both epochs, the mean epoch loss falls, the four
@@ -387,8 +403,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
             share of the step; the same job on the file's first 32768
             rows on the card and with ``--device cpu`` — gate: every
             rank's unrounded epoch losses agree within 1e-5 relative;
-            ``train_csv`` on the HIGGS-shaped CSV's first 250000 rows
-            (a quarter, for time; mse falls); the
+            ``train_csv`` on the HIGGS-shaped CSV's first 125000 rows
+            (an eighth, for time; mse falls); the
             ``allreduce_worker bench 16777216 3`` sweep (tree, ring and
             hier algbw/busbw, the bucketed-overlap pass's exposed and
             overlapped seconds, the 16 leaves as CUDA tensors through
@@ -825,7 +841,8 @@ def flash_bwd_phase(fa):
     """K2/K3 against the plain backward at B=1 (T 512, 1000, causal or
     not, bf16 and f32), then at the elastic trainer's shape and the two
     train shapes (bf16, causal), where K1's forward is held against the
-    plain one too; at the train shapes each kernel is also timed alone (:func:`fwd_timing`, :func:`bwd_timing`).  Returns the
+    plain one too; at the train shapes each kernel is also timed alone (:func:`fwd_timing`,
+    :func:`bwd_timing`).  Returns the
     K2/K3 timing rows at B=8 x T=1024, each one's max abs error there,
     and K1's timing rows by (B, T)."""
     gen = torch.Generator("cuda").manual_seed(5)
@@ -2176,6 +2193,159 @@ def spine_phase(tfm, fa, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 7l: the serving and feed paths under the lock-order and race checkers
+# ---------------------------------------------------------------------------
+
+LOCKCHECK_STEPS = 4   # train steps of the flagship fed by the DeviceFeed
+LOCKCHECK_KNOBS = ("DMLC_LOCKCHECK", "DMLC_RACECHECK")
+
+
+def _lockcheck_load(serving, model, cfg, tele):
+    """The flagship engine (pool 256 x 16, max_active 8) behind its HTTP
+    server, driven by the ``LoadGenerator`` (8 streams x 2 requests of
+    17..511 prompt tokens, 32 new tokens): the load summary, the decode
+    records of the step ledger and the engine's lock types."""
+    tele.reset_steps()
+    eng = serving.InferenceEngine(model, device="cuda", n_blocks=256,
+                                  block_size=16, max_active=8,
+                                  queue_depth=64)
+    eng.start()
+    srv = serving.ServingHTTPServer(eng)
+    try:
+        gen = serving.LoadGenerator(srv.url, n_streams=8,
+                                    requests_per_stream=2,
+                                    prompt_len=(17, 511), max_tokens=32,
+                                    vocab=cfg.vocab, seed=0)
+        load = gen.run()
+        check(load["n_requests_ok"] == 16 and not gen.failures,
+              f"lockcheck loadgen: {load} {gen.failures[:2]}")
+        recs = tele.ledger().records()
+    finally:
+        srv.close()
+        eng.close()
+    locks = sorted({type(lk).__name__ for lk in (
+        eng.scheduler._lock, eng.cache._lock, eng.cache._alloc._lock)})
+    del eng, srv
+    gc.collect()
+    return load, recs, locks
+
+
+def lockcheck_phase(smi, serving, tele, fa, pa, tfm, model, cfg):
+    """The card's serving and feed paths with ``DMLC_LOCKCHECK=1`` and
+    ``DMLC_RACECHECK=1`` set before anything of the phase is built (the
+    checkers read them at each lock's construction), so every lock of the
+    fresh engines, their schedulers, KV caches, HTTP servers, the
+    DeviceFeed and its BufferPool is a ``CheckedLock``: two runs of the
+    flagship engine under the load generator over HTTP (K1 prefills, K4
+    decodes), then ``LOCKCHECK_STEPS`` train steps of a fresh flagship
+    fed by a ``recordio_feed`` over a RecordIO shard under
+    ``build/lockcheck`` (K1-K3, the feed's worker threads and pool).
+    Gates: no lock-order violation, no racecheck mismatch against the race
+    pass's static map, acquire sites observed, every kernel launched.  The
+    same load runs with plain locks (the knobs unset) before and after the
+    two checked runs, so the checkers' cost reads as the decode step p50s
+    of the four runs in ABBA order.  The knobs are restored when the
+    checked part ends."""
+    from dmlc_tpu_torch import concurrency as conc
+    from dmlc_tpu_torch.examples import train_lm_recordio as ex
+
+    t_phase = time.perf_counter()
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
+               "flash_bwd_dq": fa.FLASH_BWD_DQ,
+               "paged_attention": pa.PAGED_ATTENTION}
+    saved = {k: os.environ.pop(k, None) for k in LOCKCHECK_KNOBS}
+    root = os.path.join(ROOT, "build", "lockcheck")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    runs = {}   # load summary, decode records and lock types of each run
+    try:
+        runs["plain_a"] = _lockcheck_load(serving, model, cfg, tele)
+        uri = os.path.join(root, "tokens.rec")
+        write_shard(uri, spine_tokens(SPINE_PARTS * SPINE_PER_PART
+                                      * (LOCKCHECK_STEPS + 2), cfg.vocab, 3))
+        for k in LOCKCHECK_KNOBS:
+            os.environ[k] = "1"
+        conc.lockcheck_reset()
+        t_checked = time.perf_counter()
+        for kern in kernels.values():
+            kern.launches = 0
+        for name in ("checked_b", "checked_b2"):
+            runs[name] = _lockcheck_load(serving, model, cfg, tele)
+        serve_launches = {n: k.launches for n, k in kernels.items()}
+        train_model = tfm.init_params(
+            cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+        step = tfm.make_train_step(train_model,
+                                   tfm.adamw(train_model.parameters(), 1e-4))
+        feed = spine_feed(uri)
+        check(isinstance(feed._stats_lock, conc.CheckedLock),
+              "the feed's locks are not checked")
+        losses = []
+        try:
+            it = iter(feed)
+            for _ in range(LOCKCHECK_STEPS):
+                losses.append(step(*ex.batch_tokens(next(it))).item())
+            feed_stats = feed.stats()
+        finally:
+            feed.close()
+        del step, train_model
+        torch.cuda.empty_cache()
+        launches = {n: k.launches for n, k in kernels.items()}
+        checked_s = time.perf_counter() - t_checked
+        t_report = time.perf_counter()
+        violations = conc.lockcheck_report()
+        mismatches = conc.racecheck_report()
+        observed = conc.racecheck_observed()
+        report_s = time.perf_counter() - t_report
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    conc.lockcheck_reset()
+    runs["plain_a2"] = _lockcheck_load(serving, model, cfg, tele)
+    check(not violations, f"lockcheck: {violations[:4]}")
+    check(not mismatches, f"racecheck: {mismatches[:4]}")
+    check(observed, "racecheck observed no acquire site")
+    check(all(math.isfinite(x) for x in losses), f"lockcheck losses {losses}")
+    check(all(n > 0 for n in launches.values()),
+          f"lockcheck: a kernel never launched: {launches}")
+    check(serve_launches["flash_bwd_dkv"] == 0
+          and all(launches[n] == LOCKCHECK_STEPS * cfg.n_layers
+                  for n in ("flash_bwd_dkv", "flash_bwd_dq")),
+          f"lockcheck launches: serving {serve_launches}, all {launches}")
+    locks = {name: run[2] for name, run in runs.items()}
+    check(all(v == (["CheckedLock"] if name.startswith("checked")
+                    else ["lock"]) for name, v in locks.items()),
+          f"lockcheck: the runs' lock types {locks}")
+    walls = {name: [r["wall_s"] for r in run[1]] for name, run in runs.items()}
+    return {
+        "phase": "lockcheck", "card": smi, "seconds":
+            time.perf_counter() - t_phase,
+        "checked_s": checked_s, "report_s": report_s,
+        "violations": len(violations), "mismatches": len(mismatches),
+        "observed_sites": len(observed),
+        "observed_files": sorted({base for base, _ in observed}),
+        "observed_locks": sorted({n for v in observed.values() for n in v}),
+        "requests": sum(run[0]["n_requests_ok"] for name, run in runs.items()
+                        if name.startswith("checked")),
+        "train_steps": LOCKCHECK_STEPS, "losses": losses,
+        "launches": launches, "serve_launches": serve_launches,
+        "feed_batches": feed_stats["batches"],
+        "decode_step_p50_s": pctl(walls["checked_b"] + walls["checked_b2"],
+                                  50),
+        "plain_decode_step_p50_s": pctl(walls["plain_a"] + walls["plain_a2"],
+                                        50),
+        "runs": {name: {"decode_steps": len(walls[name]),
+                        "decode_step_p50_s": pctl(walls[name], 50),
+                        **{k: run[0][k] for k in (
+                            "wall_s", "aggregate_tokens_per_s", "p50_ttft_s",
+                            "p99_ttft_s")}}
+                 for name, run in runs.items()}}, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7a: remote filesystems — the LM example over s3:// and gs://
 # ---------------------------------------------------------------------------
 
@@ -2887,8 +3057,8 @@ TRACKER_BENCH_BYTES = 16 << 20   # the sweep's largest size (64 MB: time)
 GBDT_TOL = 1e-4   # relative: the tree allreduce's fold order vs a local sum
 PARITY_ROWS = 32768   # the head of the Criteo-shaped file, card vs CPU
 PARITY_RTOL = 1e-5    # per-rank epoch losses, card vs --device cpu
-LIBSVM_ROWS = 98304   # train_libsvm's head of the file: an eighth of it
-CSV_ROWS = 250_000    # train_csv's head of the HIGGS-shaped CSV: a quarter
+LIBSVM_ROWS = 49152   # train_libsvm's head of the file: a sixteenth of it
+CSV_ROWS = 125_000    # train_csv's head of the HIGGS-shaped CSV: an eighth
 
 
 def _dmlc_shm():
@@ -3635,9 +3805,10 @@ ELASTIC_TIMEOUT_S = 420  # bound on the whole job
 # legitimate wait there (the others wait ~6 s in a state broadcast while
 # rank 0 restores and flattens; rank 0's 1.5 GB save ~2 s) and below the
 # tracker's miss window, so the survivors re-enter rendezvous before the
-# death is declared and never beat under a stale rank
-ELASTIC_ENV = {"DMLC_ELASTIC": "1", "DMLC_TRACKER_MISS_WINDOW_S": "14",
-               "DMLC_ELASTIC_GRACE_S": "1", "DMLC_COLL_SHM_TIMEOUT_S": "12",
+# death is declared and never beat under a stale rank (12 s and 14 s
+# before the lockcheck phase paid for itself with 2 s of each)
+ELASTIC_ENV = {"DMLC_ELASTIC": "1", "DMLC_TRACKER_MISS_WINDOW_S": "12",
+               "DMLC_ELASTIC_GRACE_S": "1", "DMLC_COLL_SHM_TIMEOUT_S": "10",
                "DMLC_CLIENT_OP_TIMEOUT_S": "180", "OMP_NUM_THREADS": "2"}
 
 
@@ -6846,6 +7017,15 @@ def main() -> int:
         emit(doc)
     spine_launches = spine_docs[0]["launches"]
 
+    # 7l. the serving and feed paths under DMLC_LOCKCHECK and
+    # DMLC_RACECHECK: a fresh flagship engine under the load generator,
+    # then 4 train steps fed by a DeviceFeed
+    gc.collect()
+    torch.cuda.empty_cache()
+    lock_doc, lock_launches = lockcheck_phase(smi, serving, tele, fa, pa,
+                                              tfm, model, cfg)
+    emit(lock_doc)
+
     # 7a. remote filesystems: the LM example reads its shard from s3:// and
     # checkpoints to gs:// (emulators in a child process), resumes there
     remote_doc, remote_launches = remote_phase(smi)
@@ -6861,6 +7041,7 @@ def main() -> int:
                                           prompts, looping)
     option_launches["gather"] = gather_launches
     option_launches["remote"] = remote_launches
+    option_launches["lockcheck"] = lock_launches
 
     # 7c. the elastic trainer: 3 workers share the card, one is lost, the
     # world shrinks and grows back (the kernels are built already, so the

@@ -1,10 +1,17 @@
 """Host concurrency helpers the device feed, the input splits, the parsers
-and telemetry need (the port of ``BufferPool``, ``ThreadedIter`` and
-``make_lock`` from ``dmlc_tpu/concurrency.py``).
+and telemetry need, and the runtime lock-order and race checkers (the
+port of ``BufferPool``, ``ThreadedIter``, ``make_lock``/``make_rlock``
+and the ``DMLC_LOCKCHECK``/``DMLC_RACECHECK`` watchdog from
+``dmlc_tpu/concurrency.py``).
 
-The JAX package builds its locks through a lock-order checker; the
-port's :func:`make_lock` hands out plain ``threading`` locks (the
-checker is later work, ROADMAP.md Queue 1 item 10).
+With both knobs unset :func:`make_lock` and :func:`make_rlock` hand out
+plain ``threading`` locks, so the hot paths pay nothing.  Under
+``DMLC_LOCKCHECK=1`` each lock is a :class:`CheckedLock` that feeds a
+process-wide lock-order graph (order inversions, acquires that block
+while another lock is held); ``DMLC_RACECHECK=1`` adds the record of
+which lock each ``with`` site held, cross-checked against the static
+race pass over the port's tree.  ``ConcurrentBlockingQueue`` and
+``MultiThreadedIter`` are not ported yet (ROADMAP.md Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -14,19 +21,385 @@ import time
 from collections import deque
 from typing import Callable, Generic, Iterator, List, Optional, Tuple, TypeVar
 
-from .base import DMLCError
+from .base import DMLCError, get_env
 
-__all__ = ["BufferPool", "ThreadedIter", "make_lock"]
+__all__ = ["BufferPool", "CheckedLock", "ThreadedIter",
+           "lockcheck_assert_clean", "lockcheck_enabled",
+           "lockcheck_report", "lockcheck_reset", "make_lock", "make_rlock",
+           "racecheck_assert_clean", "racecheck_enabled",
+           "racecheck_observed", "racecheck_report",
+           "set_lock_factory_hook"]
 
 T = TypeVar("T")
 
 
-def make_lock(name: str) -> threading.Lock:
-    """A plain ``threading.Lock``.  ``name`` is the lock's name in the
-    JAX package's lock-order graph (``Class.attr`` or ``module.attr``),
-    kept at every call site for the checker's port."""
-    del name
+# ---------------------------------------------------------------------------
+# runtime lock-order watchdog (DMLC_LOCKCHECK=1)
+# ---------------------------------------------------------------------------
+# The static concurrency pass (analysis/concurrency_pass.py)
+# proves what it can from the AST; acquisition ORDERS it cannot.  Under
+# DMLC_LOCKCHECK=1 every lock built through make_lock()/make_rlock()
+# is wrapped in a CheckedLock that maintains a per-thread held stack
+# and a process-wide dynamic lock-order graph:
+#
+#   * order inversion — acquiring B while holding A after ANY thread
+#     ever acquired A while holding B.  The classic deadlock pair,
+#     flagged even when the two runs never actually interleave (which
+#     is exactly the case a stress test gets "lucky" on).
+#   * held-while-blocked — an acquire that stalled longer than
+#     DMLC_LOCKCHECK_BLOCK_S (default 1 s) while the thread holds
+#     another lock: some lock holder is doing blocking work.
+#
+# Violations are logged and collected (bounded, deduplicated);
+# lockcheck_report() returns them and lockcheck_assert_clean() raises.
+# Off (the default) make_lock returns a plain threading.Lock — zero
+# overhead, byte-identical behavior.
+
+_lc_graph_lock = threading.Lock()
+_lc_edges: dict = {}        # (held_name, acquired_name) -> witness str
+_lc_violations: List[dict] = []
+_LC_MAX_VIOLATIONS = 256
+_lc_tls = threading.local()
+
+#: DMLC_RACECHECK=1 observation store: (file basename, with/acquire
+#: line) -> set of runtime lock names seen held at that site.  The
+#: static race pass (analysis.race_pass.guarded_region_map) knows which
+#: lock *should* guard each site's attributes; racecheck_report()
+#: cross-checks the two.
+_rc_sites: dict = {}
+
+#: deterministic-interleaving hook (the JAX package's
+#: analysis.interleave; the port's explorer is ROADMAP item 10b, so
+#: nothing installs it yet): when set, make_lock/make_rlock offer the
+#: construction to the explorer first, so a scenario's objects are built
+#: over scheduler-owned locks.  The hook returns a lock-like object or
+#: None (= not under exploration).
+_lock_factory_hook = None
+
+
+def set_lock_factory_hook(hook) -> None:
+    """Install/clear (None) the interleaving explorer's lock factory."""
+    global _lock_factory_hook
+    _lock_factory_hook = hook
+
+
+def lockcheck_enabled() -> bool:
+    """Whether make_lock() instruments (``DMLC_LOCKCHECK``, read per
+    lock construction so tests can flip it).  ``DMLC_RACECHECK=1``
+    implies it — the racecheck rides the same CheckedLock."""
+    return get_env("DMLC_LOCKCHECK", False) or racecheck_enabled()
+
+
+def racecheck_enabled() -> bool:
+    """Whether acquire sites record attribute→lock pairing evidence
+    (``DMLC_RACECHECK``)."""
+    return get_env("DMLC_RACECHECK", False)
+
+
+def _lc_held() -> list:
+    held = getattr(_lc_tls, "held", None)
+    if held is None:
+        held = _lc_tls.held = []
+    return held
+
+
+def _lc_site() -> str:
+    """The USER frame that acquired the lock: walk up past this module
+    and threading.py (a Condition ``with``/wait adds interpreter
+    frames, so any fixed depth reports threading internals)."""
+    import sys
+
+    try:
+        depth = 1
+        while True:
+            f = sys._getframe(depth)
+            fn = f.f_code.co_filename
+            base = fn.rsplit("/", 1)[-1]
+            if base not in ("threading.py", "concurrency.py"):
+                return f"{base}:{f.f_lineno}"
+            depth += 1
+    except (ValueError, AttributeError):
+        return "?"
+
+
+def _lc_record(kind: str, detail: str, **ctx) -> None:
+    with _lc_graph_lock:
+        for v in _lc_violations:
+            if v["kind"] == kind and v["detail"] == detail:
+                return  # deduplicate repeat offenders
+        if len(_lc_violations) >= _LC_MAX_VIOLATIONS:
+            return
+        _lc_violations.append({"kind": kind, "detail": detail, **ctx})
+    import logging
+
+    logging.getLogger(__name__).error(
+        "lockcheck %s: %s", kind, detail)
+
+
+class CheckedLock:
+    """Instrumented lock for the DMLC_LOCKCHECK watchdog.  Context
+    manager + acquire/release, so it drops in for ``threading.Lock``
+    (and, with ``reentrant=True``, ``threading.RLock``) everywhere in
+    this codebase, including as the lock behind a
+    ``threading.Condition`` (whose wait() releases and re-acquires
+    through these methods, keeping the held stack truthful)."""
+
+    __slots__ = ("name", "graph_name", "_lock", "_reentrant", "_block_s",
+                 "_racecheck")
+
+    #: instance counter: edges are recorded per INSTANCE (``name#n``),
+    #: not per class-level name — two queues of the same class acquired
+    #: q1→q2 on one thread and q2→q1 on another are a real ABBA pair
+    #: that identical names would collapse into an invisible self-edge
+    _counter = [0]
+
+    def __init__(self, name: str, reentrant: bool = False):
+        self.name = name
+        with _lc_graph_lock:
+            self._counter[0] += 1
+            self.graph_name = f"{name}#{self._counter[0]}"
+        self._lock = threading.RLock() if reentrant else threading.Lock()
+        self._reentrant = reentrant
+        self._block_s = get_env("DMLC_LOCKCHECK_BLOCK_S", 1.0)
+        self._racecheck = racecheck_enabled()
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        held = _lc_held()
+        t0 = time.monotonic()
+        got = self._lock.acquire(blocking, timeout)
+        if not got:
+            return False
+        if self._racecheck:
+            self._rc_note(self._rc_site())
+        waited = time.monotonic() - t0
+        reacquire = self._reentrant and any(l is self for l in held)
+        outer = [l for l in held if l is not self]
+        if outer and not reacquire:
+            site = _lc_site()
+            if waited > self._block_s:
+                _lc_record(
+                    "held-while-blocked",
+                    f"acquire of {self.graph_name} blocked "
+                    f"{waited:.2f}s at {site} while holding "
+                    f"{[l.graph_name for l in outer]}",
+                    lock=self.name, waited_s=waited, site=site)
+            a, b = outer[-1].graph_name, self.graph_name
+            if a != b:
+                with _lc_graph_lock:
+                    _lc_edges.setdefault((a, b), site)
+                    inverse = _lc_edges.get((b, a))
+                if inverse is not None:
+                    _lc_record(
+                        "order-inversion",
+                        f"{b} -> {a} (at {inverse}) but also "
+                        f"{a} -> {b} (at {site}) — potential "
+                        f"deadlock pair",
+                        locks=sorted((a, b)), site=site)
+        held.append(self)
+        return True
+
+    def _rc_note(self, site: str) -> None:
+        """Record this acquire's (site, lock name) pairing for the
+        DMLC_RACECHECK static/dynamic cross-check."""
+        try:
+            base, line = site.rsplit(":", 1)
+            key = (base, int(line))
+        except ValueError:
+            return
+        with _lc_graph_lock:
+            if key not in _rc_sites:
+                if len(_rc_sites) >= get_env(
+                        "DMLC_RACECHECK_MAX_SITES", 4096):
+                    return
+                _rc_sites[key] = set()
+            _rc_sites[key].add(self.name)
+
+    def _rc_site(self) -> str:
+        """The ``with self.<lock>:`` frame for the racecheck pairing.
+        Unlike :func:`_lc_site` this must NOT skip all of
+        concurrency.py — BufferPool/ThreadedIter acquire their own
+        locks here and those with-statements ARE the annotated sites —
+        only CheckedLock's own plumbing frames and threading.py."""
+        import sys
+
+        own = _CHECKEDLOCK_CODE
+        try:
+            depth = 1
+            while True:
+                f = sys._getframe(depth)
+                code = f.f_code
+                base = code.co_filename.rsplit("/", 1)[-1]
+                if base != "threading.py" and code not in own:
+                    return f"{base}:{f.f_lineno}"
+                depth += 1
+        except (ValueError, AttributeError):
+            return "?"
+
+    def release(self) -> None:
+        held = _lc_held()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i] is self:
+                del held[i]
+                break
+        self._lock.release()
+
+    def __enter__(self) -> "CheckedLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def locked(self) -> bool:
+        return self._lock.locked() if not self._reentrant \
+            else self._lock._is_owned()  # type: ignore[attr-defined]
+
+    # -- threading.Condition integration --------------------------------
+    # Condition(lock) prefers these over plain acquire/release; without
+    # _is_owned a reentrant lock would fail Condition's ownership probe
+    # (its fallback treats a successful try-acquire as "not owned",
+    # which is wrong for an RLock the CALLER already holds).  All three
+    # keep the held stack truthful across wait()'s release/reacquire.
+    def _is_owned(self) -> bool:
+        if self._reentrant:
+            return self._lock._is_owned()  # type: ignore[attr-defined]
+        return any(l is self for l in _lc_held())
+
+    def _release_save(self):
+        held = _lc_held()
+        count = sum(1 for l in held if l is self)
+        held[:] = [l for l in held if l is not self]
+        if self._reentrant:
+            state = self._lock._release_save()  # type: ignore[attr-defined]
+        else:
+            self._lock.release()
+            state = None
+        return count, state
+
+    def _acquire_restore(self, saved) -> None:
+        count, state = saved
+        if self._reentrant:
+            self._lock._acquire_restore(state)  # type: ignore[attr-defined]
+        else:
+            self._lock.acquire()
+        _lc_held().extend([self] * count)
+
+    def __repr__(self) -> str:
+        return f"CheckedLock({self.name!r})"
+
+
+#: CheckedLock's own frames, skipped by the racecheck site walk
+_CHECKEDLOCK_CODE = frozenset(
+    getattr(CheckedLock, m).__code__
+    for m in ("acquire", "release", "__enter__", "__exit__",
+              "_rc_note", "_rc_site", "_release_save",
+              "_acquire_restore"))
+
+
+def make_lock(name: str):
+    """A ``threading.Lock`` — or, under ``DMLC_LOCKCHECK=1`` /
+    ``DMLC_RACECHECK=1``, a :class:`CheckedLock` feeding the runtime
+    watchdog — or, inside an interleaving-explorer scenario, the
+    explorer's scheduler-owned lock.  ``name`` identifies the lock in
+    the order graph and in violation reports; by convention
+    ``Class.attr`` or ``module.attr`` (matching the static passes'
+    node naming — the racecheck cross-check depends on it)."""
+    if _lock_factory_hook is not None:
+        lk = _lock_factory_hook(name, False)
+        if lk is not None:
+            return lk
+    if lockcheck_enabled():
+        return CheckedLock(name)
     return threading.Lock()
+
+
+def make_rlock(name: str):
+    """Reentrant variant of :func:`make_lock`."""
+    if _lock_factory_hook is not None:
+        lk = _lock_factory_hook(name, True)
+        if lk is not None:
+            return lk
+    if lockcheck_enabled():
+        return CheckedLock(name, reentrant=True)
+    return threading.RLock()
+
+
+def lockcheck_report() -> List[dict]:
+    """Violations recorded so far (deduplicated, bounded)."""
+    with _lc_graph_lock:
+        return [dict(v) for v in _lc_violations]
+
+
+def lockcheck_reset() -> None:
+    """Clear the order graph, violation list, and racecheck site
+    observations (tests)."""
+    with _lc_graph_lock:
+        _lc_edges.clear()
+        del _lc_violations[:]
+        _rc_sites.clear()
+
+
+def racecheck_observed() -> dict:
+    """``(file basename, line) -> sorted lock names`` observed held at
+    each acquire site so far (``DMLC_RACECHECK=1`` runs)."""
+    with _lc_graph_lock:
+        return {k: sorted(v) for k, v in _rc_sites.items()}
+
+
+def racecheck_report() -> List[dict]:
+    """Cross-check the observed attribute→lock pairings against the
+    static guarded-by analysis: every executed ``with self.<lock>:``
+    site of a threaded class must have held the lock the race pass
+    says guards that region's attributes (``Class.attr`` naming).  A
+    mismatch means the static annotations and the runtime disagree —
+    a renamed lock, an aliased lock instance, or a stale annotation."""
+    observed = racecheck_observed()
+    if not observed:
+        return []
+    from .analysis.core import PACKAGE, RepoIndex, default_paths
+    from .analysis.race_pass import guarded_region_map
+
+    index = RepoIndex(default_paths([PACKAGE]), None)
+    expected = guarded_region_map(index)
+    out: List[dict] = []
+    for key, names in sorted(observed.items()):
+        exp = expected.get(key)
+        if exp is None:
+            continue  # module-level lock, or an ambiguous basename
+        for name in names:
+            if name != exp:
+                out.append({
+                    "kind": "attr-lock-mismatch",
+                    "site": f"{key[0]}:{key[1]}",
+                    "expected": exp, "observed": name,
+                    "detail": f"acquire at {key[0]}:{key[1]} held lock "
+                              f"{name!r} but the static guarded-by "
+                              f"analysis expects {exp!r} to protect "
+                              f"that region's attributes"})
+    return out
+
+
+def racecheck_assert_clean() -> None:
+    """Raise :class:`DMLCError` on any static/dynamic guarded-by
+    mismatch — the smoke-test exit gate next to
+    :func:`lockcheck_assert_clean`."""
+    bad = racecheck_report()
+    if bad:
+        lines = "; ".join(v["detail"] for v in bad[:8])
+        raise DMLCError(
+            f"racecheck recorded {len(bad)} attribute→lock "
+            f"mismatch(es): {lines}")
+
+
+def lockcheck_assert_clean() -> None:
+    """Raise :class:`DMLCError` when the watchdog saw violations — the
+    smoke-test exit gate."""
+    bad = lockcheck_report()
+    if bad:
+        lines = "; ".join(f"{v['kind']}: {v['detail']}" for v in bad[:8])
+        raise DMLCError(
+            f"lock-order watchdog recorded {len(bad)} violation(s): "
+            f"{lines}")
 
 
 class BufferPool(Generic[T]):
@@ -47,7 +420,7 @@ class BufferPool(Generic[T]):
         self._capacity = max(1, capacity)
         self._free: List[T] = []
         self._created = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("BufferPool._lock")
         self._avail = threading.Condition(self._lock)
         self._killed = False
 

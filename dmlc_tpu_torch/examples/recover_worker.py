@@ -20,11 +20,13 @@ import os
 
 import numpy as np
 
+from ..base import check, get_env
 from ..tracker.client import TrackerClient
 
 
 def main():
-    flag = os.environ["DMLC_RECOVER_KILL_FLAG"]
+    flag = get_env("DMLC_RECOVER_KILL_FLAG", "")
+    check(flag, "recover_worker needs DMLC_RECOVER_KILL_FLAG")
     client = TrackerClient()
     client.start()
     if client.rank == 1 and not os.path.exists(flag):

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import argparse
 import math
-import os
 import sys
 import time
 from typing import List, Optional
@@ -132,7 +131,7 @@ def _elastic_enabled() -> bool:
     from ..base import get_env
 
     return get_env("DMLC_ELASTIC", False) \
-        and bool(os.environ.get("DMLC_TRACKER_URI"))
+        and bool(get_env("DMLC_TRACKER_URI", ""))
 
 
 class _ElasticTrainer:

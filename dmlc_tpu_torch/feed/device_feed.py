@@ -74,7 +74,7 @@ import torch
 
 from .. import native, telemetry
 from ..base import check, get_env, resolve_device
-from ..concurrency import BufferPool
+from ..concurrency import BufferPool, make_lock, make_rlock
 from . import spans as _spans
 
 __all__ = ["DeviceFeed", "libsvm_feed", "pack_rowblock",
@@ -250,6 +250,7 @@ class DeviceFeed:
         check(num_parts >= 1, f"num_parts must be >= 1, got {num_parts}")
         self._n_parts = num_parts
         self._source_builder = source_builder
+        # dmlc-check: unguarded(consumer-thread epoch/resize state; close() joins first)
         self._world = (self._check_world(world) if world is not None
                        else (0, 1))
         if part_sources is None:
@@ -258,11 +259,16 @@ class DeviceFeed:
             part_sources = self._build_sources()
         check(len(part_sources) == num_parts,
               f"need {num_parts} partition sources, got {len(part_sources)}")
+        # dmlc-check: unguarded(consumer-thread epoch/resize state; close() joins first)
         self._multi_epoch = all(callable(s) for s in part_sources)
+        # dmlc-check: unguarded(consumer-thread epoch/resize state; close() joins first)
         self._sources = part_sources
+        # dmlc-check: unguarded(consumer-thread epoch state)
         self._epochs_started = 0
+        # dmlc-check: unguarded(autotuned between epochs before Thread.start publishes)
         self._depth = (queue_depth if queue_depth is not None
                        else max(1, get_env("DMLC_FEED_DEPTH", 2)))
+        # dmlc-check: unguarded(autotuned between epochs before Thread.start publishes)
         self._workers = max(1, min(num_parts, num_workers or get_env(
             "DMLC_FEED_WORKERS", min(4, os.cpu_count() or 2))))
         # ledger-driven auto-tuning (DMLC_FEED_AUTOTUNE=1): the controller
@@ -284,6 +290,7 @@ class DeviceFeed:
                 max_workers=max(1, min(num_parts, wmax)),
                 max_depth=max(self._depth,
                               get_env("DMLC_FEED_DEPTH_MAX", 4)))
+            # dmlc-check: unguarded(consumer-thread epoch-boundary cursor)
             self._ledger_seen_seq = 0
         self._on_card = self.device.type == "cuda"
         self._stream = (torch.cuda.Stream(self.device) if self._on_card
@@ -291,26 +298,39 @@ class DeviceFeed:
         # on-card transform after placement (the packed transport's
         # expander), run on the placer thread and the feed's stream
         self._transform = None
+        # dmlc-check: unguarded(thread-safe Queue; rebound between epochs pre-start)
         self._queue: Queue = Queue(maxsize=self._depth)
+        # dmlc-check: unguarded(rebuilt between epochs; each iterator read by its one owning worker)
         self._part_iters: list = []
+        # dmlc-check: unguarded(per-cell owner-worker reads; mutated under _cv)
         self._part_done = [False] * num_parts
+        # dmlc-check: unguarded(mutation under _cv; epoch reset pre-start)
         self._n_dead = 0
+        # dmlc-check: unguarded(write-once under _cv; read only after _checkin_slot saw it locked)
         self._template: Optional[Dict[str, np.ndarray]] = None
+        # dmlc-check: unguarded(thread-safe BufferPool; rebound between epochs pre-start)
         self._pool: Optional[BufferPool] = None
         # every staging buffer built; the next epoch's pool reuses them
         self._built: List[_StagingBuf] = []
         self._spare: List[_StagingBuf] = []
+        # dmlc-check: unguarded(accesses under _cv; rebound between epochs pre-start)
         self._pending: Dict[int, _Slot] = {}
-        self._cv = threading.Condition(threading.RLock())
+        self._cv = threading.Condition(make_rlock("DeviceFeed._cv"))
+        # dmlc-check: unguarded(under _cv; cancel polls are stale-tolerant)
         self._error: Optional[BaseException] = None
+        # dmlc-check: unguarded(set/read under _cv; epoch reset pre-start)
         self._empty_epoch = False
+        # dmlc-check: unguarded(consumer-thread lifecycle; joined before rebinding)
         self._thread: Optional[threading.Thread] = None  # placer
+        # dmlc-check: unguarded(consumer-thread lifecycle; joined before rebinding)
         self._parsers: List[threading.Thread] = []
         self._stop = threading.Event()
         self._closing = threading.Event()   # close() was called
+        # dmlc-check: unguarded(placer-thread-confined)
         self._last_log = 0
+        # dmlc-check: unguarded(placer-thread-confined)
         self._t0 = 0.0
-        self._stats_lock = threading.Lock()
+        self._stats_lock = make_lock("DeviceFeed._stats_lock")
         self._stats = {"batches": 0, "bytes_to_device": 0,
                        "staging_buffers_built": 0, "parse_s": 0.0,
                        "stage_s": 0.0, "place_s": 0.0, "wait_s": 0.0}
@@ -609,7 +629,8 @@ class DeviceFeed:
         self._queue = Queue(maxsize=self._depth)
         self._stop.clear()
         self._closing.clear()
-        self._spare = list(self._built)
+        with self._cv:
+            self._spare = list(self._built)
         self._pool = BufferPool(self._make_staging, capacity=self._depth)
         self._parsers = [threading.Thread(target=self._parser_worker,
                                           args=(w,), daemon=True)

@@ -22,11 +22,11 @@ land in the event ring (``telemetry.events``).
 from __future__ import annotations
 
 import logging
-import threading
 from typing import Dict, List, Optional, Tuple
 
 from .. import telemetry
 from ..base import DMLCError, get_env
+from ..concurrency import make_lock
 
 __all__ = [
     "CorruptRecord",
@@ -89,7 +89,7 @@ def policy() -> str:
     return p
 
 
-_lock = threading.Lock()
+_lock = make_lock("integrity._lock")
 # source -> {begin_offset: end_offset}: record-head offsets in the split's
 # logical byte space, the same for any partition count
 _spans: Dict[str, Dict[int, int]] = {}

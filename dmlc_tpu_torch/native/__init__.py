@@ -23,13 +23,13 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 from pathlib import Path
 from typing import Sequence, Union
 
 import numpy as np
 
 from ..base import DMLCError
+from ..concurrency import make_lock
 
 __all__ = ["crc32c", "crc32c_table", "crc32c_hardware", "library_path",
            "parse_libsvm", "parse_libfm", "parse_csv", "recordio_spans",
@@ -42,7 +42,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dmlc_tpu_torch"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 _ABI = 6
 
-_lock = threading.Lock()
+_lock = make_lock("native._lib_lock")
 _lib = None
 
 

@@ -22,12 +22,12 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
 
 from ..base import DMLCError
+from ..concurrency import make_lock
 
 __all__ = ["Kernel", "build_all", "rows_aligned", "CSRC", "BUILD_DIR"]
 
@@ -36,7 +36,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dmlc_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = make_lock("_build._lock")
 _libs: Dict[Path, ctypes.CDLL] = {}
 
 

@@ -194,10 +194,11 @@ class _Slots:
     def __init__(self, n: int):
         self._free = int(n)
         self._dead = False
-        self._cv = threading.Condition()
+        self._cv = threading.Condition(make_lock("_Slots._cv"))
 
     def acquire(self, timeout: Optional[float]) -> bool:
         with self._cv:
+            # dmlc-check: guarded-by(_cv) -- wait_for calls it under _cv
             self._cv.wait_for(lambda: self._dead or self._free > 0, timeout)
             if self._dead or self._free <= 0:
                 return False
@@ -297,8 +298,11 @@ class InferenceEngine:
         self._fwd = {} if not self._gang else {"mesh": mesh,
                                                "axes": serving_axes(mesh)}
         self.is_controller = mesh is None or mesh.rank == 0
+        # dmlc-check: unguarded(engine thread sets it; close() reads it after the join)
         self._gang_ended = False
+        # dmlc-check: unguarded(engine-thread-confined; close() sends only after joining it)
         self._last_plan_t = time.monotonic()
+        # dmlc-check: unguarded(engine-thread-confined)
         self._window_kv = None   # the last gather window's K/V
         self.max_active = (max_active if max_active is not None
                            else get_env("DMLC_SERVE_MAX_ACTIVE", 8))
@@ -309,8 +313,15 @@ class InferenceEngine:
             max_new_tokens if max_new_tokens is not None
             else get_env("DMLC_SERVE_MAX_TOKENS", 64))
         self.eos_id = eos_id
-        self.priority_levels = 3
-        self.priority_default = 1
+        # priority classes: admission order and KV-pressure eviction
+        # both prefer low-priority victims (scheduler policy); the class
+        # count and the unlabeled default are knobs, clamped as in the
+        # JAX engine
+        self.priority_levels = max(1, get_env(
+            "DMLC_SERVE_PRIORITY_LEVELS", 3))
+        self.priority_default = min(
+            max(0, get_env("DMLC_SERVE_PRIORITY_DEFAULT", 1)),
+            self.priority_levels - 1)
         with torch.inference_mode():
             self.cache = PagedKVCache(
                 self.cfg.n_layers, self.cfg.n_heads, self.cfg.head_dim,
@@ -342,6 +353,7 @@ class InferenceEngine:
             self._use_paged = self.paged_mode == "on"
         self._prefill, self._decode = _programs(
             self._use_paged, self._spec_window, self.max_active)
+        # dmlc-check: unguarded(engine-thread-confined)
         self._hbm_tick = 0
         self._crash_requeue_max = get_env("DMLC_SERVE_CRASH_REQUEUE_MAX", 2)
         # request-scoped observability: the per-request lifecycle ledger
@@ -358,10 +370,15 @@ class InferenceEngine:
         # iteration seqlock: odd while an iteration is mid-flight (its
         # pop window can hold a request in NEITHER queue), even when
         # quiescent; single writer (the engine thread), read by drain()
+        # dmlc-check: unguarded(seqlock: single-writer engine thread; GIL-atomic int reads)
         self._step_seq = 0
+        # dmlc-check: unguarded(start/close control-thread lifecycle; close joins before the sweep)
         self._thread: Optional[threading.Thread] = None
+        # dmlc-check: unguarded(engine-thread-confined)
         self._flops_declared = False
+        # dmlc-check: unguarded(engine-thread-confined)
         self._fpt_cache: Dict[int, float] = {}   # context → FLOPs/token
+        # dmlc-check: unguarded(engine-thread writes; stats() copies, a count may lag a step)
         self.counters = {"prefills": 0, "decode_steps": 0,
                          "tokens_generated": 0, "spec_proposed": 0,
                          "spec_accepted": 0, "preemptions": 0,
@@ -556,6 +573,8 @@ class InferenceEngine:
             self._gang_ended = True
             try:
                 self._send({"op": "stop"})
+            except (EngineDraining, AlreadyFinished):
+                raise              # a request's state, never the gang's
             except RuntimeError:   # a follower is gone: no rank waits
                 logger.exception("sharded serving: stopping the followers")
                 _destroy_groups()

@@ -39,12 +39,12 @@ engine's single step thread.
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..base import DMLCError, resolve_device
+from ..concurrency import make_lock
 from ..parallel.mesh import AXIS_DP, AXIS_PP, AXIS_TP
 
 __all__ = ["BlockAllocator", "PagedKVCache", "kv_partition_spec"]
@@ -62,7 +62,7 @@ class BlockAllocator:
         self.n_blocks = int(n_blocks)
         self._free: List[int] = list(range(self.n_blocks - 1, -1, -1))
         self._in_use: set = set()
-        self._lock = threading.Lock()
+        self._lock = make_lock("BlockAllocator._lock")
 
     @property
     def n_free(self) -> int:
@@ -153,12 +153,14 @@ class PagedKVCache:
         self.n_heads = local(n_heads, AXIS_TP, "n_heads")
         shape = (self.n_layers, self.n_blocks, self.block_size, self.n_heads,
                  int(head_dim))
+        # dmlc-check: unguarded(data plane is single-step-thread by contract — class docstring)
         self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        # dmlc-check: unguarded(data plane is single-step-thread by contract — class docstring)
         self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
         self._alloc = BlockAllocator(self.n_blocks)
         self._seqs: Dict[int, _SeqEntry] = {}
         self._cached_tokens = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("PagedKVCache._lock")
 
     # ---- capacity arithmetic -------------------------------------------
     def blocks_for(self, n_tokens: int) -> int:

@@ -27,11 +27,11 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import os
 import signal
 import sys
 import threading
 
+from ..base import get_env
 from .router import Router, RouterHTTPServer, discover_replicas
 
 
@@ -39,11 +39,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="dmlc_tpu_torch.serving.route", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--host", default=os.environ.get(
+    ap.add_argument("--host", default=get_env(
         "DMLC_ROUTER_HOST", "127.0.0.1"))
-    ap.add_argument("--port", type=int, default=int(os.environ.get(
-        "DMLC_ROUTER_PORT", "8900")))
-    ap.add_argument("--replicas", default=os.environ.get(
+    ap.add_argument("--port", type=int, default=get_env(
+        "DMLC_ROUTER_PORT", 8900))
+    ap.add_argument("--replicas", default=get_env(
         "DMLC_ROUTER_REPLICAS", ""),
         help="comma-separated replica base URLs")
     ap.add_argument("--tracker", default=None, metavar="HOST:PORT",

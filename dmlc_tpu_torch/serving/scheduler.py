@@ -20,6 +20,7 @@ from collections import deque
 from typing import Dict, List, Optional
 
 from ..base import DMLCError
+from ..concurrency import make_lock
 from .kv_cache import PagedKVCache
 
 __all__ = ["AlreadyFinished", "Request", "ContinuousBatchScheduler",
@@ -80,10 +81,13 @@ class Request:
         self.priority = int(priority)
         self.tenant = str(tenant)
         self.submit_t = time.monotonic()
+        # dmlc-check: unguarded(scheduler-lock guarded; terminal write fenced by _done)
         self.state = WAITING
         self.generated: List[int] = []
         self.ttft_s: Optional[float] = None
+        # dmlc-check: unguarded(scheduler-lock guarded; terminal write fenced by _done)
         self.finish_t: Optional[float] = None
+        # dmlc-check: unguarded(scheduler-lock guarded; terminal write fenced by _done)
         self.error: Optional[str] = None
         self.preemptions = 0
         self.crash_requeues = 0
@@ -175,7 +179,7 @@ class ContinuousBatchScheduler:
         self.max_active = int(max_active)
         self._waiting: deque = deque()
         self._active: List[Request] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("ContinuousBatchScheduler._lock")
 
     @property
     def n_waiting(self) -> int:

@@ -21,12 +21,12 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import sys
 import time
 
 import torch
 
+from ..base import get_env
 from ..models import transformer as tfm
 from .engine import InferenceEngine, resolve_device
 from .server import ServingHTTPServer
@@ -49,10 +49,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="dmlc_tpu_torch.serving.serve", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--host", default=os.environ.get("DMLC_SERVE_HOST",
-                                                     "127.0.0.1"))
-    ap.add_argument("--port", type=int, default=int(os.environ.get(
-        "DMLC_SERVE_PORT", "8901")))
+    ap.add_argument("--host", default=get_env("DMLC_SERVE_HOST",
+                                              "127.0.0.1"))
+    ap.add_argument("--port", type=int, default=get_env(
+        "DMLC_SERVE_PORT", 8901))
     ap.add_argument("--model", choices=("tiny", "flagship"), default="tiny")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (default: the model's own)")

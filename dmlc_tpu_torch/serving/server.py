@@ -257,6 +257,7 @@ class ServingHTTPServer:
         self.port = self._httpd.server_address[1]
         self.engine = engine
         self._drain_done = threading.Event()
+        # dmlc-check: unguarded(owner-thread close() latch; double shutdown is benign)
         self._closed = False
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="serving-http")

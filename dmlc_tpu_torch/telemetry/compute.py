@@ -380,12 +380,14 @@ class _ProfiledSite:
             if i in self._static:
                 parts.append(("static", a))
             elif isinstance(a, torch.nn.Module):
-                part = self._module_sigs.get(a)
+                with self._lock:
+                    part = self._module_sigs.get(a)
                 if part is None:
-                    part = self._module_sigs[a] = ("module", (
-                        type(a).__name__, tuple(
-                            (name,) + _leaf_sig(t) for name, t in
-                            a.state_dict(keep_vars=True).items())))
+                    part = ("module", (type(a).__name__, tuple(
+                        (name,) + _leaf_sig(t) for name, t in
+                        a.state_dict(keep_vars=True).items())))
+                    with self._lock:
+                        self._module_sigs[a] = part
                 parts.append(part)
             elif isinstance(a, (torch.Tensor, int, float, str, type(None))):
                 parts.append(("args", (_leaf_sig(a),)))

@@ -324,6 +324,9 @@ METRIC_NAMES = frozenset({
     "dmlc_train_steps",
     # smoke-harness fixtures (scripts/telemetry_smoke.py workers)
     "dmlc_smoke_beats",
+    # port-only: bytes a gloo point-to-point of a CUDA tensor stages
+    # through pinned host memory (parallel/collectives.py)
+    "dmlc_collective_ppermute_staged_bytes",
 })
 
 #: span / jax-profiler annotation names that look like metric tokens in
@@ -370,4 +373,27 @@ NON_METRIC_TOKENS = frozenset({
     "dmlc_shm_coll",        # native shm-group ABI symbol prefix
     "dmlc_check",           # scripts/dmlc_check.py static-analysis suite
     "dmlc_crc32c",          # native ABI symbol (dmlc_native.cc)
+})
+
+#: the port's own non-metric ``dmlc_*`` identifiers: its package name and
+#: the symbols its C and CUDA libraries export (``ops/csrc/``,
+#: ``native/csrc/``), which the wrappers name in ``ctypes`` lookups.
+#: Kept apart from :data:`NON_METRIC_TOKENS`, which stays the JAX
+#: package's set, so the two registries compare set for set.
+PORT_NON_METRIC_TOKENS = frozenset({
+    "dmlc_tpu_torch",
+    # the CUDA kernels (ops/csrc/*.cu)
+    "dmlc_flash_fwd",
+    "dmlc_flash_bwd_dkv",
+    "dmlc_flash_bwd_dq",
+    "dmlc_paged_attention",
+    # the native core (native/csrc/crc32c.cc, dmlc_native.cc)
+    "dmlc_crc32c_table",
+    "dmlc_crc32c_hw",
+    "dmlc_native_abi_version",
+    "dmlc_parse_libsvm",
+    "dmlc_parse_libfm",
+    "dmlc_parse_csv",
+    "dmlc_recordio_find_last",
+    "dmlc_gather_spans",
 })

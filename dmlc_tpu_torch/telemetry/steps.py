@@ -227,6 +227,7 @@ class StepLedger:
             capacity = get_env("DMLC_STEP_LEDGER_MAX", 1024)
         self._lock = make_lock("StepLedger._lock")
         self._records: deque = deque(maxlen=max(1, capacity))
+        # dmlc-check: unguarded(advanced by the single stepping thread only)
         self._seq = 0
         self._flops_per_token: Optional[float] = None
         self._peak = peak_flops
@@ -235,6 +236,7 @@ class StepLedger:
         self._dtype: Optional[str] = None
         self._peak_bw: Optional[float] = None
         self._peak_bw_resolved = False
+        # dmlc-check: unguarded(one step_begin/step_end pair at a time — class docstring)
         self._open: Optional[Dict] = None
 
     # ---- declarations ---------------------------------------------------

@@ -33,6 +33,8 @@ import dmlc_tpu.telemetry as jtel
 import dmlc_tpu.tracker as jtr
 import dmlc_tpu_torch.telemetry as ptel
 import dmlc_tpu_torch.tracker as ptr
+from dmlc_tpu.telemetry import tracecontext as jtc
+from dmlc_tpu_torch.telemetry import tracecontext as ptc
 from dmlc_tpu.telemetry import anomaly as janom
 from dmlc_tpu.telemetry import core as jcore
 from dmlc_tpu.telemetry import events as jevents
@@ -395,16 +397,38 @@ def _load_top():
     return top
 
 
+def _reset_process_rings():
+    """Both packages' span and event rings and their process-wide
+    decision logs: each tracker's incident reporter reads its package's
+    decision log, which other tests of the same process fill."""
+    for tel in (jtel, ptel):
+        tel.reset()
+        tel.reset_events()
+    for tc in (jtc, ptc):
+        tc.reset_decisions()
+
+
 def test_trackers_serve_the_same_documents(pinned):
     """Two trackers, the same beats over the wire: the same /anomalies,
     /compute, /incidents and /trace, the same anomaly lines on /metrics,
     and the same dmlc-top panes."""
+    _same_documents()
+
+
+def test_trackers_serve_the_same_documents_after_a_fleet_decision(pinned):
+    """A fleet decision left in the port's process-wide decision log by
+    an earlier test (as another file's autoscaler tests leave one under
+    one xdist worker) does not reach the comparison."""
+    ptc.record_decision("autoscale_verdict", action="scale_up",
+                        reason="utilization", replicas=2, target=3)
+    _same_documents()
+
+
+def _same_documents():
     top = _load_top()
     docs = {}
     for kind in ("jax", "port"):
-        for tel in (jtel, ptel):
-            tel.reset()
-            tel.reset_events()
+        _reset_process_rings()
         tracker = _feed(kind)
         base = f"http://127.0.0.1:{tracker.metrics_port}"
         try:
@@ -418,7 +442,9 @@ def test_trackers_serve_the_same_documents(pinned):
         docs[kind]["top"] = top.render_table(poll).splitlines()[1:]
     want, got = docs["jax"], docs["port"]
     for path in ("/anomalies", "/compute", "/incidents", "/goodput"):
-        assert got[path] == want[path], path
+        assert got[path] == want[path], (
+            f"{path} differs; port: {json.dumps(got[path], sort_keys=True)}"
+            f" jax: {json.dumps(want[path], sort_keys=True)}")
     # the tracker's own row is its package's span ring: neither recorded
     # a span here, and the workers' rows are compared whole
     for d in (want, got):

@@ -230,9 +230,12 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
         f"for m in pkgutil.walk_packages({pkg}.__path__, '{pkg}.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        # the fleet front door and its entry are walked like the rest
+        # the fleet front door and its entry, the static checks, their
+        # runner and the knob registry are walked like the rest
         f"assert {{'{pkg}.serving.router', '{pkg}.serving.route',"
-        f" '{pkg}.fleet.autoscaler', '{pkg}.fleet.preempt'}}"
+        f" '{pkg}.fleet.autoscaler', '{pkg}.fleet.preempt',"
+        f" '{pkg}.analysis.race_pass', '{pkg}.analysis.knob_pass',"
+        f" '{pkg}.analysis.__main__', '{pkg}.config_registry'}}"
         " <= set(sys.modules)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in"
         " ('jax', 'jaxlib', 'dmlc_tpu'))\n"
@@ -249,3 +252,44 @@ def test_port_and_chip_smoke_import_no_jax_or_reference():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("levels,default,want", [
+    ("5", "3", (5, 3)), ("0", "7", (1, 0)), ("4", "-2", (4, 0)),
+    (None, None, (3, 1))])
+def test_priority_knobs_and_admission_order_equal_jax(weights, monkeypatch,
+                                                      levels, default, want):
+    """``DMLC_SERVE_PRIORITY_LEVELS``/``_DEFAULT`` read and clamped as the
+    JAX engine reads them; one slot at a time, a queue of mixed classes
+    (ints, names and the default) is admitted in the same order."""
+    params, jcfg, model = weights
+    for knob, value in (("DMLC_SERVE_PRIORITY_LEVELS", levels),
+                        ("DMLC_SERVE_PRIORITY_DEFAULT", default)):
+        if value is None:
+            monkeypatch.delenv(knob, raising=False)
+        else:
+            monkeypatch.setenv(knob, value)
+    kw = dict(n_blocks=16, block_size=4, max_active=1, queue_depth=16)
+    engines = {"jax": JaxEngine(params, jcfg, **kw),
+               "port": InferenceEngine(model, device="cpu", **kw)}
+    n = want[0]
+    classes = [0, None, n - 1, "batch", None, n - 1, "interactive" if n >= 3
+               else 0, 0]
+    orders = {}
+    for name, eng in engines.items():
+        assert (eng.priority_levels, eng.priority_default) == want
+        reqs = [eng.submit([i + 1] * 3, max_new_tokens=2, priority=c)
+                for i, c in enumerate(classes)]
+        assert [r.priority for r in reqs] == [
+            want[1] if c is None else c if isinstance(c, int)
+            else {"batch": 0, "interactive": 2}[c] for c in classes]
+        eng.start()
+        try:
+            for r in reqs:
+                assert r.wait(300) and r.error is None, r.error
+        finally:
+            eng.close()
+        orders[name] = [reqs.index(r) for r in
+                        sorted(reqs, key=lambda r: r.finish_t)]
+    assert orders["port"] == orders["jax"]
+    assert len(set(orders["port"])) == len(classes)
