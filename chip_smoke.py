@@ -114,6 +114,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
             The same load runs with plain locks before and after the two
             checked runs (ABBA): the decode step p50s are the checkers'
             cost
+   interleave  the deterministic interleaving explorer
+            (``analysis.interleave``) over the port's classes: the
+            reverted drain (``drain_pre_pr13``) caught within 400
+            schedules of seed 0 with the sweep error and replayed to the
+            same error and decisions; the five scenarios clean at 64
+            schedules each (seed 0), the drain scenario's engine, tiny
+            model and KV pool on the card (no forward runs there: K1-K4
+            launch 0 times); then a fresh engine of the scenario's
+            ``max_active`` (2; a tiny model with D=64 heads, which K1 and
+            K4 take) serves 2 requests on the card while a thread reads
+            ``/compute``, tokens equal to a CPU engine's on the same
+            weights (K1 and K4 launched).  Gates on all of it and a 20 s
+            budget
    remote   remote filesystems (under ``build/remote``, removed after):
             ``chip_stores.py``'s S3 (SigV4 countersigned, multipart) and
             GCS (JSON API, resumable uploads) emulators in a child
@@ -240,7 +253,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
             same; the flagship's widths at depth 2 in float32, B=2 x
             T=2048: the sharded loss within 2e-5 relative of one
             process's ``unsharded_loss`` and every gathered gradient
-            within 1e-4 of its max; 5 bf16 AdamW steps of
+            within 1e-4 of its max; 3 bf16 AdamW steps of
             ``make_train_step(model, mesh=mesh)`` at global B=2 x
             T=4096 (remat ``save_flash``, seed 0): one loss per step on
             all ranks, falling, and each leaf's SHA-256 equal on the
@@ -2346,6 +2359,142 @@ def lockcheck_phase(smi, serving, tele, fa, pa, tfm, model, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 7i: the interleaving explorer over the port's classes
+# ---------------------------------------------------------------------------
+
+INTERLEAVE_TEETH = 400       # schedules the reverted drain must fail within
+INTERLEAVE_SCHEDULES = 64    # schedules of each scenario on the card
+INTERLEAVE_BUDGET_S = 20.0
+INTERLEAVE_PROMPTS = ([1, 2, 3], [4, 5, 6, 7, 8])
+
+
+def _interleave_serve(serving, model, device):
+    """The scenario's ``max_active`` (2) engine serving the two prompts
+    (8 new tokens each, both queued before it starts), with a thread
+    reading the compute ledger's report throughout.  Returns the tokens
+    and the reader's errors."""
+    from dmlc_tpu_torch import telemetry as tele
+
+    eng = serving.InferenceEngine(model, device=device, n_blocks=16,
+                                  block_size=16, max_active=2,
+                                  queue_depth=4)
+    reqs = [eng.submit(p, max_new_tokens=8) for p in INTERLEAVE_PROMPTS]
+    stop, errors = threading.Event(), []
+
+    def reader():
+        try:
+            while not stop.is_set():
+                tele.compute.report()
+        except BaseException as e:  # noqa: BLE001 - the gate
+            errors.append(repr(e))
+
+    th = threading.Thread(target=reader, daemon=True)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)   # switch while a lock is held
+    th.start()
+    try:
+        eng.start()
+        done = [r.wait(60) for r in reqs]
+    finally:
+        stop.set()
+        th.join(30)
+        sys.setswitchinterval(interval)
+        eng.close()
+    check(done == [True, True] and all(r.error is None for r in reqs),
+          f"interleave serve on {device}: done {done}, errors "
+          f"{[r.error for r in reqs]}")
+    return [list(r.generated) for r in reqs], errors
+
+
+def interleave_phase(smi, serving, fa, pa, device="cuda"):
+    """The explorer's teeth (the reverted drain caught and replayed), the
+    five scenarios on the current tree with the drain scenario's engine
+    on ``device``, then an engine of the scenario's key serving there
+    after them, its tokens held against a CPU engine's.  Returns the
+    phase's line and the serve's K1/K4 launches."""
+    import copy
+    import logging
+
+    from dmlc_tpu_torch.analysis import interleave as ilv
+    from dmlc_tpu_torch.analysis import scenarios as sc
+    from dmlc_tpu_torch.models.transformer import TransformerConfig
+    from dmlc_tpu_torch.serving import engine as eng_mod
+
+    t_phase = time.perf_counter()
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd_dkv": fa.FLASH_BWD_DKV,
+               "flash_bwd_dq": fa.FLASH_BWD_DQ,
+               "paged_attention": pa.PAGED_ATTENTION}
+    # the router's state-change warnings, thousands of them
+    quiet = logging.getLogger("dmlc_tpu_torch.serving")
+    level = quiet.level
+    quiet.setLevel(logging.ERROR)
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        res, rep = sc.catch_reverted_drain(INTERLEAVE_TEETH, 0,
+                                           device=device)
+        teeth_s = time.perf_counter() - t_phase
+        check(not res.ok, f"the explorer missed the reverted drain in "
+                          f"{res.runs} schedules")
+        fail = res.failures[0]
+        check("swept by a concluding drain" in fail.error,
+              f"reverted drain: wrong failure {fail.error}")
+        check(rep is not None and not rep.ok and rep.error == fail.error
+              and rep.decisions == fail.decisions,
+              f"the failure did not replay: {rep}")
+        t0 = time.perf_counter()
+        results = sc.run_all(INTERLEAVE_SCHEDULES, 0, verbose=False,
+                             device=device)
+        scenarios_s = time.perf_counter() - t0
+        bad = {n: r.failures[0].error for n, r in results.items()
+               if not r.ok}
+        check(not bad and len(results) == 5, f"interleave scenarios {bad}")
+        scenario_launches = {n: k.launches for n, k in kernels.items()}
+        check(not any(scenario_launches.values()),
+              f"a kernel launched under the scenarios: {scenario_launches}")
+        captured = [key for key, site in eng_mod._PROGRAMS.items()
+                    if isinstance(getattr(site, "_lock", None),
+                                  ilv.SchedLock)]
+        check(not captured, f"scenario locks in the programs: {captured}")
+    finally:
+        quiet.setLevel(level)
+    t0 = time.perf_counter()
+    cfg = TransformerConfig(vocab=32, d_model=128, n_heads=2, head_dim=64,
+                            d_ff=256, n_layers=1, n_experts=1)
+    cpu_model = sc.tiny_model("cpu", cfg=cfg)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    want, cpu_errors = _interleave_serve(serving, cpu_model, "cpu")
+    for k in kernels.values():
+        k.launches = 0
+    got, reader_errors = _interleave_serve(serving, card_model, device)
+    serve_launches = {n: k.launches for n, k in kernels.items()}
+    serve_s = time.perf_counter() - t0
+    check(not reader_errors and not cpu_errors,
+          f"interleave: /compute reader {reader_errors} {cpu_errors}")
+    check(got == want, f"interleave serve: {device} {got} != cpu {want}")
+    if device == "cuda":
+        check(serve_launches["flash_fwd"] >= 2
+              and serve_launches["paged_attention"] >= 1,
+              f"interleave serve launches {serve_launches}")
+    seconds = time.perf_counter() - t_phase
+    check(seconds <= INTERLEAVE_BUDGET_S,
+          f"interleave phase took {seconds:.2f} s > {INTERLEAVE_BUDGET_S} s")
+    return {
+        "phase": "interleave", "card": smi, "device": device,
+        "seconds": seconds, "budget_s": INTERLEAVE_BUDGET_S,
+        "teeth_s": teeth_s, "scenarios_s": scenarios_s, "serve_s": serve_s,
+        "teeth": {"schedules": INTERLEAVE_TEETH, "seed": 0,
+                  "caught_on_run": res.runs, "error": fail.error,
+                  "decisions": fail.decisions, "replayed": True},
+        "scenarios": {n: {"schedules": r.runs, "ok": r.ok}
+                      for n, r in results.items()},
+        "schedules_run": res.runs + sum(r.runs for r in results.values()),
+        "launches": scenario_launches,
+        "serve": {"tokens": got, "cpu_tokens_equal": got == want,
+                  "launches": serve_launches}}, serve_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7a: remote filesystems — the LM example over s3:// and gs://
 # ---------------------------------------------------------------------------
 
@@ -4315,7 +4464,7 @@ MESH_LAYERS = 2          # the flagship's widths at depth 2 (see the phase)
 MESH_B, MESH_T = 2, 4096             # the train steps' global batch
 MESH_CHECK_B, MESH_CHECK_T = 2, 2048  # the f32 gradient check's
 MESH_RING = (1, 8192, 16, 128)       # ring attention alone: B, T, H, D
-MESH_STEPS = 5
+MESH_STEPS = 3
 MESH_TIMEOUT_S = 420
 MESH_LOSS_RTOL = 2e-5    # f32 sharded loss vs one process: sum order
 MESH_GRAD_TOL = 1e-4     # max |g - g_ref| / max |g_ref| per leaf, f32
@@ -7026,6 +7175,12 @@ def main() -> int:
                                               tfm, model, cfg)
     emit(lock_doc)
 
+    # 7i. the interleaving explorer: the reverted drain caught and
+    # replayed, the five scenarios clean with the drain scenario's engine
+    # on the card, then an engine of its key serving on the card
+    inter_doc, inter_launches = interleave_phase(smi, serving, fa, pa)
+    emit(inter_doc)
+
     # 7a. remote filesystems: the LM example reads its shard from s3:// and
     # checkpoints to gs:// (emulators in a child process), resumes there
     remote_doc, remote_launches = remote_phase(smi)
@@ -7042,6 +7197,7 @@ def main() -> int:
     option_launches["gather"] = gather_launches
     option_launches["remote"] = remote_launches
     option_launches["lockcheck"] = lock_launches
+    option_launches["interleave"] = inter_launches
 
     # 7c. the elastic trainer: 3 workers share the card, one is lost, the
     # world shrinks and grows back (the kernels are built already, so the

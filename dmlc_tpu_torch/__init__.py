@@ -37,6 +37,38 @@ sharded flagship: a dp × sp × tp mesh over ``torch.distributed``
 (``parallel``: the mesh, named collectives, ring attention through the
 flash forward kernel at global offsets, Ulysses) and the model's
 tensor- and sequence-parallel train step.
+
+The top level carries the reference's surface (``dmlc_tpu/__init__.py``):
+``base``, ``common``, ``concurrency``, ``config``, ``memory``, ``param``,
+``registry`` and ``serializer``, with ``DMLCError``, ``ParamError``,
+``get_env``, ``Config``, ``Parameter``, ``field`` and ``Registry``.  Each
+is imported at its first use, not with the package: ``serializer`` pulls
+in ``io`` and ``telemetry`` and ``base`` pulls in torch, which a worker
+process that never touches them (the launcher's, a LibSVM example's)
+would otherwise pay for at every start.  None of them touches the card or
+builds a kernel when imported.
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+_SUBMODULES = ("base", "common", "concurrency", "config", "memory", "param",
+               "registry", "serializer")
+_NAMES = {"DMLCError": "base", "ParamError": "base", "get_env": "base",
+          "Config": "config", "Parameter": "param", "field": "param",
+          "Registry": "registry"}
+__all__ = [*_SUBMODULES, *_NAMES]
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    if name in _NAMES:
+        module = importlib.import_module(f".{_NAMES[name]}", __name__)
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted({*globals(), *__all__})

@@ -51,7 +51,6 @@ inside a step on the stepping thread is that step's
 from __future__ import annotations
 
 import json
-import logging
 import os
 import re
 import shutil
@@ -60,6 +59,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import logging as log
 from .. import telemetry
 from ..base import DMLCError, check
 from ..io.integrity import crc32c
@@ -70,7 +70,6 @@ __all__ = ["CorruptCheckpoint", "MissingLeaf", "save_pytree",
            "flatten_with_path"]
 
 MANIFEST = "manifest.json"
-_logger = logging.getLogger("dmlc_tpu_torch.checkpoint")
 
 _TORCH_DTYPES = {
     torch.float32: "float32", torch.float64: "float64",
@@ -458,13 +457,15 @@ def _restore_tree(uri: str, template: Any, mesh=None) -> Tuple[Any, int]:
         raw = _read_file(_join(uri, f"{key}.{ikey}"))
         nread += raw.size
         telemetry.inc("checkpoint", "bytes_read", raw.size)
-        if want_crc is not None and crc32c(raw) != int(want_crc):
+        got = crc32c(raw) if want_crc is not None else None
+        if got is not None and got != int(want_crc):
             telemetry.inc("integrity", "checksum_failures")
             telemetry.record_event("checkpoint_shard_corrupt", uri=uri,
                                    shard=f"{key}.{ikey}")
             raise CorruptCheckpoint(
                 f"checkpoint shard {key}.{ikey} failed its CRC32C digest "
-                f"— the checkpoint at {uri} is corrupt")
+                f"(manifest {int(want_crc):#010x}, file {got:#010x}) — "
+                f"the checkpoint at {uri} is corrupt")
         if raw.size != nbytes:
             raise CorruptCheckpoint(
                 f"checkpoint shard {key}.{ikey} holds {raw.size} bytes, "
@@ -651,9 +652,9 @@ class CheckpointManager:
                 tree, nread = _restore(self._step_dir(step), template)
             except CorruptCheckpoint as e:
                 last_err = e
-                _logger.warning("checkpoint step %d failed to restore (%s); "
-                                "falling back to the previous committed "
-                                "step", step, e)
+                log.warning(f"checkpoint step {step} failed to restore "
+                            f"({e}); falling back to the previous "
+                            f"committed step")
                 continue
             self._stats["bytes_read"] += nread
             return step, tree

@@ -10,12 +10,17 @@ plain ``threading`` locks, so the hot paths pay nothing.  Under
 process-wide lock-order graph (order inversions, acquires that block
 while another lock is held); ``DMLC_RACECHECK=1`` adds the record of
 which lock each ``with`` site held, cross-checked against the static
-race pass over the port's tree.  ``ConcurrentBlockingQueue`` and
-``MultiThreadedIter`` are not ported yet (ROADMAP.md Queue 1 item 10b).
+race pass over the port's tree.  ``ConcurrentBlockingQueue`` (bounded
+FIFO or priority, ``signal_for_kill``) and ``MultiThreadedIter`` (N
+workers, end of stream by N sentinels) are the reference's queue
+classes.  Inside an interleaving-explorer scenario
+(``analysis.interleave``) :func:`make_lock` hands out the explorer's
+scheduler-owned locks through :func:`set_lock_factory_hook`.
 """
 
 from __future__ import annotations
 
+import heapq
 import threading
 import time
 from collections import deque
@@ -23,7 +28,8 @@ from typing import Callable, Generic, Iterator, List, Optional, Tuple, TypeVar
 
 from .base import DMLCError, get_env
 
-__all__ = ["BufferPool", "CheckedLock", "ThreadedIter",
+__all__ = ["BufferPool", "CheckedLock", "ConcurrentBlockingQueue",
+           "MultiThreadedIter", "ThreadedIter",
            "lockcheck_assert_clean", "lockcheck_enabled",
            "lockcheck_report", "lockcheck_reset", "make_lock", "make_rlock",
            "racecheck_assert_clean", "racecheck_enabled",
@@ -68,9 +74,8 @@ _lc_tls = threading.local()
 #: cross-checks the two.
 _rc_sites: dict = {}
 
-#: deterministic-interleaving hook (the JAX package's
-#: analysis.interleave; the port's explorer is ROADMAP item 10b, so
-#: nothing installs it yet): when set, make_lock/make_rlock offer the
+#: deterministic-interleaving hook (analysis.interleave installs it for
+#: a scenario's extent): when set, make_lock/make_rlock offer the
 #: construction to the explorer first, so a scenario's objects are built
 #: over scheduler-owned locks.  The hook returns a lock-like object or
 #: None (= not under exploration).
@@ -479,6 +484,71 @@ class BufferPool(Generic[T]):
             return self._created
 
 
+class ConcurrentBlockingQueue(Generic[T]):
+    """Bounded MPMC blocking queue, FIFO or priority (concurrency.h:63-146).
+
+    ``push`` blocks while ``max_size`` items are queued (0 = unbounded);
+    ``pop`` blocks while it is empty.  In priority mode the highest
+    ``priority`` pops first, ties in push order.  ``signal_for_kill``
+    wakes every blocked producer and consumer; after it ``push`` fails
+    and ``pop`` fails once the queue is empty (``SignalForKill``,
+    concurrency.h:157-294).
+    """
+
+    def __init__(self, max_size: int = 0, priority: bool = False):
+        self._max = max_size
+        self._priority = priority
+        self._fifo: deque = deque()
+        self._heap: List[Tuple[int, int, T]] = []
+        self._seq = 0
+        self._lock = make_lock("ConcurrentBlockingQueue._lock")
+        self._not_empty = threading.Condition(self._lock)
+        self._not_full = threading.Condition(self._lock)
+        self._killed = False
+
+    def push(self, item: T, priority: int = 0) -> bool:
+        with self._lock:
+            while (not self._killed and self._max > 0
+                   and self.size_locked() >= self._max):
+                self._not_full.wait()
+            if self._killed:
+                return False
+            if self._priority:
+                # heapq is a min-heap: negate, and the sequence breaks ties
+                heapq.heappush(self._heap, (-priority, self._seq, item))
+                self._seq += 1
+            else:
+                self._fifo.append(item)
+            self._not_empty.notify()
+            return True
+
+    def pop(self) -> Tuple[bool, Optional[T]]:
+        with self._lock:
+            while not self._killed and self.size_locked() == 0:
+                self._not_empty.wait()
+            if self._killed and self.size_locked() == 0:
+                return False, None
+            if self._priority:
+                item = heapq.heappop(self._heap)[2]
+            else:
+                item = self._fifo.popleft()
+            self._not_full.notify()
+            return True, item
+
+    def size_locked(self) -> int:
+        return len(self._heap) if self._priority else len(self._fifo)
+
+    def size(self) -> int:
+        with self._lock:
+            return self.size_locked()
+
+    def signal_for_kill(self) -> None:
+        with self._lock:
+            self._killed = True
+            self._not_empty.notify_all()
+            self._not_full.notify_all()
+
+
 class ThreadedIter(Generic[T]):
     """Single-producer-thread prefetch iterator with buffer recycling.
 
@@ -631,3 +701,74 @@ class ThreadedIter(Generic[T]):
             if not ok:
                 return
             yield v
+
+
+class MultiThreadedIter(Generic[T]):
+    """``num_threads`` workers map ``work_fn`` over the items pulled from
+    ``source_next`` (which returns ``None`` at the end); output order is
+    not guaranteed.  The end of the stream is the N-th sentinel, one a
+    worker, as the reference's null sentinels (threadediter.h:418-646);
+    a worker's exception is raised at the ``next()`` that sees the last
+    sentinel."""
+
+    def __init__(
+        self,
+        source_next: Callable[[], Optional[T]],
+        work_fn: Callable[[T], T],
+        num_threads: int = 2,
+        max_capacity: int = 8,
+    ):
+        self._source_next = source_next
+        self._work = work_fn
+        self._n = num_threads
+        self._out: ConcurrentBlockingQueue = ConcurrentBlockingQueue(
+            max_capacity)
+        self._src_lock = make_lock("MultiThreadedIter._src_lock")
+        # dmlc-check: unguarded(consumer-confined: next() is single-consumer)
+        self._sentinels_seen = 0
+        # dmlc-check: unguarded(consumer-confined: next() is single-consumer)
+        self._ended = False
+        # dmlc-check: unguarded(written before the sentinel push; read after the last sentinel pops)
+        self._worker_exc: Optional[BaseException] = None
+        self._threads = [threading.Thread(target=self._worker, daemon=True)
+                         for _ in range(num_threads)]
+        for t in self._threads:
+            t.start()
+
+    def _worker(self) -> None:
+        try:
+            while True:
+                with self._src_lock:
+                    item = self._source_next()
+                if item is None:
+                    break
+                self._out.push((False, self._work(item)))
+        except BaseException as exc:  # noqa: BLE001 - surfaced to consumer
+            self._worker_exc = exc
+        finally:
+            self._out.push((True, None))  # the sentinel, failure or not
+
+    def next(self) -> Tuple[bool, Optional[T]]:
+        if self._ended:
+            return False, None
+        while True:
+            ok, cell = self._out.pop()
+            if not ok:
+                self._ended = True
+                return False, None
+            is_sentinel, value = cell  # type: ignore[misc]
+            if is_sentinel:
+                self._sentinels_seen += 1
+                if self._sentinels_seen == self._n:
+                    self._ended = True
+                    if self._worker_exc is not None:
+                        exc = self._worker_exc
+                        raise DMLCError(
+                            f"MultiThreadedIter worker failed: "
+                            f"{exc!r}") from exc
+                    return False, None
+                continue
+            return True, value
+
+    def destroy(self) -> None:
+        self._out.signal_for_kill()

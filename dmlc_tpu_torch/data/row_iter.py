@@ -11,10 +11,10 @@ disk caching.
 
 from __future__ import annotations
 
-import logging
 import os
 from typing import Optional
 
+from .. import logging as log
 from ..base import check
 from ..concurrency import ThreadedIter
 from ..io.stream import FileStream
@@ -26,7 +26,6 @@ __all__ = ["RowBlockIter", "BasicRowIter", "DiskRowIter", "create_row_iter"]
 
 KPAGE_SIZE = 64 << 20  # disk_row_iter.h:32
 
-_log = logging.getLogger("dmlc_tpu_torch.data")
 
 
 class RowBlockIter:
@@ -56,7 +55,7 @@ class BasicRowIter(RowBlockIter):
 
     def __init__(self, parser: Parser):
         self._container = RowBlockContainer()
-        metric = MetricLogger(_log.info)
+        metric = MetricLogger(log.info)
         for group_block in parser.__iter__():
             self._container.push_arrays(
                 labels=group_block.label,
@@ -109,7 +108,7 @@ class DiskRowIter(RowBlockIter):
         return True
 
     def _build_cache(self, parser: Parser, page_bytes: int) -> None:
-        metric = MetricLogger(_log.info)
+        metric = MetricLogger(log.info)
         max_index = 0
         with open(self._cache_path + ".tmp", "wb") as raw:
             strm = FileStream(raw, own=False)

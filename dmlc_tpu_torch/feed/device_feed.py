@@ -62,7 +62,6 @@ and :func:`libsvm_feed`'s fused LibSVM tokenize-and-pack.
 from __future__ import annotations
 
 import functools
-import logging
 import os
 import threading
 import time
@@ -72,6 +71,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from .. import logging as log
 from .. import native, telemetry
 from ..base import check, get_env, resolve_device
 from ..concurrency import BufferPool, make_lock, make_rlock
@@ -80,7 +80,6 @@ from . import spans as _spans
 __all__ = ["DeviceFeed", "libsvm_feed", "pack_rowblock",
            "pack_rowblock_plain", "recordio_feed", "recordio_packed_feed"]
 
-_logger = logging.getLogger("dmlc_tpu_torch.feed")
 _POLL_S = 0.1
 _LOG_EVERY = 10 << 20   # bytes between throughput log lines
 
@@ -584,9 +583,9 @@ class DeviceFeed:
                 telemetry.inc("feed", "batches")
                 telemetry.inc("feed", "bytes_to_device", nbytes)
                 if fed - self._last_log >= _LOG_EVERY:
-                    _logger.info("feed: %.0f MB to device, %.2f MB/sec",
-                                 fed / 1e6,
-                                 fed / 1e6 / (time.perf_counter() - self._t0))
+                    dt = time.perf_counter() - self._t0
+                    log.info(f"feed: {fed / 1e6:.0f} MB to device, "
+                             f"{fed / 1e6 / dt:.2f} MB/sec")
                     self._last_log = fed
                 # a full queue means the consumer is the bottleneck
                 with telemetry.timed("feed", "producer_stall"):
@@ -700,8 +699,9 @@ class DeviceFeed:
             self._part_iters = []
         else:
             # _thread stays set, so __iter__ refuses a second pipeline
-            _logger.warning("DeviceFeed.close(): a pipeline thread is still "
-                            "alive after 5 s; leaving it (daemon)")
+            log.warning("DeviceFeed.close(): pipeline thread still alive "
+                        "after 5s (likely a hung copy to the device); "
+                        "leaking a daemon thread")
 
     # ---- ledger-driven auto-tuning --------------------------------------
     def _apply_autotune(self) -> None:
@@ -726,9 +726,9 @@ class DeviceFeed:
         workers, depth = self._autotuner.observe(fw)
         workers = max(1, min(self._n_parts, workers))
         if workers != self._workers or depth != self._depth:
-            _logger.info("feed autotune: feed-wait %.2f over %d steps -> "
-                         "workers %d->%d, depth %d->%d", fw, len(recs),
-                         self._workers, workers, self._depth, depth)
+            log.info(f"feed autotune: feed-wait {fw:.2f} over {len(recs)} "
+                     f"steps -> workers {self._workers}->{workers}, "
+                     f"depth {self._depth}->{depth}")
             telemetry.inc("feed", "autotune_adjustments")
             self._workers = workers
             self._depth = depth

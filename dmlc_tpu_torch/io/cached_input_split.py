@@ -19,11 +19,11 @@ caches (u64 size + bytes, no header) still replay, unverified.
 
 from __future__ import annotations
 
-import logging
 import os
 import struct
 from typing import Optional
 
+from .. import logging as log
 from .. import telemetry
 from ..base import DMLCError
 from ..concurrency import ThreadedIter
@@ -32,7 +32,6 @@ from .integrity import crc32c
 
 __all__ = ["CachedInputSplit"]
 
-_logger = logging.getLogger("dmlc_tpu_torch.io")
 _U64 = struct.Struct("<Q")
 _U32 = struct.Struct("<I")
 _CACHE_MAGIC = b"dmlcCC01"
@@ -95,9 +94,9 @@ class CachedInputSplit(InputSplit):
             telemetry.inc("io_cache", "integrity_failures")
             telemetry.record_event("cache_integrity_failure",
                                    path=self._cache_path, error=str(e))
-            _logger.warning("epoch cache %s failed integrity verification "
-                            "(%s); discarding and re-parsing from the "
-                            "source", self._cache_path, e)
+            log.warning(f"epoch cache {self._cache_path} failed integrity "
+                        f"verification ({e}); discarding and re-parsing "
+                        f"from the source")
             try:
                 os.remove(self._cache_path)
             except OSError:

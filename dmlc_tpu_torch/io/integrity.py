@@ -21,9 +21,9 @@ land in the event ring (``telemetry.events``).
 
 from __future__ import annotations
 
-import logging
 from typing import Dict, List, Optional, Tuple
 
+from .. import logging as log
 from .. import telemetry
 from ..base import DMLCError, get_env
 from ..concurrency import make_lock
@@ -42,7 +42,6 @@ __all__ = [
 
 ENV_POLICY = "DMLC_INTEGRITY_POLICY"
 _POLICIES = ("raise", "skip", "quarantine")
-_logger = logging.getLogger("dmlc_tpu_torch.io")
 
 
 class CorruptRecord(DMLCError):
@@ -163,5 +162,5 @@ def handle_corrupt(what: str, *, source: Optional[str] = None,
         raise CorruptRecord(f"corrupt record ({what}) at {where}")
     if p == "quarantine" and source is not None and begin is not None:
         record_quarantine(source, begin, end if end is not None else begin)
-    _logger.warning("integrity: %s at %s — record %s", what, where,
-                    "quarantined" if p == "quarantine" else "skipped")
+    log.warning(f"integrity: {what} at {where} — record "
+                f"{'quarantined' if p == 'quarantine' else 'skipped'}")

@@ -43,17 +43,16 @@ integrity smoke injects a poisoned step without touching model math.
 
 from __future__ import annotations
 
-import logging
 import math
 import time
 from typing import Dict, Optional
 
+from .. import logging as log
 from ..base import DMLCError, get_env
 from ..concurrency import make_lock
 
 __all__ = ["SelfHealGuard", "SelfHealAbort", "status", "reset_selfheal"]
 
-logger = logging.getLogger(__name__)
 
 #: observe() verdicts
 OK = "ok"
@@ -191,7 +190,7 @@ class SelfHealGuard:
 
     def _report(self, action: str, reason: str,
                 step: Optional[int]) -> None:
-        logger.warning(f"selfheal: {action} at step "
+        log.warning(f"selfheal: {action} at step "
                        f"{'?' if step is None else step} — {reason} "
                        f"(skips={self.skips} "
                        f"rollbacks={self.rollbacks})")

@@ -93,7 +93,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .. import telemetry
+from .. import concurrency, telemetry
 from ..base import DMLCError, get_env, resolve_device
 from ..concurrency import make_lock
 from ..models.transformer import (Transformer, check_serving_mesh,
@@ -244,13 +244,24 @@ def _programs(use_paged: bool, window: int, max_active: int):
         fn, site = forward_decode, "serving.decode"
     prefill_key = (mode, "serving.prefill", forward_prefill_last)
     decode_key = (mode, site, fn, max_active)
-    if prefill_key not in _PROGRAMS:
-        _PROGRAMS[prefill_key] = compute.profiled_site(
-            forward_prefill_last, site="serving.prefill")
-    if decode_key not in _PROGRAMS:
-        _PROGRAMS[decode_key] = compute.profiled_site(
-            fn, site=site, max_signatures=get_env(
-                "DMLC_SERVE_MAX_DECODE_SIGS", 64) * max_active)
+    if prefill_key not in _PROGRAMS or decode_key not in _PROGRAMS:
+        # this cache outlives any one engine: when an interleaving
+        # scenario (analysis.scenarios) builds the process's first
+        # engine for a key, the sites must not capture the scenario's
+        # scheduler-owned locks, or every later engine of that key would
+        # inherit a lock wired to a finished controller
+        prev_hook = concurrency._lock_factory_hook
+        concurrency.set_lock_factory_hook(None)
+        try:
+            if prefill_key not in _PROGRAMS:
+                _PROGRAMS[prefill_key] = compute.profiled_site(
+                    forward_prefill_last, site="serving.prefill")
+            if decode_key not in _PROGRAMS:
+                _PROGRAMS[decode_key] = compute.profiled_site(
+                    fn, site=site, max_signatures=get_env(
+                        "DMLC_SERVE_MAX_DECODE_SIGS", 64) * max_active)
+        finally:
+            concurrency.set_lock_factory_hook(prev_hook)
     progs = (_PROGRAMS[prefill_key], _PROGRAMS[decode_key])
     for prog in progs:
         rereg = getattr(prog, "reregister", None)

@@ -186,6 +186,11 @@ class ContinuousBatchScheduler:
         with self._lock:
             return len(self._waiting)
 
+    @property
+    def n_active(self) -> int:
+        with self._lock:
+            return len(self._active)
+
     def active_requests(self) -> List[Request]:
         with self._lock:
             return list(self._active)

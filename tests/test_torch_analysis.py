@@ -419,6 +419,48 @@ def test_port_runs_clean(capsys):
               f"({sorted({s.check for s in suppressed})})")
 
 
+LAST_MODULES = ("analysis/interleave.py", "analysis/scenarios.py",
+                "concurrency.py", "config.py", "json_helper.py",
+                "logging.py", "memory.py", "metrics.py")
+
+
+def test_last_modules_run_clean_without_suppressions(capsys):
+    """The modules that completed the port (the explorer and its
+    scenarios, the queue classes, the host utilities) and their tests
+    pass every port pass, clear their findings with annotations or in
+    code and carry no suppression; the runner exits 0 over them."""
+    paths = [os.path.join(REPO, PKG, rel) for rel in LAST_MODULES] + [
+        os.path.join(REPO, "tests", f"test_torch_{name}.py") for name in (
+            "interleave", "concurrency_queues", "host_utils",
+            "sanitizers")]
+    index = PIndex(paths, REPO)
+    assert len(index.files) == len(paths)
+    findings, suppressed = p_run_passes(index, [cls() for cls in P_PASSES])
+    assert not findings, "\n".join(str(f) for f in findings[:40])
+    assert not suppressed, suppressed
+    assert p_main.main(paths) == 0
+    capsys.readouterr()
+
+
+def test_every_reference_file_has_a_port_counterpart():
+    """Each ``.py``/``.cc``/``.c``/``.h`` of the JAX package has its
+    counterpart in the port (``cpp/`` under ``native/csrc/``)."""
+    def files(pkg):
+        root = os.path.join(REPO, pkg)
+        out = set()
+        for dirpath, dirnames, filenames in os.walk(root):
+            dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+            for fn in filenames:
+                if fn.endswith((".py", ".cc", ".c", ".h")):
+                    out.add(os.path.relpath(os.path.join(dirpath, fn), root))
+        return out
+
+    ref = {re.sub(r"^cpp/", "native/csrc/", f) for f in files(J_PKG)}
+    assert not ref - files(PKG), sorted(ref - files(PKG))
+    for name in ("ConcurrentBlockingQueue", "MultiThreadedIter"):
+        assert name in pconc.__all__
+
+
 def test_runner_exits_by_findings(tmp_path, capsys):
     """The runner (``python -m <package>.analysis``): 0 clean, 1 with
     findings, 2 on an unknown pass; --list names every pass."""
