@@ -1,0 +1,1 @@
+"""Benchmark of the PyTorch/CUDA port (see ``run.py``)."""
