@@ -28,7 +28,7 @@ PACKAGE = __name__.split(".")[0]
 #: the surface a plain run covers: the package, the root scripts that
 #: drive it on the card, and its parity tests (a root may be a glob)
 DEFAULT_ROOTS = (PACKAGE, "chip_smoke.py", "chip_stores.py",
-                 "torch_walls_ab.py", "tests/test_torch_*.py")
+                 "tests/test_torch_*.py")
 
 #: ``# dmlc-check: disable=check-a,check-b`` (optionally followed by a
 #: ``-- reason`` tail, which is encouraged but not parsed)

@@ -22,8 +22,7 @@ from .core import PACKAGE, Finding, Pass, RepoIndex
 
 # roots whose telemetry call sites define REAL metric families; tests
 # register throwaway stages ("stage", "smoke") that are not contract
-METRIC_ROOTS = (PACKAGE, "chip_smoke.py", "chip_stores.py",
-                "torch_walls_ab.py")
+METRIC_ROOTS = (PACKAGE, "chip_smoke.py", "chip_stores.py")
 _METRIC_FUNCS = {"inc", "set_gauge", "observe", "observe_duration",
                  "timed"}
 _METRIC_TOKEN_RE = re.compile(r"dmlc_[a-z0-9]+(?:_[a-z0-9]+)*")

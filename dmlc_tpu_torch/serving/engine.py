@@ -42,6 +42,20 @@ split across attention / mlp / unembed by ``decode_phase_flops``, the
 host's ``gather`` and ``sampling`` phases are measured, and every 8th
 iteration samples the card's memory.
 
+The loop's thread marks its phases with ``serving`` spans, each also a
+``torch.profiler`` range while a profiler records (:func:`_phase`):
+``serving.iteration`` (one :meth:`InferenceEngine.step`) encloses each
+``serving.prefill`` and a decode step's ``serving.decode.build`` (the
+window's ids, tables and positions), ``serving.decode.issue`` (the
+forward's host issue), ``serving.decode.wait`` (the host's first wait
+on the card), ``serving.decode.sample`` (the sampling walk, the cache
+commit and the rows' tokens; it is the ``sampling`` phase too) and,
+after ``step_end``, ``serving.decode.finish`` (completions, the
+registry, the per-iteration record, SLO); ``serving.idle`` is the
+loop's sleep when nothing ran.  The step ledger reads them: a decode
+step's ``build_s``, ``device_wait_s`` and ``host_issue_s`` (begin until
+the wait), and the prefills and idle time between two steps.
+
 Differences from the reference: no jit (PyTorch runs eagerly, so there
 are no shape buckets to pin and the decode batch is the live rows only,
 with no dead padding rows, though a routed config's expert capacity
@@ -117,6 +131,12 @@ logger = logging.getLogger("dmlc_tpu_torch.serving")
 #: plan, so a follower's wait for the next plan never reaches the
 #: process group's timeout
 _IDLE_PLAN_S = 1.0
+
+
+def _phase(name: str):
+    """One phase of the loop's iteration: a ``serving`` span on the
+    ring and, while a profiler records, a profiler range."""
+    return telemetry.span(name, stage="serving", profile=True)
 
 
 class AdmissionFull(DMLCError):
@@ -387,6 +407,9 @@ class InferenceEngine:
         self._thread: Optional[threading.Thread] = None
         # dmlc-check: unguarded(engine-thread-confined)
         self._flops_declared = False
+        # the open serving.idle span of the loop's current idle stretch
+        # dmlc-check: unguarded(engine-thread-confined)
+        self._idle = None
         # dmlc-check: unguarded(engine-thread-confined)
         self._fpt_cache: Dict[int, float] = {}   # context → FLOPs/token
         # dmlc-check: unguarded(engine-thread writes; stats() copies, a count may lag a step)
@@ -698,6 +721,7 @@ class InferenceEngine:
                     self._send({"op": "idle"})
             except Exception as e:  # noqa: BLE001 - the loop must not die
                 if self._gang:
+                    self._end_idle()
                     self._break_gang(e)
                     return
                 crashed = True
@@ -732,9 +756,19 @@ class InferenceEngine:
                 self.availability.set_state("starved_idle")
             if not did:
                 # idle: the SLO windows keep aging, so evaluation keeps
-                # running (throttled inside)
+                # running (throttled inside); one serving.idle span
+                # covers the stretch, closed when work comes
                 self.slo.maybe_evaluate()
+                if self._idle is None:
+                    self._idle = _phase("serving.idle")
+                    self._idle.__enter__()
                 time.sleep(0.002)
+        self._end_idle()
+
+    def _end_idle(self) -> None:
+        if self._idle is not None:
+            self._idle.__exit__(None, None, None)
+            self._idle = None
 
     # ---- one iteration --------------------------------------------------
     def step(self) -> bool:
@@ -743,7 +777,10 @@ class InferenceEngine:
         work happened.  Public so tests can single-step the engine."""
         self._step_seq += 1
         try:
-            with torch.inference_mode():
+            if not any(self.scheduler.counts()):
+                return False
+            self._end_idle()
+            with torch.inference_mode(), _phase("serving.iteration"):
                 did = False
                 while True:
                     req = self.scheduler.next_prefill()
@@ -801,7 +838,8 @@ class InferenceEngine:
             t0 = time.perf_counter()
             self.requests.on_prefill_begin(req.id, t=t0, resume=resume)
             with telemetry.span("serving.prefill", stage="serving",
-                                args={"tokens": n, "req": req.id}):
+                                args={"tokens": n, "req": req.id},
+                                profile=True):
                 blk, slot = self.cache.reserve(req.id, n, start=0)
                 logits = self._run({"op": "prefill", "ids": ids, "n": n,
                                     "blk": blk, "slot": slot})
@@ -916,48 +954,54 @@ class InferenceEngine:
             telemetry.declare_dtype(self.cfg.dtype)
             self._flops_declared = True
         telemetry.step_begin()
-        b = len(active)
-        # under a mesh the gather path pads the window to max_active rows
-        # (:799), dead ones after the live: the batch then splits over dp
-        rows = (self.max_active if self.mesh is not None
-                and not self._use_paged else b)
-        # column 0 is the token each row consumes; columns 1..k carry the
-        # drafter's proposals (zeros when it has none: the window mask is
-        # causal, so junk columns cannot change earlier positions)
-        ids = torch.zeros((rows, s_w), dtype=torch.long)
-        drafts: List[List[int]] = []
-        for i, req in enumerate(active):
-            ids[i, 0] = req.generated[-1]
-            d = self._draft_tokens(req) if s_w > 1 else []
-            if d:
-                ids[i, 1:1 + len(d)] = torch.tensor(d, dtype=torch.long)
-            drafts.append(d)
-        seq_ids = [r.id for r in active]
-        # a routed config's expert capacity counts the reference's padded
-        # batch (max_active rows, the dead ones after the live): the live
-        # tokens then route exactly as they do there
-        plan = {"ids": ids, "route": self.max_active * s_w}
-        if self._use_paged:
-            plan["op"] = "paged"
-            plan["tables"], lengths = self.cache.block_tables(seq_ids)
-            ctx_depth = plan["tables"].shape[1] * self.cache.block_size
-        else:
-            plan["op"] = "gather"
-            with compute.phase("gather"):
-                plan["idx"], plan["valid"], lengths = \
-                    self.cache.gather_plan(seq_ids, pad_batch=rows)
-            ctx_depth = plan["idx"].shape[1] * self.cache.block_size
-        base_lens = lengths[:b].tolist()
-        positions = torch.zeros((rows, s_w), dtype=torch.long)
-        positions[:b] = lengths[:b, None].long() + torch.arange(s_w)
-        plan["positions"], plan["lengths"] = positions, lengths
+        with _phase("serving.decode.build"):
+            b = len(active)
+            # under a mesh the gather path pads the window to max_active
+            # rows (:799), dead ones after the live: the batch then
+            # splits over dp
+            rows = (self.max_active if self.mesh is not None
+                    and not self._use_paged else b)
+            # column 0 is the token each row consumes; columns 1..k carry
+            # the drafter's proposals (zeros when it has none: the window
+            # mask is causal, so junk columns cannot change earlier
+            # positions)
+            ids = torch.zeros((rows, s_w), dtype=torch.long)
+            drafts: List[List[int]] = []
+            for i, req in enumerate(active):
+                ids[i, 0] = req.generated[-1]
+                d = self._draft_tokens(req) if s_w > 1 else []
+                if d:
+                    ids[i, 1:1 + len(d)] = torch.tensor(d, dtype=torch.long)
+                drafts.append(d)
+            seq_ids = [r.id for r in active]
+            # a routed config's expert capacity counts the reference's
+            # padded batch (max_active rows, the dead ones after the
+            # live): the live tokens then route exactly as they do there
+            plan = {"ids": ids, "route": self.max_active * s_w}
+            if self._use_paged:
+                plan["op"] = "paged"
+                plan["tables"], lengths = self.cache.block_tables(seq_ids)
+                ctx_depth = plan["tables"].shape[1] * self.cache.block_size
+            else:
+                plan["op"] = "gather"
+                with compute.phase("gather"):
+                    plan["idx"], plan["valid"], lengths = \
+                        self.cache.gather_plan(seq_ids, pad_batch=rows)
+                ctx_depth = plan["idx"].shape[1] * self.cache.block_size
+            base_lens = lengths[:b].tolist()
+            positions = torch.zeros((rows, s_w), dtype=torch.long)
+            positions[:b] = lengths[:b, None].long() + torch.arange(s_w)
+            plan["positions"], plan["lengths"] = positions, lengths
         t_dev = time.perf_counter()
-        out = self._run(plan)
-        logits = (out if self._use_paged else out[0])[:b]
-        amax = logits.argmax(dim=-1)                              # [B, S]
-        fin = torch.isfinite(torch.gather(logits, 2, amax[..., None]))[..., 0]
+        with _phase("serving.decode.issue"):
+            out = self._run(plan)
+            logits = (out if self._use_paged else out[0])[:b]
+            amax = logits.argmax(dim=-1)                          # [B, S]
+            fin = torch.isfinite(
+                torch.gather(logits, 2, amax[..., None]))[..., 0]
         # the host's first wait on the step: the device time ends here
-        amax, fin = amax.cpu().tolist(), fin.cpu().tolist()
+        with _phase("serving.decode.wait"):
+            amax, fin = amax.cpu().tolist(), fin.cpu().tolist()
         dev_s = time.perf_counter() - t_dev
         # executed FLOPs: every window position runs the full forward
         # whether or not its token commits (MFU counts work executed);
@@ -980,7 +1024,7 @@ class InferenceEngine:
         # the output is exactly plain greedy decoding
         outcomes = []
         n_tokens = n_proposed = n_accepted = 0
-        with compute.phase("sampling"):
+        with compute.phase("sampling", span="serving.decode.sample"):
             for i, req in enumerate(active):
                 draft = drafts[i]
                 n_proposed += len(draft)
@@ -1032,52 +1076,53 @@ class InferenceEngine:
             tokens_per_step=n_tokens / b,
             spec_accept_rate=(n_accepted / n_proposed
                               if n_proposed else None))
-        # completion delivery happens AFTER step_end: waking a handler
-        # thread is response streaming, not decode work
-        for req, _, _, fail, done in outcomes:
-            if fail:
-                self._finish(req, error="non-finite logits during decode "
-                             "(numeric corruption); retry the request",
-                             reason="nonfinite")
-            elif done:
-                self._finish(req)
-        self.counters["decode_steps"] += 1
-        self.counters["tokens_generated"] += n_tokens
-        self.counters["spec_proposed"] += n_proposed
-        self.counters["spec_accepted"] += n_accepted
-        if n_tokens:
-            telemetry.inc("serving", "tokens_generated", n_tokens)
-        telemetry.inc("serving", "decode_steps")
-        telemetry.observe("serving", "decode_batch", b)
-        telemetry.set_gauge("serving", "paged_active",
-                            1.0 if self._use_paged else 0.0)
-        if self._use_paged:
-            telemetry.inc("serving", "paged_decode_steps")
-        if s_w > 1:
-            telemetry.inc("serving", "spec_proposed", n_proposed)
-            telemetry.inc("serving", "spec_accepted", n_accepted)
-            if n_proposed:
-                telemetry.set_gauge("serving", "spec_accept_rate",
-                                    100.0 * n_accepted / n_proposed)
-            telemetry.observe("serving", "spec_tokens_per_step",
-                              n_tokens / b)
-        if cost:
-            telemetry.set_gauge("serving", "decode_signatures",
-                                cost["signatures"])
-        # memory peaks need only periodic samples: every 8th iteration
-        # (and the first, so short runs still record a peak)
-        self._hbm_tick += 1
-        if compute.enabled() and (self._hbm_tick - 1) % 8 == 0:
-            compute.sample_hbm()
-        # the per-iteration record (batch composition, queue depth, KV
-        # pressure: the /requests load signal), then a throttled SLO
-        # evaluation on fresh evidence
-        self.requests.on_iteration(
-            active=b, waiting=self.scheduler.n_waiting,
-            preempted=n_preempted, tokens=n_tokens,
-            kv_stats=self.cache.stats())
-        self.availability.note_tokens(n_tokens)
-        self.slo.maybe_evaluate()
+        with _phase("serving.decode.finish"):
+            # completion delivery happens AFTER step_end: waking a handler
+            # thread is response streaming, not decode work
+            for req, _, _, fail, done in outcomes:
+                if fail:
+                    self._finish(req, error="non-finite logits during decode "
+                                 "(numeric corruption); retry the request",
+                                 reason="nonfinite")
+                elif done:
+                    self._finish(req)
+            self.counters["decode_steps"] += 1
+            self.counters["tokens_generated"] += n_tokens
+            self.counters["spec_proposed"] += n_proposed
+            self.counters["spec_accepted"] += n_accepted
+            if n_tokens:
+                telemetry.inc("serving", "tokens_generated", n_tokens)
+            telemetry.inc("serving", "decode_steps")
+            telemetry.observe("serving", "decode_batch", b)
+            telemetry.set_gauge("serving", "paged_active",
+                                1.0 if self._use_paged else 0.0)
+            if self._use_paged:
+                telemetry.inc("serving", "paged_decode_steps")
+            if s_w > 1:
+                telemetry.inc("serving", "spec_proposed", n_proposed)
+                telemetry.inc("serving", "spec_accepted", n_accepted)
+                if n_proposed:
+                    telemetry.set_gauge("serving", "spec_accept_rate",
+                                        100.0 * n_accepted / n_proposed)
+                telemetry.observe("serving", "spec_tokens_per_step",
+                                  n_tokens / b)
+            if cost:
+                telemetry.set_gauge("serving", "decode_signatures",
+                                    cost["signatures"])
+            # memory peaks need only periodic samples: every 8th iteration
+            # (and the first, so short runs still record a peak)
+            self._hbm_tick += 1
+            if compute.enabled() and (self._hbm_tick - 1) % 8 == 0:
+                compute.sample_hbm()
+            # the per-iteration record (batch composition, queue depth, KV
+            # pressure: the /requests load signal), then a throttled SLO
+            # evaluation on fresh evidence
+            self.requests.on_iteration(
+                active=b, waiting=self.scheduler.n_waiting,
+                preempted=n_preempted, tokens=n_tokens,
+                kv_stats=self.cache.stats())
+            self.availability.note_tokens(n_tokens)
+            self.slo.maybe_evaluate()
 
     # ---- observability --------------------------------------------------
     def stats(self) -> dict:

@@ -706,18 +706,26 @@ def _add_phase(name: str, secs: float) -> None:
 
 
 @contextlib.contextmanager
-def phase(name: str):
+def phase(name: str, span: Optional[str] = None):
     """Host-measured phase scope (gather / sampling / ...).
 
     Always accounts wall time into the phase-share estimate (two clock
     reads); additionally opens a profiler scope (``core.annotate``)
     when deep tracing is on, so the phase shows up as a named region in
-    captured profiles."""
+    captured profiles.  ``span`` names a ``serving`` span that wraps
+    the same code (the engine's ``serving.decode.sample``): it is
+    opened in the annotation's place, with or without the ledger, so
+    one span and one profiler range serve both."""
+    if span is not None:
+        ctx = core.span(span, stage="serving", profile=True)
+    elif enabled() and phases_enabled():
+        ctx = core.annotate(name)
+    else:
+        ctx = contextlib.nullcontext()
     if not enabled():
-        yield
+        with ctx:
+            yield
         return
-    ctx = core.annotate(name) if phases_enabled() \
-        else contextlib.nullcontext()
     t0 = time.perf_counter()
     try:
         with ctx:

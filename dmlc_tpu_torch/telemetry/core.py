@@ -13,16 +13,22 @@ dashboards read either package:
                                    exportable; see telemetry.exporters)
 
 ``timed`` records both the counter and the histogram under
-``<name>_secs``.  ``annotate`` records a span AND a
-``torch.profiler.record_function`` range, so feed batches show up in a
+``<name>_secs``.  ``span(..., profile=True)`` (and ``annotate``) also
+opens a ``torch.profiler.record_function`` range while a profiler is
+recording, so feed batches and the serving engine's phases show up in a
 ``torch.profiler`` trace; ``trace(log_dir)`` captures one around a
-block and writes it as a Chrome trace.
+block and writes it as a Chrome trace.  The ring's clock is anchored
+to the wall clock by one (``time.time_ns``, ``perf_counter_ns``) pair
+(``anchor_epoch_ns``): a ``torch.profiler`` trace stamps host ranges
+in wall-clock ns, so a span's ``ts`` converts to the profiler's
+timeline (off only by what the wall clock has been slewed since).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import sys
 import threading
 import time
 from bisect import bisect_left
@@ -46,6 +52,7 @@ __all__ = [
     "spans_since",
     "open_spans",
     "anchor_epoch",
+    "anchor_epoch_ns",
     "annotate",
     "trace",
     "snapshot",
@@ -167,10 +174,15 @@ _gauges: Dict[str, Dict[str, float]] = defaultdict(dict)
 _hists: Dict[str, Dict[str, Histogram]] = defaultdict(dict)
 _spans: deque = deque(maxlen=_MAX_SPANS)
 _span_seq = 0  # monotone id per recorded span (incremental trace shipping)
-_T0 = time.perf_counter()  # process-relative span clock (µs in exports)
-# wall-clock moment of _T0: span ts + _T0_EPOCH places a span on this
-# process's wall clock (the /spans endpoint ships it beside the spans)
-_T0_EPOCH = time.time()
+# the span clock's anchor, one pair of reads: span ts (µs since _T0) +
+# _T0_EPOCH places a span on this process's wall clock (the /spans
+# endpoint ships it beside the spans; a torch.profiler trace stamps
+# host ranges in wall-clock ns, so ts * 1e3 + _T0_EPOCH_NS is the
+# span's start on the profiler's timeline)
+_T0_NS = time.perf_counter_ns()
+_T0_EPOCH_NS = time.time_ns()
+_T0 = _T0_NS / 1e9  # process-relative span clock (µs in exports)
+_T0_EPOCH = _T0_EPOCH_NS / 1e9
 _tls = threading.local()
 # tid -> (thread, open-span stack): the spans every thread is INSIDE
 # right now, not just finished ones
@@ -236,22 +248,42 @@ def _span_stack() -> List[Dict]:
     return stack
 
 
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` is recording: one module attribute
+    read, no call into torch (False before torch is imported)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return bool(prof is not None
+                and getattr(prof, "_is_profiler_enabled", True))
+
+
 @contextlib.contextmanager
-def span(name: str, stage: str = "dmlc", args: Optional[Dict] = None):
+def span(name: str, stage: str = "dmlc", args: Optional[Dict] = None,
+         profile: bool = False):
     """Nested, thread-aware timed span recorded into the bounded ring.
 
     Nesting is tracked per thread (a span opened inside another on the
     same thread records ``depth`` = enclosing count); Perfetto nests by
     ts/dur containment per tid, so exports render the tree directly.
+    ``profile=True`` also opens a ``record_function`` range of the same
+    name while a profiler records (:func:`profiling`); without one it
+    costs that one check.
     """
     global _span_seq
     stack = _span_stack()
     t0 = time.perf_counter()
     stack.append({"name": name, "cat": stage, "ts": (t0 - _T0) * 1e6,
                   "args": dict(args) if args else None})
+    ranged = None
+    if profile and profiling():
+        from torch.autograd.profiler import record_function
+
+        ranged = record_function(name)
+        ranged.__enter__()
     try:
         yield
     finally:
+        if ranged is not None:
+            ranged.__exit__(None, None, None)
         t1 = time.perf_counter()
         stack.pop()
         th = threading.current_thread()
@@ -322,9 +354,16 @@ def spans_since(after_seq: int, limit: Optional[int] = None) -> tuple:
     recoverable) rather than resending the whole ring forever; when
     ``limit`` truncated, it is the last RETURNED span's seq, so the
     still-retained remainder ships next call."""
+    out = []
     with _lock:
-        out = [r for r in _spans if r["seq"] > after_seq]
+        # seqs rise along the ring: walk in from the newest end, so a
+        # cursor near the head costs the spans after it, not the ring
+        for r in reversed(_spans):
+            if r["seq"] <= after_seq:
+                break
+            out.append(r)
         last = _span_seq
+    out.reverse()
     if limit is not None and len(out) > limit:
         out = out[:limit]
         last = out[-1]["seq"]
@@ -383,14 +422,17 @@ def anchor_epoch() -> float:
     return _T0_EPOCH
 
 
+def anchor_epoch_ns() -> int:
+    """Wall-clock ns (``time.time_ns``) corresponding to span ts == 0,
+    read in one pair with the span clock's origin."""
+    return _T0_EPOCH_NS
+
+
 @contextlib.contextmanager
 def annotate(name: str):
-    """Named span in BOTH our ring buffer and the ``torch.profiler``
-    trace (``record_function`` costs a few microseconds and records
-    nothing while no profiler runs)."""
-    from torch.profiler import record_function
-
-    with span(name, stage="annotate"), record_function(name):
+    """Named span in BOTH our ring buffer and, while a profiler
+    records, the ``torch.profiler`` trace."""
+    with span(name, stage="annotate", profile=True):
         yield
 
 

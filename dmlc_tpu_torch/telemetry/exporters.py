@@ -82,8 +82,13 @@ def _fmt_val(v: float) -> str:
 
 def to_chrome_trace(span_list: Optional[List[Dict]] = None,
                     pid: int = 0) -> Dict:
-    """Spans → Chrome trace-event dict ({"traceEvents": [...]})."""
-    recs = core.spans() if span_list is None else span_list
+    """Spans → Chrome trace-event dict ({"traceEvents": [...]}).  The
+    ring's own export (no ``span_list``) adds a ``clock_anchor``
+    metadata event whose ``epoch_ns`` is the wall-clock ns of ts 0, so
+    ``ts * 1e3 + epoch_ns`` lines a span up with a ``torch.profiler``
+    export of the same process."""
+    anchored = span_list is None
+    recs = core.spans() if anchored else span_list
     events: List[Dict] = []
     seen_threads = {}
     for r in recs:
@@ -106,6 +111,9 @@ def to_chrome_trace(span_list: Optional[List[Dict]] = None,
          "args": {"name": tname}}
         for tid, tname in seen_threads.items()
     ]
+    if anchored:
+        meta.append({"name": "clock_anchor", "ph": "M", "pid": pid,
+                     "tid": 0, "args": {"epoch_ns": core.anchor_epoch_ns()}})
     return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
 
 

@@ -12,6 +12,19 @@ One bounded record per step, with the JAX package's keys:
     count against the step — overlap is the point of the feed
     pipeline.  Collective spans on OTHER threads during the step window
     are summed separately as ``collective_overlapped_s``.
+  * **between steps** — ``between_s`` is the stepping thread's time
+    from the previous ``step_end`` to this ``step_begin`` (None on the
+    first step, after an abandoned one, or when the previous step ran
+    on another thread); the spans in that interval are classified as
+    the step's own, giving ``between_prefill_s`` /
+    ``n_between_prefills`` (``*.prefill``, ``*`` being the span's own
+    stage: ``serving.prefill``) and ``between_idle_s`` (``*.idle``).
+    Consecutive steps' ``between_s + wall_s`` tile the stepping
+    thread's time: a serving engine's prefills and idle sleeps land
+    between its decode steps.
+  * **inside a decode step** — ``build_s`` sums the step's
+    ``*.decode.build`` spans and ``device_wait_s`` its
+    ``*.decode.wait`` spans (the host's first wait on the card).
   * **goodput / MFU** — each record carries tokens, bytes fed (counter
     delta of ``feed.bytes_to_device`` unless given), and model-declared
     FLOPs (``declare_flops_per_token``; ``models.transformer`` and the
@@ -32,7 +45,10 @@ host_issue_s`` is how long the host waited for the card.  The span
 between the two events on the device's timeline includes the card's
 idle gaps (``event_span_s``), so it is not the card's busy time: busy
 time and idle share come from ``torch.profiler``.  Without a card there
-is no event and ``host_issue_s == wall_s``.  A failed event record
+is no event and ``host_issue_s == wall_s``.  A step that waits on the
+card itself before ``step_end`` (the serving engine reads its tokens)
+marks the wait with a ``*.decode.wait`` span: its ``host_issue_s`` is
+begin until the first such span starts, card or not.  A failed event record
 raises; the ledger never falls back to an unsynchronised wall.
 
 Every record also lands in the local registry (``step`` stage: time /
@@ -208,7 +224,13 @@ def _classify(rec: Dict) -> Optional[str]:
         return "checkpoint"
     if name == "pipeline.run":
         return "pipeline"
-    return None
+    # a serving loop's phases, named under their own stage
+    # (``serving.decode.wait``): not a compile span of a prefill site
+    return _PHASES.get(name[len(cat):]) if name.startswith(cat) else None
+
+
+_PHASES = {".decode.wait": "wait", ".decode.build": "build",
+           ".prefill": "prefill", ".idle": "idle"}
 
 
 class StepLedger:
@@ -238,6 +260,9 @@ class StepLedger:
         self._peak_bw_resolved = False
         # dmlc-check: unguarded(one step_begin/step_end pair at a time — class docstring)
         self._open: Optional[Dict] = None
+        # the previous step_end's (perf_counter, span cursor, tid)
+        # dmlc-check: unguarded(one step_begin/step_end pair at a time — class docstring)
+        self._last_end: Optional[Tuple[float, int, int]] = None
 
     # ---- declarations ---------------------------------------------------
     def declare_flops_per_token(self, flops: float) -> None:
@@ -301,6 +326,7 @@ class StepLedger:
                 self._open["span"].__exit__(None, None, None)
             except Exception:  # noqa: BLE001 - best effort unwind
                 pass
+            self._last_end = None
         n = self._seq + 1
         span = core.span("step", stage="step", args={"n": n})
         event = None
@@ -315,6 +341,7 @@ class StepLedger:
             "tid": threading.get_ident(),
             "span": span,
             "event": event,
+            "prev": self._last_end,
         }
         span.__enter__()
 
@@ -357,14 +384,23 @@ class StepLedger:
         t1 = time.perf_counter()
         if begin is None:
             t_issue = t1
-        wall = max(t1 - opened["t0"], 1e-9)
-        host_issue = min(max(t_issue - opened["t0"], 0.0), wall)
-
-        new_spans, _ = core.spans_since(opened["cursor"])
         tid = opened["tid"]
         ts0, ts1 = opened["ts0"], core.now_ts()
+        self._last_end = (t1, core.span_seq(), tid)
+        wall = max(t1 - opened["t0"], 1e-9)
+
+        prev = opened["prev"]
+        if prev is not None and prev[2] != tid:
+            prev = None
+        # one read covers the interval since the previous step_end and
+        # the step itself; the begin cursor splits them
+        new_spans, _ = core.spans_since(
+            opened["cursor"] if prev is None else prev[1])
+        between = {"prefill": 0.0, "idle": 0.0, "n_prefill": 0}
         buckets = {"feed": 0.0, "collective": 0.0, "pipeline": 0.0,
-                   "checkpoint": 0.0}
+                   "checkpoint": 0.0, "wait": 0.0, "build": 0.0,
+                   "prefill": 0.0, "idle": 0.0}
+        first_wait = None
         ivals = []
         own_ivals = []
         for rec in new_spans:
@@ -373,8 +409,16 @@ class StepLedger:
             kind = _classify(rec)
             if kind is None:
                 continue
+            if rec["seq"] <= opened["cursor"]:
+                if rec.get("tid") == tid and kind in ("prefill", "idle"):
+                    between[kind] += rec.get("dur", 0.0) / 1e6
+                    between["n_prefill"] += kind == "prefill"
+                continue
             if rec.get("tid") == tid:
                 buckets[kind] += rec.get("dur", 0.0) / 1e6
+                if kind == "wait" and (first_wait is None
+                                       or rec["ts"] < first_wait):
+                    first_wait = rec["ts"]
                 if kind != "collective":
                     continue
                 dest = own_ivals
@@ -429,6 +473,11 @@ class StepLedger:
         coll_s = min(buckets["collective"], wall - feed_s - ckpt_s)
         compute_s = max(wall - feed_s - ckpt_s - coll_s, 0.0)
         overlapped_s = min(overlapped / 1e6, wall)
+        if first_wait is not None:
+            t_issue = opened["t0"] + (first_wait - ts0) / 1e6
+        host_issue = min(max(t_issue - opened["t0"], 0.0), wall)
+        between_s = None if prev is None else max(opened["t0"] - prev[0],
+                                                   0.0)
 
         if bytes_fed is None:
             bytes_fed = (core.counter_value("feed", "bytes_to_device")
@@ -479,6 +528,15 @@ class StepLedger:
                 spec_accept_rate=(float(spec_accept_rate)
                                   if spec_accept_rate is not None
                                   else None),
+                build_s=min(buckets["build"], wall),
+                device_wait_s=min(buckets["wait"], wall),
+                between_s=between_s,
+                between_prefill_s=None if between_s is None
+                else min(between["prefill"], between_s),
+                between_idle_s=None if between_s is None
+                else min(between["idle"], between_s),
+                n_between_prefills=None if between_s is None
+                else between["n_prefill"],
             )
             self._records.append(rec)
         self._publish(rec)
@@ -642,6 +700,7 @@ class StepLedger:
             self._seq = 0
             self._flops_per_token = None
             self._open = None
+            self._last_end = None
             # drop RESOLVED-but-not-DECLARED peaks: a reset means a new
             # measurement context (tests repin DMLC_PEAK_* between
             # runs), and detection is cheap to redo — only an explicit

@@ -97,3 +97,28 @@ def test_serving_decode_steps_close_on_the_card(card):
     assert recs and all(r["event_span_s"] is not None
                         and r["host_issue_s"] <= r["wall_s"] for r in recs)
     assert sum(r["tokens"] for r in recs) == 3 * 7
+
+
+def test_decode_steps_time_their_wait_on_the_card(card):
+    """A decode step's first wait on the card (its ``serving.decode.wait``
+    span) is timed apart: ``host_issue_s`` ends where it starts, so the
+    host's issue is shorter than the wall and the wait is not empty."""
+    from dmlc_tpu_torch.serving import InferenceEngine
+
+    model = tfm.init_params(CFG, torch.Generator("cuda").manual_seed(2),
+                            card)
+    eng = InferenceEngine(model, device=card, n_blocks=64, block_size=16,
+                          max_active=4)
+    reqs = [eng.submit(list(range(1, 30 + 5 * i)), max_new_tokens=6)
+            for i in range(3)]
+    for _ in range(100):
+        if all(r.state == "done" for r in reqs):
+            break
+        eng.step()
+    eng.close()
+    recs = telemetry.ledger().records()
+    assert len(recs) >= 5
+    for r in recs:
+        assert 0 < r["device_wait_s"] and r["host_issue_s"] < r["wall_s"]
+        assert r["build_s"] <= r["host_issue_s"]
+        assert r["host_issue_s"] + r["device_wait_s"] <= r["wall_s"]
